@@ -6,9 +6,12 @@ nothing of JAX and nothing of `safevla_tpu` — and keeps its own copies of
 the pure-Python pieces it needs (config, constants, tokenizer).
 
 Ported so far: the serving path, `evaluation.agent.InferenceAgent.act`
-(augment -> normalise -> DINOv2 ViT -> 3 policy towers -> action), with the
-packed-qkv flash-attention forward as a hand-written CUDA kernel
-(`csrc/flash_attention_fwd.cu`, built at first use by `ops/_build.py`).
+(augment -> normalise -> DINOv2 ViT -> 3 policy towers -> action), and the
+learner update, `algo.learner.Learner.update` (GAE -> Lagrange ascent ->
+PPO epochs over `SafeVLAPolicy.forward_seq` -> optax's clip + Adam), with
+the packed-qkv flash-attention forward and backward as hand-written CUDA
+kernels (`csrc/flash_attention_{fwd,bwd}.cu`, built at first use by
+`ops/_build.py`).
 
 Entry points default to `device="cuda"` and raise when CUDA is absent unless
 the caller asks for `device="cpu"`; on the CPU every kernel wrapper runs its

@@ -1,16 +1,17 @@
-"""Configuration dataclasses read by the serving path.
+"""Configuration dataclasses read by the serving path and the learner update.
 
-Copy of the fields of `safevla_tpu/config.py::ModelConfig` and of the two
-`TrainConfig` fields the inference agent reads (`max_steps`,
-`augmentation_version`), with identical defaults. The rest of the JAX config
-tree (PPO, Lagrange, offline, mesh, eval) is ported with the slices that
-read it.
+Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
+`LagrangeConfig` and `TrainingStageConfig`, and of the `TrainConfig` fields
+the inference agent and the update read (`max_steps`, `augmentation_version`,
+`num_train_processes`, `seed`, `stages`), with identical defaults. The rest
+of the JAX config tree (offline, mesh, eval, the runner's fields) is ported
+with the slices that read it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 from safevla_tpu_torch.constants import NUM_ACTIONS
 
@@ -63,15 +64,70 @@ class ModelConfig:
     # 1 = shared actor/critic tower, 3 = actor / reward critic / cost critic
     num_towers: int = 3
 
-    # compute dtype of the towers (frozen weights are stored in it)
+    # compute dtype of the forward. The trainable tower parameters stay f32
+    # and are cast to it at use (flax Dense); the frozen ViT and T5 store
+    # their linear weights in it (one rounding at load, the same cast)
     compute_dtype: str = "bfloat16"
 
 
 @dataclass
-class TrainConfig:
-    """The fields of the online run configuration the serving path reads."""
+class PPOConfig:
+    """Constrained-PPO hyperparams (reference: dinov2_vits_tsfm_base.py:314-347)."""
 
+    clip_param: float = 0.1
+    value_loss_coef: float = 0.5
+    entropy_coef: float = 0.0
+    use_clipped_value_loss: bool = False
+    normalize_advantage: bool = False
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    max_grad_norm: float = 0.5
+    lr: float = 2e-5
+    num_mini_batch: int = 1
+    update_repeats: int = 4
+    num_steps: int = 128  # rollout length per iteration
+
+
+@dataclass
+class LagrangeConfig:
+    """Lagrange multiplier schedule (omnisafe.common.lagrange semantics)."""
+
+    cost_limit: float = 2.31
+    multiplier_init: float = 0.001
+    multiplier_lr: float = 0.035
+    multiplier_upper_bound: Optional[float] = None
+
+
+@dataclass
+class TrainingStageConfig:
+    """One pipeline stage: named losses + weights (AllenAct PipelineStage
+    semantics, reference dinov2_vits_tsfm_base.py:332-379). Names:
+    ppo_log_loss (PPO-Lagrangian surrogate incl. value/cost-value at
+    value_loss_coef), ppo_loss (unconstrained variant), ppo_value_loss,
+    safe_ppo_value_loss, imitation_bce_loss."""
+
+    loss_names: List[str] = field(default_factory=list)
+    max_stage_steps: int = 0
+    loss_weights: Optional[List[float]] = None  # None -> 1.0 each
+
+
+@dataclass
+class TrainConfig:
+    """The fields of the online run configuration the serving path and the
+    update read."""
+
+    num_train_processes: int = 32
     max_steps: int = 500  # per-episode cap; augmentation resamples this often
+    seed: int = 123
+    # 3-stage pipeline (reference dinov2_vits_tsfm_base.py:310-379): stage 0
+    # trains only the critics, stages 1-2 the full PPO-Lagrangian loss
+    stages: List[TrainingStageConfig] = field(
+        default_factory=lambda: [
+            TrainingStageConfig(["ppo_value_loss", "safe_ppo_value_loss"], 200_000),
+            TrainingStageConfig(["ppo_log_loss"], 800_000),
+            TrainingStageConfig(["ppo_log_loss"], int(1e9) - 1_000_000),
+        ]
+    )
     augmentation_version: str = "v2"
 
 
@@ -79,3 +135,5 @@ class TrainConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    ppo: PPOConfig = field(default_factory=PPOConfig)
+    lagrange: LagrangeConfig = field(default_factory=LagrangeConfig)

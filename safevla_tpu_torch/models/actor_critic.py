@@ -1,11 +1,16 @@
 """SafeVLA policy: DINOv2 features -> fusion transformer -> causal decoder
 -> actor / reward-critic / cost-critic.
 
-Counterpart of `safevla_tpu/models/actor_critic.py`, serving path only
-(`act_step`, `init_state`, `update_text`; the update's `forward_seq` comes
-with the training slice). Three `PolicyTower` modules run one after another
+Counterpart of `safevla_tpu/models/actor_critic.py`: the serving path
+(`act_step`, `init_state`, `update_text`) and the update's full-sequence
+forward (`forward_seq`: fusion over the packed B*T samples in checkpointed
+chunks, then the decoder over the packed block-causal mask, then the heads).
+The async pipeline's `embed_time_range` / `decode_from_embeds` are not
+ported yet. Three `PolicyTower` modules run one after another
 (the JAX package vmaps one tower over stacked parameters); logits come from
-tower 0, values from tower 1, cost values from tower 2. Tower modules carry
+tower 0, values from tower 1, cost values from tower 2. Trainable tower
+parameters are f32 and cast to the compute dtype at use, as flax's Dense
+(`models/dense.py`). Tower modules carry
 the reference's torch state-dict names (`visual_encoder.fusion_xformer...`,
 `last_actions_embed`, `decoder.layers.N...`, `actor.linear`, `critic.fc`);
 the reference prefixes its critic towers with `critic_tsfm.` and
@@ -17,21 +22,23 @@ from __future__ import annotations
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from safevla_tpu_torch import resolve_device
 from safevla_tpu_torch.config import ModelConfig
+from safevla_tpu_torch.models.dense import Dense, cast_param
 from safevla_tpu_torch.models.fusion import FusionTransformer, TorchMultiheadAttention
 from safevla_tpu_torch.models.image_encoders import build_image_encoder
 from safevla_tpu_torch.models.llama_decoder import DecoderConfig, LlamaDecoder, RMSNorm
 from safevla_tpu_torch.models.norms import CompatLayerNorm
 from safevla_tpu_torch.models.t5 import T5Config, T5Encoder, T5LayerNorm
 from safevla_tpu_torch.models.vit import DinoViT, LayerScale
-from safevla_tpu_torch.ops.masks import incremental_episode_mask
+from safevla_tpu_torch.ops.masks import incremental_episode_mask, packed_block_causal_mask
 
 
 def sinusoidal_time_encoding(position: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -58,15 +65,15 @@ class VisualEncoder(nn.Module):
         h0, h1 = c.dino_compressor_hidden_out_dims
         # 1x1 convs on the (7, 12) grid; applied as matmuls on channels-last
         self.visual_compressor = nn.Sequential(
-            nn.Conv2d(c.vision_feature_dim, h0, 1, dtype=dtype), nn.ReLU(),
-            nn.Conv2d(h0, h1, 1, dtype=dtype), nn.ReLU(),
+            nn.Conv2d(c.vision_feature_dim, h0, 1), nn.ReLU(),
+            nn.Conv2d(h0, h1, 1), nn.ReLU(),
         )
         # reference adapter order: Linear, LayerNorm (f32, eps 1e-6), ReLU
         self.visual_adapter = nn.Sequential(
-            nn.Linear(h1, h1, dtype=dtype), CompatLayerNorm(h1), nn.ReLU()
+            Dense(h1, h1, compute_dtype=dtype), CompatLayerNorm(h1), nn.ReLU()
         )
         self.text_adapter = nn.Sequential(
-            nn.Linear(c.text_embed_size, c.goal_dims, dtype=dtype),
+            Dense(c.text_embed_size, c.goal_dims, compute_dtype=dtype),
             CompatLayerNorm(c.goal_dims),
             nn.ReLU(),
         )
@@ -86,9 +93,11 @@ class VisualEncoder(nn.Module):
 
     def camera_tokens(self, feat, cam_token):
         """feat (N, gh, gw, Dv) -> (N, gh*gw, goal_dims) tokens + camera token."""
-        conv0, conv1 = self.visual_compressor[0], self.visual_compressor[2]
-        x = F.relu(F.linear(feat.to(self.dtype), conv0.weight.flatten(1), conv0.bias))
-        x = F.relu(F.linear(x, conv1.weight.flatten(1), conv1.bias))
+        dt = self.dtype
+        x = feat.to(dt)
+        for conv in (self.visual_compressor[0], self.visual_compressor[2]):
+            w, b = cast_param(conv.weight, dt).flatten(1), cast_param(conv.bias, dt)
+            x = F.relu(F.linear(x, w, b))
         x = x.reshape(feat.shape[0], -1, x.shape[-1])
         x = self.visual_adapter(x).to(self.dtype)
         return x + cam_token.to(self.dtype)
@@ -178,6 +187,20 @@ class PolicyTower(nn.Module):
         values = self.critic.fc(beliefs)[..., 0]
         return logits, values
 
+    def embed_obs(self, dino_nav_flat, dino_manip_flat, text_h, text_m):
+        """Per-step fusion embedding over a flat (N, ...) batch -> (N, D) f32.
+        Per-step independent, so forward_seq runs it in checkpointed chunks."""
+        return self._fuse(dino_nav_flat, dino_manip_flat, text_h, text_m)
+
+    def decode_heads(self, obs_embeds, prev_actions, not_reset, object_in_hand, time_step, attn_mask):
+        """(B, T, D) observation embeddings -> full-sequence decoder + heads:
+        (logits, values, value logits (None: linear critic), values of the
+        critic on stop-gradient beliefs)."""
+        joint = self._joint_embed(obs_embeds, prev_actions, not_reset, object_in_hand, time_step)
+        beliefs = self.decoder.full(joint, attn_mask)
+        logits, values = self._heads(beliefs)
+        return logits, values, None, self.critic.fc(beliefs.detach())[..., 0]
+
     def step(
         self,
         dino_nav,  # (B, gh, gw, Dv)
@@ -205,6 +228,34 @@ class PolicyTower(nn.Module):
         beliefs = self.decoder.step(joint, cache_k, cache_v, pos, mask)
         logits, values = self._heads(beliefs)
         return logits[:, 0], values[:, 0]
+
+
+@dataclass
+class PolicyOutputs:
+    logits: torch.Tensor  # (B, T, A) from the actor tower
+    values: torch.Tensor  # (B, T) reward critic
+    c_values: Optional[torch.Tensor]  # (B, T) cost critic (None if num_towers < 3)
+    value_logits: Optional[torch.Tensor]  # discrete critic only
+    c_value_logits: Optional[torch.Tensor]
+    stop_grad_values: Optional[torch.Tensor]
+    extras: Dict[str, Any]
+
+
+def _flat_text(text_hidden, text_mask, text_idx, b: int, t: int):
+    """Per-step instruction encodings flattened b-major to (B*T, L, D), from
+    one of three layouts: a (B, E, L, D) episode table indexed by text_idx
+    (B, T); per-step (B, T, L, D); one (B, L, D) per stream."""
+    n = b * t
+    if text_idx is not None:
+        rows = torch.arange(b, device=text_idx.device)[:, None]
+        idx = text_idx.long()
+        return (
+            text_hidden[rows, idx].reshape((n,) + text_hidden.shape[2:]),
+            text_mask[rows, idx].reshape(n, -1),
+        )
+    if text_hidden.dim() == 4:
+        return text_hidden.reshape((n,) + text_hidden.shape[2:]), text_mask.reshape(n, -1)
+    return text_hidden.repeat_interleave(t, dim=0), text_mask.repeat_interleave(t, dim=0)
 
 
 @dataclass
@@ -337,6 +388,65 @@ class SafeVLAPolicy(nn.Module):
         if self.num_towers >= 3:
             return logits[0], values[1], values[2], new_state
         return logits[0], values[0], values[0], new_state
+
+    def forward_seq(
+        self,
+        dino_nav,  # (B, T, gh, gw, Dv)
+        dino_manip,  # (B, T, gh, gw, Dv) or None
+        text_hidden,  # (B, E, L, Dt) with text_idx, (B, T, L, Dt) or (B, L, Dt)
+        text_mask,  # the matching (..., L) bool
+        prev_actions,  # (B, T) int
+        not_reset,  # (B, T); 0 marks episode starts
+        object_in_hand,  # (B, T) int or None
+        time_step,  # (B, T) int in-episode step index
+        traj_idx,  # (B, T) int trajectory ids (packed block-causal mask)
+        text_idx=None,  # (B, T) int into the episode table
+    ) -> PolicyOutputs:
+        """Update-time full-sequence forward with trajectory-packed masking.
+
+        Per tower, the fusion encoder runs over the packed B*T samples in
+        chunks of cfg.fusion_chunk (the largest divisor of B*T not above it),
+        each under `torch.utils.checkpoint`: its activations are recomputed
+        in the backward instead of stored. The decoder runs full-sequence."""
+        attn_mask = packed_block_causal_mask(traj_idx)
+        b, t = dino_nav.shape[:2]
+        n = b * t
+        flat = lambda x: None if x is None else x.reshape((n,) + x.shape[2:])
+        args = (flat(dino_nav), flat(dino_manip), *_flat_text(text_hidden, text_mask, text_idx, b, t))
+        chunk = min(self.cfg.fusion_chunk or n, n)
+        while n % chunk:
+            chunk -= 1
+        outs = []
+        for tower in self.towers:
+            fused = [
+                checkpoint(
+                    tower.embed_obs, *(None if a is None else a[i : i + chunk] for a in args),
+                    use_reentrant=False,
+                )
+                for i in range(0, n, chunk)
+            ]
+            obs_embeds = torch.cat(fused).reshape(b, t, -1)
+            outs.append(
+                tower.decode_heads(
+                    obs_embeds, prev_actions, not_reset, object_in_hand, time_step, attn_mask
+                )
+            )
+        logits, values, value_logits, sg = zip(*outs)
+        return self._package_outputs(logits, values, value_logits, sg)
+
+    def _package_outputs(self, logits, values, value_logits, sg) -> PolicyOutputs:
+        """Per-tower head outputs -> PolicyOutputs (actor from tower 0; with
+        three towers the critics from towers 1 and 2)."""
+        critic, c_critic = (1, 2) if self.num_towers >= 3 else (0, None)
+        return PolicyOutputs(
+            logits=logits[0],
+            values=values[critic],
+            c_values=None if c_critic is None else values[c_critic],
+            value_logits=value_logits[critic],
+            c_value_logits=None if c_critic is None else value_logits[c_critic],
+            stop_grad_values=sg[critic],
+            extras={},
+        )
 
     # -------------- state management --------------
 

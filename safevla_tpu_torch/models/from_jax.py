@@ -12,8 +12,11 @@ and fills the port's modules:
   * flax LayerNorm scale / bias -> weight / bias.
 The port's names are the reference's torch names, so the JAX package's own
 importers (`safevla_tpu/models/convert.py`) read a port state dict back.
-Values are cast to each parameter's dtype on load (bf16 Linear weights get
-the same rounding the JAX modules apply at every use).
+The tower parameters are f32, as the JAX package's, so they are carried bit
+for bit (each tower layer casts its weights to the compute dtype at use, as
+flax's Dense does). The frozen ViT and T5 store their linear weights in
+their compute dtype, so theirs are rounded once on load: the same rounding
+the JAX modules apply at every use.
 """
 
 from __future__ import annotations

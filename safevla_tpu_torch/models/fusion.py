@@ -10,6 +10,8 @@ torch's (`layers.N.self_attn.in_proj_weight`, `linear1`, `norm1`, ...).
   reads just the fused CLS): q, out-proj, residual, LN and MLP for those rows,
   K/V for all. That attention is XLA code in JAX, so here it is plain torch
   (`dense_attention`).
+* Parameters are f32 and cast to the compute dtype at use (flax Dense, see
+  `models/dense.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from safevla_tpu_torch.models.dense import Dense, cast_param
 from safevla_tpu_torch.models.norms import CompatLayerNorm
 from safevla_tpu_torch.ops.flash_attention import attention_qkv, dense_attention
 
@@ -32,21 +35,23 @@ class TorchMultiheadAttention(nn.Module):
         self.dtype = dtype
         # torch's packed (3d, d) in_proj: rows [q; k; v] give the [q|k|v]
         # output layout the kernel reads
-        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim, dtype=dtype))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim, dtype=dtype))
-        self.out_proj = nn.Linear(dim, dim, dtype=dtype)
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = Dense(dim, dim, compute_dtype=dtype)
 
     def forward(self, x, key_lens=None, q_rows=None):
         b, t, d = x.shape
         h = self.num_heads
+        w = cast_param(self.in_proj_weight, self.dtype)
+        bias = cast_param(self.in_proj_bias, self.dtype)
         if q_rows is None:
-            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+            qkv = F.linear(x, w, bias)
             out = attention_qkv(qkv, h, key_lens=key_lens).to(self.dtype)
         else:
             # restricted-query attention: only the first q_rows outputs are
             # consumed, so q is projected for those rows alone
-            q = F.linear(x[:, :q_rows], self.in_proj_weight[:d], self.in_proj_bias[:d])
-            kv = F.linear(x, self.in_proj_weight[d:], self.in_proj_bias[d:])
+            q = F.linear(x[:, :q_rows], w[:d], bias[:d])
+            kv = F.linear(x, w[d:], bias[d:])
             k, v = kv[..., :d], kv[..., d:]
             key_mask = None
             if key_lens is not None:
@@ -63,8 +68,8 @@ class FusionLayer(nn.Module):
     def __init__(self, dim: int, num_heads: int, ffn_dim: int, dtype: torch.dtype):
         super().__init__()
         self.self_attn = TorchMultiheadAttention(dim, num_heads, dtype)
-        self.linear1 = nn.Linear(dim, ffn_dim, dtype=dtype)
-        self.linear2 = nn.Linear(ffn_dim, dim, dtype=dtype)
+        self.linear1 = Dense(dim, ffn_dim, compute_dtype=dtype)
+        self.linear2 = Dense(ffn_dim, dim, compute_dtype=dtype)
         self.norm1 = CompatLayerNorm(dim, out_dtype=dtype)
         self.norm2 = CompatLayerNorm(dim, out_dtype=dtype)
 

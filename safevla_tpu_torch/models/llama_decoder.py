@@ -10,8 +10,9 @@ Module names follow the reference decoder (`layers.N.attention.wq`,
 Attention is plain torch matmul + softmax (XLA code in JAX, not a kernel):
 f32 logits, -1e9 on masked slots, probabilities cast to the compute dtype,
 f32-accumulated p.v. The single-step decode writes k/v at `pos` into the
-cache IN PLACE (the JAX version returns a new cache); `full` (the update's
-full-sequence path) is ported with the training slice.
+cache IN PLACE (the JAX version returns a new cache); `full` is the update's
+full-sequence path over a packed block-causal mask. Linear weights are f32,
+cast to the compute dtype at use (flax Dense, `models/dense.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from safevla_tpu_torch.models.dense import Dense
 
 
 @dataclass(frozen=True)
@@ -73,10 +76,18 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.dim
-        self.wq = nn.Linear(d, d, bias=False, dtype=cfg.dtype)
-        self.wk = nn.Linear(d, d, bias=False, dtype=cfg.dtype)
-        self.wv = nn.Linear(d, d, bias=False, dtype=cfg.dtype)
-        self.wo = nn.Linear(d, d, bias=False, dtype=cfg.dtype)
+        self.wq = Dense(d, d, bias=False, compute_dtype=cfg.dtype)
+        self.wk = Dense(d, d, bias=False, compute_dtype=cfg.dtype)
+        self.wv = Dense(d, d, bias=False, compute_dtype=cfg.dtype)
+        self.wo = Dense(d, d, bias=False, compute_dtype=cfg.dtype)
+
+    def full(self, x, mask):
+        """x (B, T, D); mask (B, 1, T, T) bool -> (B, T, D)."""
+        b, t = x.shape[:2]
+        h, dh = self.cfg.n_heads, self.cfg.head_dim
+        q, k, v = (w(x).reshape(b, t, h, dh) for w in (self.wq, self.wk, self.wv))
+        out = _attend(q, k, v, mask, self.cfg.dtype)
+        return self.wo(out.reshape(b, t, self.cfg.dim))
 
     def step(self, x, cache_k, cache_v, pos: int, mask):
         """x (B, 1, D); cache_k/v (B, S, H, Dh), updated in place at slot pos."""
@@ -93,9 +104,9 @@ class FeedForward(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
         hidden = cfg.ffn_hidden
-        self.w1 = nn.Linear(cfg.dim, hidden, bias=False, dtype=cfg.dtype)
-        self.w2 = nn.Linear(hidden, cfg.dim, bias=False, dtype=cfg.dtype)
-        self.w3 = nn.Linear(cfg.dim, hidden, bias=False, dtype=cfg.dtype)
+        self.w1 = Dense(cfg.dim, hidden, bias=False, compute_dtype=cfg.dtype)
+        self.w2 = Dense(hidden, cfg.dim, bias=False, compute_dtype=cfg.dtype)
+        self.w3 = Dense(cfg.dim, hidden, bias=False, compute_dtype=cfg.dtype)
 
     def forward(self, x):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
@@ -109,6 +120,10 @@ class DecoderBlock(nn.Module):
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps)
 
+    def full(self, x, mask):
+        h = x + self.attention.full(self.attention_norm(x), mask)
+        return h + self.feed_forward(self.ffn_norm(h))
+
     def step(self, x, cache_k, cache_v, pos: int, mask):
         h = x + self.attention.step(self.attention_norm(x), cache_k, cache_v, pos, mask)
         return h + self.feed_forward(self.ffn_norm(h))
@@ -121,7 +136,14 @@ class LlamaDecoder(nn.Module):
         self.layers = nn.ModuleList(DecoderBlock(cfg) for _ in range(cfg.n_layers))
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps)
         # bias-free projection back to dim (reference vocab_size == dim)
-        self.output = nn.Linear(cfg.dim, cfg.dim, bias=False, dtype=cfg.dtype)
+        self.output = Dense(cfg.dim, cfg.dim, bias=False, compute_dtype=cfg.dtype)
+
+    def full(self, x, mask):
+        """x (B, T, D); mask (B, 1, T, T) bool (packed block-causal) -> (B, T, D) f32."""
+        h = x.to(self.cfg.dtype)
+        for layer in self.layers:
+            h = layer.full(h, mask)
+        return self.output(self.norm(h)).float()
 
     def step(self, x, cache_k, cache_v, pos: int, mask):
         """x (B, 1, D); cache_k/v (L, B, S, H, Dh), written in place at slot

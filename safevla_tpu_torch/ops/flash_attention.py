@@ -12,6 +12,14 @@ text, padded ViT tokens).
   version with the kernel's rounding points: f32 logits scaled by 1/sqrt(Dh),
   -1e30 on masked columns, f32 max/exp/denominator, probabilities cast to the
   IO dtype before the f32-accumulated p.v product, then / denominator.
+* Whenever a gradient is taken, `attention_qkv` goes through
+  `_AttentionQKV`, an autograd Function (the custom VJP of JAX's
+  `_attention_diff_qkv`). It saves (qkv, key_lens) as the JAX residual does;
+  its backward is `attention_qkv_bwd`: on a CUDA tensor
+  `csrc/flash_attention_bwd.cu` (the port of the Pallas `_bwd_kernel`), on a
+  CPU tensor `attention_qkv_bwd_reference`, whose rounding points are the
+  TPU kernel's: p = io(e / rowsum(e)) (division BEFORE the cast, unlike the
+  forward), ds = p * (dp - rowsum(dp * p)) in f32, io(ds) for dq and dk.
 
 `dense_attention` is the counterpart of `_xla_attention`: the separate-q/k/v
 path the fusion's last layer (one query row) takes, as it does in JAX.
@@ -38,6 +46,18 @@ _C_ARGTYPES = {
         ctypes.c_int,
     ),
     "attention_qkv_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+_C_ARGTYPES_BWD = {
+    "attention_qkv_bwd": (
+        [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, g, key_lens, dqkv
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
+            ctypes.c_longlong, ctypes.c_longlong,  # qkv / dqkv stride_b, stride_s (elements)
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
+        ],
+        ctypes.c_int,
+    ),
+    "attention_qkv_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
 
@@ -70,22 +90,34 @@ def attention_qkv_reference(
     return out.permute(0, 2, 1, 3).reshape(b, s, lanes)
 
 
-def attention_qkv(
-    qkv: torch.Tensor, heads: int, key_lens: torch.Tensor | None = None
+def attention_qkv_bwd_reference(
+    qkv: torch.Tensor, heads: int, key_lens: torch.Tensor | None, g: torch.Tensor
 ) -> torch.Tensor:
-    """Packed-projection attention: qkv (B, S, 3*H*Dh) -> (B, S, H*Dh).
-
-    key_lens (B,) int32 (optional): count of valid keys per row, in [1, S];
-    columns >= key_lens[b] are excluded from the softmax. On a CUDA tensor the
-    range is checked inside the kernel (a trap), since reading a device
-    tensor here would synchronise every call."""
+    """Plain PyTorch version of the backward kernel (and of the Pallas
+    `_bwd_kernel`): g (B, S, H*Dh) cotangent -> dqkv (B, S, 3*H*Dh)."""
     b, s, lanes, dh = _split_heads(qkv, heads)
-    if qkv.device.type == "cpu":
-        if key_lens is not None and not bool(((key_lens >= 1) & (key_lens <= s)).all()):
-            raise ValueError(f"key_lens must lie in [1, {s}], got {key_lens.tolist()}")
-        return attention_qkv_reference(qkv, heads, key_lens)
+    io = qkv.dtype
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v = (x.float() for x in qkv.reshape(b, s, 3, heads, dh).unbind(2))
+    gf = g.to(io).float().reshape(b, s, heads, dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if key_lens is not None:
+        valid = torch.arange(s, device=qkv.device)[None, :] < key_lens.to(qkv.device)[:, None]
+        logits = logits + torch.where(valid, 0.0, _NEG_INF)[:, None, None, :]
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    pf = (e / e.sum(dim=-1, keepdim=True)).to(io).float()  # (B, H, Sq, Sk)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pf, gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, v)
+    ds = pf * (dp - (dp * pf).sum(dim=-1, keepdim=True))
+    dsb = ds.to(io).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", dsb, k) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", dsb, q) * scale
+    return torch.cat([x.to(io).reshape(b, s, lanes) for x in (dq, dk, dv)], dim=-1)
+
+
+def _check_cuda_args(qkv, dh, b, key_lens, what: str) -> None:
     if qkv.device.type != "cuda":
-        raise ValueError(f"attention_qkv runs on cuda or cpu tensors, not {qkv.device}")
+        raise ValueError(f"{what} runs on cuda or cpu tensors, not {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA kernel takes bfloat16 or float32, not {qkv.dtype}")
     if dh not in KERNEL_HEAD_DIMS:
@@ -102,13 +134,34 @@ def attention_qkv(
             raise ValueError(
                 f"key_lens must be a contiguous int32 ({b},) tensor on {qkv.device}"
             )
+
+
+def _check_cpu_key_lens(key_lens, s: int) -> None:
+    if key_lens is not None and not bool(((key_lens >= 1) & (key_lens <= s)).all()):
+        raise ValueError(f"key_lens must lie in [1, {s}], got {key_lens.tolist()}")
+
+
+def _launch(lib, fn: str, *args) -> None:
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        msg = getattr(lib, f"{fn}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
+
+
+def _attention_qkv_fwd(qkv, heads, key_lens):
+    """The forward on one device: kernel on CUDA, plain version on the CPU."""
+    b, s, lanes, dh = _split_heads(qkv, heads)
+    if qkv.device.type == "cpu":
+        _check_cpu_key_lens(key_lens, s)
+        return attention_qkv_reference(qkv, heads, key_lens)
+    _check_cuda_args(qkv, dh, b, key_lens, "attention_qkv")
     from safevla_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_attention_fwd", _C_ARGTYPES)
     out = torch.empty((b, s, lanes), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.attention_qkv_fwd(
+        _launch(
+            lib, "attention_qkv_fwd",
             qkv.data_ptr(),
             None if key_lens is None else key_lens.data_ptr(),
             out.data_ptr(),
@@ -116,13 +169,83 @@ def attention_qkv(
             qkv.stride(0), qkv.stride(1),
             1.0 / math.sqrt(dh),
             _DTYPE_CODES[qkv.dtype],
-            stream,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
         )
-    if err != 0:
-        msg = lib.attention_qkv_fwd_error_string(err).decode()
-        raise RuntimeError(f"attention_qkv_fwd launch failed: {msg} (cudaError {err})")
     attention_qkv.launches += 1
     return out
+
+
+def attention_qkv_bwd(
+    qkv: torch.Tensor, heads: int, key_lens: torch.Tensor | None, g: torch.Tensor
+) -> torch.Tensor:
+    """The attention VJP: g (B, S, H*Dh) -> dqkv (B, S, 3*H*Dh) in qkv's
+    dtype (g is cast to it first, as the TPU kernel does). On a CUDA tensor
+    it launches the backward kernel or raises; on a CPU tensor it runs
+    `attention_qkv_bwd_reference`."""
+    b, s, lanes, dh = _split_heads(qkv, heads)
+    if g.shape != (b, s, lanes):
+        raise ValueError(f"g must be ({b}, {s}, {lanes}), got {tuple(g.shape)}")
+    if qkv.device.type == "cpu":
+        _check_cpu_key_lens(key_lens, s)
+        return attention_qkv_bwd_reference(qkv, heads, key_lens, g)
+    _check_cuda_args(qkv, dh, b, key_lens, "attention_qkv_bwd")
+    g = g.to(qkv.dtype).contiguous()
+    if g.device != qkv.device or g.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs g on qkv's device, 16-byte aligned")
+    from safevla_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_attention_bwd", _C_ARGTYPES_BWD)
+    dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    with torch.cuda.device(qkv.device):
+        _launch(
+            lib, "attention_qkv_bwd",
+            qkv.data_ptr(),
+            g.data_ptr(),
+            None if key_lens is None else key_lens.data_ptr(),
+            dqkv.data_ptr(),
+            b, s, heads, dh,
+            qkv.stride(0), qkv.stride(1),
+            1.0 / math.sqrt(dh),
+            _DTYPE_CODES[qkv.dtype],
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    attention_qkv_bwd.launches += 1
+    return dqkv
+
+
+attention_qkv_bwd.launches = 0  # kernel launches since the last reset (a plain int)
+
+
+class _AttentionQKV(torch.autograd.Function):
+    """attention_qkv with the flash-attention VJP as its backward. Under
+    torch.utils.checkpoint the forward runs again in the backward pass, and
+    the saved qkv is the recomputed one."""
+
+    @staticmethod
+    def forward(ctx, qkv, key_lens, heads):
+        ctx.heads = heads
+        ctx.save_for_backward(qkv, key_lens)
+        return _attention_qkv_fwd(qkv, heads, key_lens)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, key_lens = ctx.saved_tensors
+        return attention_qkv_bwd(qkv, ctx.heads, key_lens, g), None, None
+
+
+def attention_qkv(
+    qkv: torch.Tensor, heads: int, key_lens: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Packed-projection attention: qkv (B, S, 3*H*Dh) -> (B, S, H*Dh).
+
+    key_lens (B,) int32 (optional): count of valid keys per row, in [1, S];
+    columns >= key_lens[b] are excluded from the softmax. On a CUDA tensor the
+    range is checked inside the kernel (a trap), since reading a device
+    tensor here would synchronise every call. Differentiable in qkv: when a
+    gradient is taken, the backward is `attention_qkv_bwd`."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _AttentionQKV.apply(qkv, key_lens, heads)
+    return _attention_qkv_fwd(qkv, heads, key_lens)
 
 
 attention_qkv.launches = 0  # kernel launches since the last reset (a plain int)

@@ -41,9 +41,10 @@ def _assert_same(got, want):
 
 @pytest.fixture(scope="module")
 def carried(tiny_model_cfg):
-    """A tiny f32 policy on both sides: the port stores bf16-computed linears
-    in bf16 (the cast JAX applies at every use), which a bit-exact round trip
-    cannot go through, so the ViT and T5 configs are switched to f32."""
+    """A tiny f32 policy on both sides: the port stores the frozen ViT's and
+    T5's bf16-computed linears in bf16 (the cast JAX applies at every use),
+    which a bit-exact round trip cannot go through, so the ViT and T5 configs
+    are switched to f32."""
     kw = dict(embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42)
     with pytest.MonkeyPatch.context() as mp:
         mp.setitem(jvit.VIT_CONFIGS, VIT, jvit.DinoViTConfig(dtype=jnp.float32, **kw))
@@ -96,3 +97,22 @@ def test_load_is_strict(carried):
     del broken["towers"]["params"]["actor_head"]
     with pytest.raises(KeyError):
         load_jax_params(policy, broken)
+
+
+def test_tower_weights_stay_f32_at_a_bf16_compute_dtype(carried, monkeypatch):
+    """The towers keep f32 master weights whatever the compute dtype (flax
+    Dense: param_dtype f32, cast at use), so the carry is bit-exact."""
+    cfg, params, _ = carried
+    kw = dict(embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42)
+    monkeypatch.setitem(pvit.VIT_CONFIGS, VIT, pvit.DinoViTConfig(**kw))  # bf16 ViT
+    bf16 = dataclasses.replace(cfg, vision_backbone=VIT, compute_dtype="bfloat16")
+    policy = pac.SafeVLAPolicy(ModelConfig(**dataclasses.asdict(bf16)), device="cpu")
+    load_jax_params(policy, params)
+    assert {p.dtype for p in policy.towers.parameters()} == {torch.float32}
+    for t in range(cfg.num_towers):
+        back = convert.import_tower_state_dict(
+            dict(policy.towers[t].state_dict()),
+            num_tx_layers=cfg.num_tx_layers,
+            combiner_layers=cfg.combiner_layers,
+        )
+        _assert_same(back, jax.tree.map(lambda x: x[t], params["towers"]))

@@ -1,9 +1,12 @@
-"""Port LlamaDecoder.step (KV cache, in place) vs the JAX decoder step, f32.
+"""Port LlamaDecoder.step (KV cache, in place) and .full vs the JAX decoder, f32.
 
 Several decode steps over a shared cache slot that wraps, with a per-stream
 episode window (incremental_episode_mask) that restarts one stream midway.
-Each step compares the f32 outputs and the whole cache at atol 1e-4. Also
-the mask builders and the sinusoidal time encoding against JAX."""
+Each step compares the f32 outputs and the whole cache at atol 1e-4. The
+full-sequence path over a packed block-causal mask against JAX's at atol
+1e-4, and against the incremental decode of the same sequence (the
+invariant that rollout and update see the same policy). Also the mask
+builders and the sinusoidal time encoding against JAX."""
 
 import jax
 import jax.numpy as jnp
@@ -78,6 +81,58 @@ def test_decoder_step_matches_jax_f32():
         np.testing.assert_allclose(pv.numpy(), np.asarray(jcache["v"]), atol=1e-4)
         pos += 1
         time_step += 1
+
+
+def _full_inputs(seed):
+    rng = np.random.default_rng(seed)
+    t = 7
+    x = rng.standard_normal((B, t, DIM)).astype(np.float32)
+    # episodes packed along T: stream 0 one, stream 1 two, stream 2 three
+    traj = np.asarray([[0] * 7, [0, 0, 0, 1, 1, 1, 1], [0, 0, 1, 1, 1, 2, 2]], np.int32)
+    return x, traj
+
+
+def _decoders(seed):
+    jcfg = jdec.DecoderConfig(DIM, LAYERS, HEADS, max_seq_len=MAX_LEN, dtype=jnp.float32)
+    pcfg = pdec.DecoderConfig(DIM, LAYERS, HEADS, max_seq_len=MAX_LEN, dtype=torch.float32)
+    jmod = jdec.LlamaDecoder(jcfg)
+    x0 = np.zeros((B, 1, DIM), np.float32)
+    params = _perturb(
+        jmod.init(jax.random.PRNGKey(seed), jnp.asarray(x0), jnp.ones((B, 1, 1, 1), bool)), seed
+    )
+    pmod = pdec.LlamaDecoder(pcfg)
+    pmod.load_state_dict(_state_dict(params), strict=True)
+    return jmod, params, pmod
+
+
+def test_decoder_full_matches_jax_f32():
+    jmod, params, pmod = _decoders(2)
+    x, traj = _full_inputs(3)
+    jmask = jmasks.packed_block_causal_mask(jnp.asarray(traj))
+    want = jmod.apply(params, jnp.asarray(x), jmask, method=jdec.LlamaDecoder.full)
+    with torch.no_grad():
+        got = pmod.full(torch.from_numpy(x), pmasks.packed_block_causal_mask(torch.from_numpy(traj)))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+def test_decoder_step_over_t_equals_full():
+    """Each stream's episodes decoded one step at a time from an empty cache
+    give what the full pass over the packed window gives."""
+    _, _, pmod = _decoders(4)
+    x, traj = _full_inputs(5)
+    t = x.shape[1]
+    with torch.no_grad():
+        full = pmod.full(torch.from_numpy(x), pmasks.packed_block_causal_mask(torch.from_numpy(traj)))
+        shape = (LAYERS, B, t, HEADS, DIM // HEADS)
+        ck, cv = torch.zeros(shape), torch.zeros(shape)
+        time_step = torch.zeros(B, dtype=torch.int64)
+        for pos in range(t):
+            if pos:
+                time_step = torch.where(torch.from_numpy(traj[:, pos] == traj[:, pos - 1]), time_step + 1, 0)
+            mask = pmasks.incremental_episode_mask(time_step, pos, t)
+            step = pmod.step(torch.from_numpy(x[:, pos : pos + 1]), ck, cv, pos, mask)
+            np.testing.assert_allclose(step[:, 0].numpy(), full[:, pos].numpy(), atol=1e-5)
 
 
 def test_packed_block_causal_mask_matches_jax():
