@@ -8,21 +8,31 @@ Phases (none catches its own failure; any failure exits non-zero):
      matmuls and cuDNN, every CUDA kernel built from csrc/ (one nvcc each,
      all at once);
   2. kernels vs plain: each kernel against its plain PyTorch version on the
-     card, at the shapes the serving path and the update give it; times of
-     the kernel, the plain version and one PyTorch library call of the same
-     function;
-  3. reference: a small policy (f32 towers and ViT, head dim 64 so the
-     kernels run) on the card against the same weights on the CPU, for acts
-     and for one Learner.update;
+     card, at the shapes the serving path, the rollout and the update give
+     it; times of the kernel, the plain version and one PyTorch library call
+     of the same function;
+  3. reference: a small policy (f32 towers and ViT, head dim 64 and feature
+     dims of 128, so every kernel runs) on the card against the same weights
+     on the CPU, for acts and for one Learner.update; and one collected
+     window plus its update on the card with the LayerNorm kernels off (the
+     CompatLayerNorm sites patched to their plain version) against on;
   4. serving: InferenceAgent.build(Config()) at the full default width
      (DINOv2-S, 3 towers, bf16), 8 streams, instructions, 128 greedy acts
-     with a mid-run reset; the kernel launch counts of exactly that run; then
-     a profiled window (device time, idle share) and each stage alone;
+     with a mid-run reset, with the LayerNorm kernels off and then on; the
+     kernel launch counts of exactly that run; then a profiled window
+     (device time, idle share) and each stage alone;
   5. training: Learner.update at the full default width (3 towers, bf16
      compute, f32 weights) on a synthetic 32 streams x 128 steps batch, stage
-     1: one warm-up and 3 timed updates, one profiled update, the launch
-     counts of every update against the count the config implies;
-  6. one JSON line of kernels, then the last line
+     1: one warm-up, then timed updates with the LayerNorm kernels off and on
+     in turns, one profiled update (kernels on), the launch counts of every update
+     against the count the config implies;
+  6. trainer: OnlineTrainer(cfg, sampler_factory, num_workers=0,
+     async_pipeline=False).train() at the full default width on 32
+     FakeController streams at 224x384 (episodes of 100 steps), 128 steps per
+     window in 2 overlap groups, stage 1, LayerNorm kernels on: one warm-up,
+     two timed and one profiled window, each window's launches of every
+     kernel against the count the config implies;
+  7. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -30,7 +40,11 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import random
+import shutil
 import subprocess
 import sys
 import time
@@ -53,6 +67,7 @@ INSTRUCTIONS = [
 ]
 NEW_INSTRUCTIONS = ["find a sofa", "go to the television", "locate a bowl", "find a chair"]
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 rate
 ATTN_TOL_BF16 = 2e-2  # one bf16 rounding of |out| < 1, plus p roundings
 ATTN_TOL_F32 = 1e-4
@@ -66,8 +81,25 @@ REF_TOL = 2e-2  # the T5 runs in bf16: its roundings may fall differently per de
 # weight by at most 4 Adam steps of 2e-5)
 REF_UPDATE_METRIC_TOL = 1e-4
 REF_UPDATE_WEIGHT_TOL = 1e-5
-TRAIN_TIMED_UPDATES = 3
+TRAIN_FLAGS = ("0", "1", "1", "0")  # LayerNorm kernels off / on in the timed updates, in turns
 MEAN_EPISODE_COST = 3.0  # above the cost limit (2.31): lambda climbs
+# LayerNorm kernels against their plain versions: bf16 outputs (up to ~6)
+# within one bf16 ulp of the reference, 2^-7 |want| + 1e-3, since one rounding
+# may fall the other way; f32 sums in another order within 1e-5; dgamma and
+# dbeta are sums over up to 26624 rows, held at 1e-4 of their magnitude
+LN_TOL = "bf16: 2^-7 |want| + 1e-3; f32: 1e-5"
+LN_PARAM_RTOL = 1e-4
+# the LayerNorm timings cycle over copies of their inputs of at least this
+# many bytes in all, more than twice the H100's 50 MB L2, so each launch reads
+# its input from HBM as each LayerNorm on the path reads a fresh activation
+ROTATION_BYTES = 128 * 2**20
+# the small window + update on the card with the LayerNorm kernels on vs
+# off: f32 LayerNorms that differ in summation order only (1e-4; the DINO
+# features are stored in bf16, so within one bf16 rounding of them)
+REF_LN_TOL = 1e-4
+TRAINER_WINDOWS = 4  # one warm-up, two timed, one profiled
+TRAINER_STREAMS, TRAINER_STEPS, TRAINER_GROUPS = 32, 128, 2
+TRAINER_EPISODE_STEPS = 100
 
 
 def log(*args):
@@ -95,6 +127,43 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profiler():
+    """torch.profiler over the card's activity alone (kernels, copies, sets):
+    no CPU events, so a window of ~400K launches is parsed in seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
+def device_rows(prof):
+    """(device ms in all, [(kernel name, ms, calls)] by ms) of a finished
+    `device_profiler()`, summed from its raw events."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        ms, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def device_ms_per_call(fn, iters: int = 20) -> float:
+    """Device time of one fn() (all its kernels), from the profiler: where a
+    kernel is shorter than its wrapper's host cost, back-to-back CUDA-event
+    timing (`cuda_ms`) measures the host; this measures the card. None when
+    the profiler saw no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with device_profiler() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return device_rows(prof)[0] / iters or None
 
 
 def attention_bound(b, s, heads, dh, key_lens, itemsize):
@@ -144,6 +213,7 @@ def check_attention(fa, name, b, s, heads, key_lens, gen):
         "max_abs_err_f32": err32,
         "tol": ATTN_TOL_BF16,
         "ms": cuda_ms(lambda: fa.attention_qkv(qkv, heads, kl)),
+        "device_ms": device_ms_per_call(lambda: fa.attention_qkv(qkv, heads, kl)),
         "plain_ms": cuda_ms(lambda: fa.attention_qkv_reference(qkv, heads, kl)),
         "library_ms": cuda_ms(sdpa),
         "library_max_abs_err": lib_err,
@@ -215,12 +285,139 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen):
         "max_abs_want_bf16": magnitude,
         "tol": BWD_TOL_BF16,
         "ms": cuda_ms(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g)),
+        "device_ms": device_ms_per_call(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g)),
         "plain_ms": cuda_ms(lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), iters=10),
         "library_ms": cuda_ms(sdpa_bwd),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
     log(f"[kernels] {json.dumps(res)}")
+    return res
+
+
+def ln_bound(r, d, nbytes, flops_per_element):
+    """Least time (ms) of a LayerNorm pass: `nbytes` at the HBM rate against
+    `flops_per_element` * R * D f32 operations on the CUDA cores."""
+    t_ops, t_bytes = flops_per_element * r * d / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
+
+
+def ln_excess(got, want):
+    """The largest |got - want| as a fraction of the LayerNorm tolerance at
+    that element (<= 1 passes): bf16 2^-7 |want| + 1e-3, f32 1e-5."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return (diff / (2**-7 * want.float().abs() + 1e-3)).max().item()
+    return diff.max().item() / 1e-5
+
+
+def rotation(*tensors):
+    """Copies of `tensors`, as many sets as make ROTATION_BYTES in all."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return [tuple(t.clone() for t in tensors) for _ in range(max(2, -(-ROTATION_BYTES // nbytes)))]
+
+
+def cycling(fn, sets):
+    """A call of fn on the next set of `sets`, round and round."""
+    i = [0]
+
+    def call():
+        i[0] += 1
+        return fn(*sets[i[0] % len(sets)])
+
+    return call
+
+
+def _ln_inputs(r, d, dtype, gen):
+    x = (3 * torch.randn((r, d), generator=gen, device="cuda") + 1).to(dtype)
+    gamma = 1 + 0.2 * torch.randn(d, generator=gen, device="cuda")
+    beta = 0.2 * torch.randn(d, generator=gen, device="cuda")
+    return x, gamma, beta
+
+
+def check_layer_norm(ln, name, r, d, dtype, out_dtype, gen):
+    """The forward kernel against its plain version at one path shape; times
+    of the kernel, the plain version and F.layer_norm (in x's dtype, with
+    gamma and beta cast to it: its output dtype is x's), each cycling over
+    copies of x that do not fit in L2."""
+    import torch.nn.functional as F
+
+    x, gamma, beta = _ln_inputs(r, d, dtype, gen)
+    got = ln.layer_norm(x, gamma, beta, 1e-6, out_dtype)
+    want = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-6, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (r, d) and torch.isfinite(got).all(), name
+    err, excess = (got.float() - want.float()).abs().max().item(), ln_excess(got, want)
+    assert excess <= 1, f"layer_norm {name}: kernel vs plain max abs err {err}, {excess} x its tolerance"
+    gl, bl = gamma.to(dtype), beta.to(dtype)
+    xs = rotation(x)
+    kernel = cycling(lambda a: ln.layer_norm(a, gamma, beta, 1e-6, out_dtype), xs)
+    lib = lambda a: F.layer_norm(a, (d,), gl, bl, 1e-6)
+    io = torch.tensor([], dtype=dtype).element_size() + torch.tensor([], dtype=out_dtype).element_size()
+    bound_ms, bound_by = ln_bound(r, d, r * d * io + 2 * d * 4, 8)
+    res = {
+        "shape": name, "rows": r, "dim": d, "dtype": str(dtype), "out_dtype": str(out_dtype),
+        "max_abs_err": err, "tol_ratio": excess, "tol": LN_TOL, "input_copies": len(xs),
+        "ms": cuda_ms(kernel),
+        "device_ms": device_ms_per_call(kernel),
+        "plain_ms": cuda_ms(cycling(lambda a: ln.layer_norm_fwd_reference(a, gamma, beta, 1e-6, out_dtype), xs)),
+        "library_ms": cuda_ms(cycling(lib, xs)),
+        "library_max_abs_err": (lib(x).float() - want.float()).abs().max().item(),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"[kernels] layer_norm {json.dumps(res)}")
+    return res
+
+
+def check_layer_norm_bwd(ln, name, r, d, gen):
+    """The backward kernel against its plain version (bf16 and f32) at one
+    update shape, with two runs giving the same bits; times of the kernel,
+    the plain version and F.layer_norm's backward (torch.autograd.grad of
+    x, gamma, beta alone, in bf16), each cycling over copies of (x, g) that
+    do not fit in L2."""
+    import torch.nn.functional as F
+
+    errs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x, gamma, _ = _ln_inputs(r, d, dtype, gen)
+        g = torch.randn((r, d), generator=gen, device="cuda").to(dtype)
+        got = ln.layer_norm_bwd(x, gamma, g)
+        again = ln.layer_norm_bwd(x, gamma, g)
+        want = ln.layer_norm_bwd_reference(x, gamma, g)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"{name}: not deterministic"
+        assert all(torch.isfinite(a).all() for a in got), name
+        dx_err, dx_excess = (got[0].float() - want[0].float()).abs().max().item(), ln_excess(got[0], want[0])
+        param_err = max(
+            (a - b).abs().max().item() / (1 + b.abs().max().item()) for a, b in zip(got[1:], want[1:])
+        )
+        assert dx_excess <= 1, f"layer_norm_bwd {name} {dtype}: dx err {dx_err}, {dx_excess} x its tolerance"
+        assert param_err <= LN_PARAM_RTOL, f"layer_norm_bwd {name} {dtype}: dgamma/dbeta err {param_err}"
+        errs[str(dtype).split(".")[1]] = {"dx": dx_err, "dx_tol_ratio": dx_excess, "dgamma_dbeta_rel": param_err}
+    x, gamma, _ = _ln_inputs(r, d, torch.bfloat16, gen)
+    g = torch.randn((r, d), generator=gen, device="cuda").to(torch.bfloat16)
+    sets = rotation(x, g)
+    gl, bl = gamma.to(x.dtype).requires_grad_(True), torch.zeros_like(gamma, dtype=x.dtype).requires_grad_(True)
+    graphs = []
+    for xs, gs in sets:
+        xl = xs.detach().requires_grad_(True)
+        graphs.append((F.layer_norm(xl, (d,), gl, bl, 1e-6), xl, gs))
+    lib_bwd = lambda out, xl, gs: torch.autograd.grad(out, (xl, gl, bl), gs, retain_graph=True)
+    # the function's bytes: x, g and dx once each, gamma, dgamma and dbeta
+    bound_ms, bound_by = ln_bound(r, d, r * d * 3 * 2 + d * 4 + 2 * d * 4, 20)
+    kernel = cycling(lambda a, b: ln.layer_norm_bwd(a, gamma, b), sets)
+    res = {
+        "shape": name, "rows": r, "dim": d, "dtype": "torch.bfloat16",
+        "max_abs_err": errs["bfloat16"]["dx"], "max_abs_err_by_part": errs,
+        "tol": LN_TOL, "input_copies": len(sets),
+        "ms": cuda_ms(kernel),
+        # the kernel and the wrapper's sum of the partial rows
+        "device_ms": device_ms_per_call(kernel),
+        "plain_ms": cuda_ms(cycling(lambda a, b: ln.layer_norm_bwd_reference(a, gamma, b), sets)),
+        "library_ms": cuda_ms(cycling(lib_bwd, graphs)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    log(f"[kernels] layer_norm_bwd {json.dumps(res)}")
     return res
 
 
@@ -350,12 +547,98 @@ def reference_check():
     return worst
 
 
-def serve(fa):
-    """The port's serving path at full default width; returns its numbers."""
+_LN_FORWARD = {}
+
+
+def ln_kernels(on: bool) -> None:
+    """The CompatLayerNorm sites on the LayerNorm kernels (the port's only
+    path on the card) or, for this script's off-vs-on comparisons alone,
+    patched to their plain version."""
+    from safevla_tpu_torch.models.norms import CompatLayerNorm
+
+    kernel = _LN_FORWARD.setdefault("kernel", CompatLayerNorm.forward)
+    CompatLayerNorm.forward = kernel if on else CompatLayerNorm.plain
+
+
+def reseed_hosts(seed: int) -> None:
+    """The task samplers draw from the global `random` and `np.random`."""
+    random.seed(seed)
+    np.random.seed(seed)
+
+
+def ln_launches_per_act(vit_depth, model):
+    """LayerNorm forward launches of one act with the kernels on: the
+    ViT's norm1 and norm2 per block and its final norm (both cameras in one
+    batch), the fusion layers' norm1 and norm2 per tower (the adapter norms
+    never take the kernel)."""
+    return 2 * vit_depth + 1 + model.num_towers * model.combiner_layers * 2
+
+
+def reference_trainer():
+    """One collected window (4 FakeController streams at 28x42, 8 steps, two
+    overlap groups, augmentation on) and its stage-1 update, of the small
+    f32 policy on the card, with the LayerNorm kernels off and then on: the same
+    batch and metrics at REF_LN_TOL, and the LayerNorm kernels launched only
+    when on, as often as the config implies."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config, TrainConfig
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.ops import layer_norm as ln
+    from safevla_tpu_torch.rollout.env_pool import EnvPool
+    from safevla_tpu_torch.rollout.runner import RolloutRunner
+
+    m = dataclasses.replace(small_model_config(), fusion_chunk=8)
+    b, t, groups = 4, 8, 2
+    cfg = Config(m, TrainConfig(num_train_processes=b, max_steps=8))
+    out = {}
+    for on in (False, True):
+        ln_kernels(on)
+        reseed_hosts(5)
+        policy = SafeVLAPolicy(m, device="cuda", generator=torch.Generator().manual_seed(7))
+        learner = Learner(policy, cfg)
+        pool = EnvPool(make_sampler_factory(max_steps=5, image_hw=m.image_size), b, num_workers=0)
+        runner = RolloutRunner(policy, cfg, pool, seed=0, overlap_groups=groups)
+        ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
+        batch, _ = runner.collect(t)
+        ts, metrics = learner.update(learner.init(), batch, MEAN_EPISODE_COST, 1)
+        torch.cuda.synchronize()
+        pool.close()
+        out[on] = (
+            {k: v.float().cpu() for k, v in batch.items()},
+            {k: float(v) for k, v in metrics.items()},
+            torch.cat([p.detach().cpu().flatten() for p in ts.tower_params.values()]),
+            (ln.layer_norm.launches, ln.layer_norm_bwd.launches),
+        )
+    (b0, m0, w0, n0), (b1, m1, w1, n1) = out[False], out[True]
+    acts = groups * (t + 1)  # the window's acts and the bootstrap acts
+    fwd_upd, bwd_upd = update_ln_launches(cfg, b, t)
+    want = (acts * ln_launches_per_act(policy.vit.cfg.depth, m) + fwd_upd, bwd_upd)
+    assert n0 == (0, 0) and n1 == want, f"LayerNorm launches off {n0}, on {n1}, expected on {want}"
+    batch_err = 0.0
+    for k in b0:
+        diff = (b1[k] - b0[k]).abs()
+        if k in ("dino_nav", "dino_manip"):  # bf16 storage: one rounding may fall the other way
+            diff = torch.clamp(diff - b0[k].abs() * 2**-8, min=0.0)
+        batch_err = max(batch_err, diff.max().item())
+    metric_err = max(abs(m1[k] - m0[k]) / (1.0 + abs(m0[k])) for k in m0)
+    weight_err = (w1 - w0).abs().max().item()
+    log(f"[reference] small window + update, LayerNorm kernels on vs off: batch {batch_err}, "
+        f"metrics {metric_err}, weights {weight_err}; launches on {n1} (fwd, bwd)")
+    assert batch_err <= REF_LN_TOL and metric_err <= REF_LN_TOL and weight_err <= REF_UPDATE_WEIGHT_TOL
+    return {"batch_err": batch_err, "metric_rel_err": metric_err, "weight_abs_err": weight_err,
+            "ln_launches_on": list(n1)}
+
+
+def serve(fa, ln_on: bool = True):
+    """The port's serving path at full default width; returns its numbers.
+    `ln_on`: the LayerNorm kernels on (the port's path) or off (plain)."""
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.constants import NUM_ACTIONS
     from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.ops import layer_norm as ln
 
+    ln_kernels(ln_on)
     cfg = Config()
     t0 = time.perf_counter()
     agent = InferenceAgent.build(cfg, None, num_streams=STREAMS, mode="greedy", seed=123)
@@ -368,9 +651,10 @@ def serve(fa):
     # one launch per ViT block (both cameras in one batch) and per fusion
     # layer but the last (the CLS-row layer is plain torch), per tower
     per_act = agent.policy.vit.cfg.depth + cfg.model.num_towers * (cfg.model.combiner_layers - 1)
+    ln_per_act = ln_launches_per_act(agent.policy.vit.cfg.depth, cfg.model) if ln_on else 0
     torch.cuda.reset_peak_memory_stats()
 
-    fa.attention_qkv.launches = 0
+    fa.attention_qkv.launches = ln.layer_norm.launches = 0
     agent.set_instructions(INSTRUCTIONS)
     times = []
     for t in range(ACTS):
@@ -389,11 +673,14 @@ def serve(fa):
         assert np.allclose(probs.sum(-1), 1.0, atol=1e-4)
         assert np.isfinite(values).all() and np.isfinite(cost_values).all()
     launches = fa.attention_qkv.launches
+    ln_launches = ln.layer_norm.launches
     assert launches == per_act * ACTS, f"{launches} launches, expected {per_act} x {ACTS}"
+    assert ln_launches == ln_per_act * ACTS, f"{ln_launches} LayerNorm launches, expected {ln_per_act} x {ACTS}"
     assert agent.state.pos == ACTS and int(agent.state.time_step[0]) == ACTS - RESET_AT
 
     steady = np.asarray(times[4:]) * 1e3
     res = {
+        "ln_kernels": ln_on,
         "streams": STREAMS,
         "acts": ACTS,
         "build_s": build_s,
@@ -407,6 +694,8 @@ def serve(fa):
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "attention_launches": launches,
         "attention_launches_per_act": per_act,
+        "layer_norm_launches": ln_launches,
+        "layer_norm_launches_per_act": ln_per_act,
     }
     log(f"[serving] {json.dumps(res)}")
     device_ms = profile_acts(agent, frames, oih)["device_ms_per_act"] or None  # 0: no trace
@@ -416,6 +705,7 @@ def serve(fa):
         f"idle share {res['device_idle_share']}"
         + ("" if device_ms else " (the profiler saw no device time)"))
     res["stage_ms"] = stage_ms(agent, frames[0])
+    ln_kernels(True)
     return res
 
 
@@ -459,24 +749,15 @@ def profile_acts(agent, frames, oih, acts: int = 4):
     """Device time per act by kernel, from torch.profiler over a few more
     acts (after the counted run); the card's idle share follows from the
     un-profiled ms/act."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     not_reset = np.ones(STREAMS, np.int32)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profiler() as prof:
         for t in range(acts):
             agent.act(frames[t, 0], frames[t, 1], not_reset, oih[t])
-    # device-side events only (kernels, copies): the CPU ops that launched
-    # them carry the same device time and would count it twice
-    rows = [
-        (e.key, e.self_device_time_total / 1e3 / acts, e.count // acts)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r[1])
+        torch.cuda.synchronize()
+    device_ms, rows = device_rows(prof)
     res = {
-        "device_ms_per_act": sum(r[1] for r in rows),
-        "top": [{"name": k[:80], "ms_per_act": ms, "calls_per_act": n} for k, ms, n in rows[:12]],
+        "device_ms_per_act": device_ms / acts,
+        "top": [{"name": k[:80], "ms_per_act": ms / acts, "calls_per_act": n // acts} for k, ms, n in rows[:12]],
     }
     log(f"[profile] {json.dumps(res)}")
     return res
@@ -495,12 +776,41 @@ def update_launches(cfg, b, t):
     return 2 * per_epoch * cfg.ppo.update_repeats, per_epoch * cfg.ppo.update_repeats
 
 
+def update_ln_launches(cfg, b, t):
+    """LayerNorm launches one Learner.update makes with the kernels on:
+    per epoch, per tower, per fusion chunk, norm1 and norm2 of every fusion
+    layer, forward in the forward and again in the recomputation, and one
+    backward each."""
+    n = b * t
+    chunk = min(cfg.model.fusion_chunk or n, n)
+    while n % chunk:
+        chunk -= 1
+    per_epoch = cfg.model.num_towers * (n // chunk) * cfg.model.combiner_layers * 2
+    return 2 * per_epoch * cfg.ppo.update_repeats, per_epoch * cfg.ppo.update_repeats
+
+
+def kernel_counts(fa, ln):
+    return {
+        "attention_fwd": fa.attention_qkv.launches,
+        "attention_bwd": fa.attention_qkv_bwd.launches,
+        "layer_norm_fwd": ln.layer_norm.launches,
+        "layer_norm_bwd": ln.layer_norm_bwd.launches,
+    }
+
+
+def reset_kernel_counts(fa, ln):
+    fa.attention_qkv.launches = fa.attention_qkv_bwd.launches = 0
+    ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
+
+
 def train(fa):
     """Learner.update at the full default width on a synthetic rollout
-    window of the sync trainer's shape; returns its numbers."""
+    window of the sync trainer's shape, with the LayerNorm kernels off and
+    on in turns (TRAIN_FLAGS); returns its numbers."""
     from safevla_tpu_torch.algo.learner import Learner
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.ops import layer_norm as ln
     from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
 
     cfg = Config()
@@ -519,33 +829,44 @@ def train(fa):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     fwd_per_update, bwd_per_update = update_launches(cfg, b, t)
+    ln_fwd_per_update, ln_bwd_per_update = update_ln_launches(cfg, b, t)
     weights0 = [p.detach().clone() for p in ts.tower_params.values()]
     lam0 = float(ts.lagrange.multiplier)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.attention_qkv.launches = fa.attention_qkv_bwd.launches = 0
-    times, metrics = [], None
-    for i in range(1 + TRAIN_TIMED_UPDATES):  # one warm-up, then the timed ones
-        before = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches)
+    reset_kernel_counts(fa, ln)
+    times, metrics = {"0": [], "1": []}, None
+    for i, flag in enumerate(("0",) + TRAIN_FLAGS):  # one warm-up, then the timed ones
+        ln_kernels(flag == "1")
+        before = kernel_counts(fa, ln)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ts, metrics = learner.update(ts, batch, MEAN_EPISODE_COST, 1)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        got = (fa.attention_qkv.launches - before[0], fa.attention_qkv_bwd.launches - before[1])
-        assert got == (fwd_per_update, bwd_per_update), (
-            f"update {i}: {got} attention launches (fwd, bwd), expected "
-            f"{(fwd_per_update, bwd_per_update)}"
-        )
+        dt = time.perf_counter() - t0
+        if i == 0:
+            first_ms = dt * 1e3
+        else:
+            times[flag].append(dt * 1e3)
+        got = {k: v - before[k] for k, v in kernel_counts(fa, ln).items()}
+        on = flag == "1"
+        want = {"attention_fwd": fwd_per_update, "attention_bwd": bwd_per_update,
+                "layer_norm_fwd": ln_fwd_per_update * on, "layer_norm_bwd": ln_bwd_per_update * on}
+        assert got == want, f"update {i} (LayerNorm kernels {flag}): launches {got}, expected {want}"
         values = {k: float(v) for k, v in metrics.items()}
         assert all(np.isfinite(list(values.values()))), values
-        log(f"[train] update {i}: {times[-1] * 1e3:.1f} ms, metrics {json.dumps(values)}")
+        log(f"[train] update {i} (LayerNorm kernels {flag}): {dt * 1e3:.1f} ms, metrics {json.dumps(values)}")
+    ln_kernels(True)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     prof = profile_update(learner, ts, batch)
     ts = prof.pop("train_state")
-    launches = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches)
-    n_updates = 2 + TRAIN_TIMED_UPDATES
-    assert launches == (n_updates * fwd_per_update, n_updates * bwd_per_update), launches
+    launches = kernel_counts(fa, ln)
+    n_updates = 2 + len(TRAIN_FLAGS)
+    n_on = TRAIN_FLAGS.count("1") + 1  # and the profiled update, on the port's path
+    assert launches == {
+        "attention_fwd": n_updates * fwd_per_update, "attention_bwd": n_updates * bwd_per_update,
+        "layer_norm_fwd": n_on * ln_fwd_per_update, "layer_norm_bwd": n_on * ln_bwd_per_update,
+    }, launches
 
     moved = [(p.detach() - w).abs().max().item() for p, w in zip(ts.tower_params.values(), weights0)]
     names = list(ts.tower_params)
@@ -555,25 +876,31 @@ def train(fa):
     assert lam != lam0, "lambda did not move"
     assert ts.step == n_updates * b * t
 
-    timed = np.asarray(times[1:]) * 1e3
+    off, on = np.asarray(times["0"]), np.asarray(times["1"])
     res = {
         "streams": b,
         "steps": t,
         "samples_per_update": b * t,
         "stage": 1,
         "setup_s": setup_s,
-        "first_update_ms": times[0] * 1e3,
-        "timed_updates": len(timed),
-        "ms_per_update_median": float(np.median(timed)),
-        "ms_per_update_min": float(timed.min()),
-        "samples_per_s": b * t / (float(np.median(timed)) / 1e3),
+        "first_update_ms": first_ms,
+        "timed_updates": len(off) + len(on),
+        "ln_kernels_order": list(TRAIN_FLAGS),
+        "ms_per_update_off": times["0"],
+        "ms_per_update_on": times["1"],
+        "ms_per_update_median": float(np.median(on)),
+        "ms_per_update_min": float(on.min()),
+        "ms_per_update_median_plain_ln": float(np.median(off)),
+        "samples_per_s": b * t / (float(np.median(on)) / 1e3),
+        "samples_per_s_plain_ln": b * t / (float(np.median(off)) / 1e3),
         "peak_mem_gib": peak_gib,
         "device_ms_per_update": prof["device_ms"] or None,  # 0: the profiler saw no device time
-        "device_idle_share": (1.0 - prof["device_ms"] / float(np.median(timed))) if prof["device_ms"] else None,
+        "device_idle_share": (1.0 - prof["device_ms"] / float(np.median(on))) if prof["device_ms"] else None,
         "attention_fwd_launches_per_update": fwd_per_update,
         "attention_bwd_launches_per_update": bwd_per_update,
-        "attention_fwd_launches": launches[0],
-        "attention_bwd_launches": launches[1],
+        "layer_norm_fwd_launches_per_update": ln_fwd_per_update,
+        "layer_norm_bwd_launches_per_update": ln_bwd_per_update,
+        "launches": launches,
         "updates": n_updates,
         "lagrange_multiplier": [lam0, lam],
         "max_weight_change": max(moved),
@@ -584,24 +911,143 @@ def train(fa):
     return res
 
 
+def trainer_config():
+    """The sync bench's shape (`bench.py`): the default Config() at full
+    width, 32 streams x 128 steps, stage 1 from the first step, one final
+    checkpoint (under the git-ignored output/)."""
+    from safevla_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.train.num_train_processes = TRAINER_STREAMS
+    cfg.ppo.num_steps = TRAINER_STEPS
+    cfg.train.stages[0].max_stage_steps = 0
+    cfg.train.async_pipeline = False
+    cfg.train.output_dir = os.path.join("output", "chip_smoke")
+    cfg.train.tag = "trainer"
+    cfg.train.save_interval = 10**12  # only the forced final save
+    return cfg
+
+
+def trainer(fa, cfg=None, device="cuda", windows=TRAINER_WINDOWS):
+    """The sync OnlineTrainer at full width, LayerNorm kernels on: per
+    window its rollout and update times, env frames/s, StageTimer sections
+    and the launches of every kernel, asserted against the count the config
+    implies; the last window profiled (device time, idle share against the
+    timed windows' median wall). Returns its numbers."""
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.ops import layer_norm as ln
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    cfg = cfg or trainer_config()
+    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+    shutil.rmtree(os.path.join(cfg.train.output_dir, cfg.train.tag), ignore_errors=True)
+    ln_kernels(True)
+    reseed_hosts(cfg.train.seed)
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    windows_out, prof_box = [], {}
+    marks = {"t": None}
+
+    def log_fn(metrics, step):
+        sync()
+        now = time.perf_counter()
+        i = len(windows_out)
+        counts = kernel_counts(fa, ln)
+        reset_kernel_counts(fa, ln)
+        acts = groups * t + (groups if i == 0 else 0)  # the first window also primes
+        per_act_attn = vit_depth + model.num_towers * (model.combiner_layers - 1)
+        fwd_upd, bwd_upd = update_launches(cfg, b, t)
+        ln_fwd_upd, ln_bwd_upd = update_ln_launches(cfg, b, t)
+        want = {
+            "attention_fwd": acts * per_act_attn + fwd_upd,
+            "attention_bwd": bwd_upd,
+            "layer_norm_fwd": acts * ln_launches_per_act(vit_depth, model) + ln_fwd_upd,
+            "layer_norm_bwd": ln_bwd_upd,
+        }
+        if cuda:
+            assert counts == want, f"window {i}: launches {counts}, expected {want}"
+        values = [v for v in metrics.values() if isinstance(v, float)]
+        assert all(np.isfinite(values)), metrics
+        totals = dict(tr.runner.timer.totals)
+        w = {
+            "window": i,
+            "step": step,
+            "wall_s": now - marks["t"],
+            "rollout_s": metrics["rollout_seconds"],
+            "update_ms": metrics["update_seconds"] * 1e3,
+            "env_frames_per_s": b * t / (now - marks["t"]),
+            "stage_s": {k: v - marks["totals"].get(k, 0.0) for k, v in totals.items()},
+            "frame_bank_hit_rate": metrics["frame_bank_hit_rate"],
+            "episodes_completed": metrics["episodes_completed"],
+            "mean_episode_cost": metrics["mean_episode_cost"],
+            "lagrange_multiplier": metrics["lagrange_multiplier"],
+            "total": metrics["total"],
+            "launches": counts,
+        }
+        windows_out.append(w)
+        log(f"[trainer] {json.dumps(w)}")
+        if cuda and i == windows - 2:  # profile the last window
+            prof_box["p"] = device_profiler()
+            prof_box["p"].__enter__()
+        elif "p" in prof_box and i == windows - 1:
+            prof_box["p"].__exit__(None, None, None)
+        marks["t"] = time.perf_counter()
+        marks["totals"] = totals
+
+    t0 = time.perf_counter()
+    tr = OnlineTrainer(
+        cfg, make_sampler_factory(max_steps=TRAINER_EPISODE_STEPS, image_hw=cfg.model.image_size),
+        num_workers=0, log_fn=log_fn, async_pipeline=False, device=device,
+    )
+    model, vit_depth, groups = cfg.model, tr.policy.vit.cfg.depth, tr.runner.n_groups
+    assert groups == TRAINER_GROUPS  # the rollout shapes the kernels were checked at
+    sync()
+    setup_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln)
+    marks.update(t=time.perf_counter(), totals={})
+    ts = tr.train(windows * b * t)
+    tr.close()
+    assert ts.step == windows * b * t and len(windows_out) == windows
+    ckpt = os.path.join(tr.output_dir, f"step_{ts.step}")
+    assert os.path.isfile(os.path.join(ckpt, "train_state.pt")), "no final checkpoint"
+    shutil.rmtree(tr.output_dir, ignore_errors=True)
+
+    timed = windows_out[1:-1] if cuda else windows_out[1:]
+    wall = float(np.median([w["wall_s"] for w in timed]))
+    res = {
+        "streams": b, "steps": t, "overlap_groups": groups, "episode_steps": TRAINER_EPISODE_STEPS,
+        "image_hw": list(cfg.model.image_size), "ln_kernels": True, "stage": 1,
+        "setup_s": setup_s,
+        "timed_windows": len(timed),
+        "rollout_s_median": float(np.median([w["rollout_s"] for w in timed])),
+        "update_ms_median": float(np.median([w["update_ms"] for w in timed])),
+        "env_frames_per_s_median": float(np.median([w["env_frames_per_s"] for w in timed])),
+        "window_wall_s_median": wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+        "windows": windows_out,
+    }
+    if "p" in prof_box:
+        device_ms, rows = device_rows(prof_box["p"])
+        res["device_ms_per_window"] = device_ms or None  # 0: the profiler saw no device time
+        res["device_idle_share"] = (1.0 - device_ms / (wall * 1e3)) if device_ms else None
+        res["profiled_window_wall_s"] = windows_out[-1]["wall_s"]
+        res["top"] = [{"name": k[:80], "ms_per_window": ms, "calls_per_window": n} for k, ms, n in rows[:15]]
+    log(f"[trainer] {json.dumps({k: v for k, v in res.items() if k != 'windows'})}")
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profiler() as prof:
         ts, _ = learner.update(ts, batch, MEAN_EPISODE_COST, 1)
         torch.cuda.synchronize()
-    rows = [
-        (e.key, e.self_device_time_total / 1e3, e.count)
-        for e in prof.key_averages()
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r[1])
+    device_ms, rows = device_rows(prof)
     return {
         "train_state": ts,
-        "device_ms": sum(r[1] for r in rows),
+        "device_ms": device_ms,
         "top": [{"name": k[:80], "ms_per_update": ms, "calls_per_update": n} for k, ms, n in rows[:12]],
     }
 
@@ -613,6 +1059,7 @@ def main() -> int:
     t_start = time.perf_counter()
     from safevla_tpu_torch.ops import _build
     from safevla_tpu_torch.ops import flash_attention as fa
+    from safevla_tpu_torch.ops import layer_norm as ln
     from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
 
     # 1. setup
@@ -627,74 +1074,121 @@ def main() -> int:
         log(f"[setup] nvcc {name}:\n{text.strip()}")
 
     # 2. kernels vs plain, at the serving path's shapes (the ViT on both
-    # cameras' frames, fusion layers 0-1 with this run's instructions) and
+    # cameras' frames, fusion layers 0-1 with this run's instructions), the
+    # rollout's (G = 16 streams per overlap group: the ViT on 2G frames) and
     # the update's (a fusion chunk of 128 samples: one stream's window)
     gen = torch.Generator(device="cuda").manual_seed(0)
     _, mask = InstructionTokenizer("t5-small", 32).encode_batch(INSTRUCTIONS)
     fusion_kl = [169 + int(n) for n in mask.sum(-1)]  # 1 + 2 * 84 tokens + text
+    g = TRAINER_STREAMS // TRAINER_GROUPS
+    rollout_kl = [fusion_kl[i % len(fusion_kl)] for i in range(g)]
     update_kl = [fusion_kl[i % len(fusion_kl)] for i in range(128)]
     shapes = [
         check_attention(fa, "vit", 2 * STREAMS, 448, 6, [433] * (2 * STREAMS), gen),
         check_attention(fa, "fusion", STREAMS, 208, 8, fusion_kl, gen),
+        check_attention(fa, "vit_rollout", 2 * g, 448, 6, [433] * (2 * g), gen),
+        check_attention(fa, "fusion_rollout", g, 208, 8, rollout_kl, gen),
         check_attention(fa, "fusion_update", 128, 208, 8, update_kl, gen),
     ]
     bwd = check_attention_bwd(fa, "fusion_update", 128, 208, 8, update_kl, gen)
+    bf16, f32 = torch.bfloat16, torch.float32
+    ln_shapes = [  # (name, rows, D, x dtype, out dtype)
+        ("vit_rollout", 2 * g * 448, 384, bf16, bf16),
+        ("vit_rollout_final", 2 * g * 448, 384, bf16, f32),
+        ("fusion_rollout", g * 208, 512, bf16, bf16),
+        ("fusion_rollout_cls", g, 512, bf16, bf16),
+        ("fusion_update", 128 * 208, 512, bf16, bf16),
+        ("fusion_update_cls", 128, 512, bf16, bf16),
+        ("vit_serving", 2 * STREAMS * 448, 384, bf16, bf16),
+        ("vit_serving_final", 2 * STREAMS * 448, 384, bf16, f32),
+        ("fusion_serving", STREAMS * 208, 512, bf16, bf16),
+        ("fusion_serving_cls", STREAMS, 512, bf16, bf16),
+        ("fusion_update_f32", 128 * 208, 512, f32, f32),
+    ]
+    ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes]
+    ln_bwd = [
+        check_layer_norm_bwd(ln, "fusion_update", 128 * 208, 512, gen),
+        check_layer_norm_bwd(ln, "fusion_update_cls", 128, 512, gen),
+    ]
 
-    # 3. reference on a small input, 4. serving and 5. training at full width
+    phase_done = lambda name: log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
+    phase_done("kernels vs plain")
+
+    # 3. reference on a small input; 4. serving, 5. training and 6. the
+    # trainer at full width, each path's kernel counts reset just before it
     ref_diff = reference_check()
     ref_update = reference_update()
-    serving = serve(fa)
+    ref_trainer = reference_trainer()
+    phase_done("reference")
+    serving = serve(fa, ln_on=False)
+    serving_ln = serve(fa, ln_on=True)
+    phase_done("serving")
     training = train(fa)
+    phase_done("training")
+    online = trainer(fa)
+    phase_done("trainer")
 
-    # 6. results
-    vit_row = shapes[0]
+    # 7. results
+    window_launches = {
+        k: sum(w["launches"][k] for w in online["windows"]) for k in online["windows"][0]["launches"]
+    }
+
+    def row(name, source, replaces, counterpart, launches, headline, all_shapes, tol, **extra):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "tpu_counterpart": counterpart, "launches": sum(launches.values()),
+            **{f"launches_{k}": v for k, v in launches.items()}, **extra,
+            "max_abs_err": max(s["max_abs_err"] for s in all_shapes), "tol": tol,
+            "ms": headline["ms"], "kernel_ms": headline["ms"], "device_ms": headline["device_ms"],
+            "plain_ms": headline["plain_ms"],
+            "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
+            "library_ms": headline["library_ms"], "headline_shape": headline["shape"],
+            "shapes": all_shapes,
+        }
+
     kernels = [
-        {
-            "name": "flash_attention_fwd",
-            "route": "cuda",
-            "source": "safevla_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "safevla_tpu/ops/flash_attention.py:59",
-            "tpu_counterpart": "safevla_tpu/ops/flash_attention.py::_fwd_kernel",
-            "launches": serving["attention_launches"] + training["attention_fwd_launches"],
-            "launches_serving": serving["attention_launches"],
-            "launches_training": training["attention_fwd_launches"],
-            "launches_per_act": serving["attention_launches_per_act"],
-            "launches_per_update": training["attention_fwd_launches_per_update"],
-            # headline numbers at the ViT shape (12 of the 18 launches per
-            # act); every shape in full under "shapes"
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "tol": ATTN_TOL_BF16,
-            "ms": vit_row["ms"],
-            "kernel_ms": vit_row["ms"],
-            "plain_ms": vit_row["plain_ms"],
-            "bound_ms": vit_row["bound_ms"],
-            "bound_by": vit_row["bound_by"],
-            "library_ms": vit_row["library_ms"],
-            "shapes": shapes,
-        },
-        {
-            "name": "flash_attention_bwd",
-            "route": "cuda",
-            "source": "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": "safevla_tpu/ops/flash_attention.py:84",
-            "tpu_counterpart": "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
-            "launches": training["attention_bwd_launches"],
-            "launches_per_update": training["attention_bwd_launches_per_update"],
-            "max_abs_err": bwd["max_abs_err"],
-            "tol": BWD_TOL_BF16,
-            "ms": bwd["ms"],
-            "kernel_ms": bwd["ms"],
-            "plain_ms": bwd["plain_ms"],
-            "bound_ms": bwd["bound_ms"],
-            "bound_by": bwd["bound_by"],
-            "library_ms": bwd["library_ms"],
-            "shapes": [bwd],
-        },
+        # headline numbers at the ViT serving shape (12 of the 18 launches
+        # per act); every shape in full under "shapes"
+        row("flash_attention_fwd", "safevla_tpu_torch/csrc/flash_attention_fwd.cu",
+            "safevla_tpu/ops/flash_attention.py:59", "safevla_tpu/ops/flash_attention.py::_fwd_kernel",
+            {"serving": serving["attention_launches"] + serving_ln["attention_launches"],
+             "training": training["launches"]["attention_fwd"],
+             "trainer": window_launches["attention_fwd"]},
+            shapes[0], shapes, ATTN_TOL_BF16,
+            launches_per_act=serving["attention_launches_per_act"],
+            launches_per_update=training["attention_fwd_launches_per_update"]),
+        row("flash_attention_bwd", "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
+            "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
+            {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"]},
+            bwd, [bwd], BWD_TOL_BF16,
+            launches_per_update=training["attention_bwd_launches_per_update"]),
+        # headline numbers at the rollout's ViT shape (24 of the 43 launches
+        # per act)
+        row("layer_norm_fwd", "safevla_tpu_torch/csrc/layer_norm.cu",
+            "safevla_tpu/ops/layer_norm.py:53", "safevla_tpu/ops/layer_norm.py::_ln_fwd_kernel",
+            {"serving": serving_ln["layer_norm_launches"],
+             "training": training["launches"]["layer_norm_fwd"],
+             "trainer": window_launches["layer_norm_fwd"]},
+            ln_fwd[0], ln_fwd, LN_TOL,
+            launches_per_act=serving_ln["layer_norm_launches_per_act"],
+            launches_per_update=training["layer_norm_fwd_launches_per_update"]),
+        row("layer_norm_bwd", "safevla_tpu_torch/csrc/layer_norm.cu",
+            "safevla_tpu/ops/layer_norm.py:60", "safevla_tpu/ops/layer_norm.py::_ln_bwd_kernel",
+            {"training": training["launches"]["layer_norm_bwd"],
+             "trainer": window_launches["layer_norm_bwd"]},
+            ln_bwd[0], ln_bwd, LN_TOL,
+            launches_per_update=training["layer_norm_bwd_launches_per_update"]),
     ]
+    for k in kernels:  # every kernel of the trainer's path ran in it
+        assert k["launches_trainer"] > 0, k["name"]
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
-        f"serving {serving['ms_per_act_mean']:.3f} ms/act, {serving['frames_per_s']:.1f} frames/s, "
-        f"training {training['ms_per_update_median']:.1f} ms/update, "
-        f"{training['samples_per_s']:.1f} samples/s, total {time.perf_counter() - t_start:.1f} s")
+        f"reference window on vs off {ref_trainer}, "
+        f"serving {serving['ms_per_act_mean']:.3f} / {serving_ln['ms_per_act_mean']:.3f} ms/act "
+        f"(LayerNorm kernels off / on), "
+        f"training {training['ms_per_update_median_plain_ln']:.1f} / {training['ms_per_update_median']:.1f} "
+        f"ms/update (off / on), trainer {online['env_frames_per_s_median']:.1f} env frames/s, "
+        f"{online['rollout_s_median']:.2f} s rollout + {online['update_ms_median']:.1f} ms update per window, "
+        f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({
         "ok": True,

@@ -3,15 +3,19 @@
 The JAX package `safevla_tpu` is the reference; this package mirrors its
 layout and names module for module. It imports torch and numpy only —
 nothing of JAX and nothing of `safevla_tpu` — and keeps its own copies of
-the pure-Python pieces it needs (config, constants, tokenizer).
+the pure-Python pieces it needs (config, constants, tokenizer, the host
+environment stack).
 
 Ported so far: the serving path, `evaluation.agent.InferenceAgent.act`
-(augment -> normalise -> DINOv2 ViT -> 3 policy towers -> action), and the
+(augment -> normalise -> DINOv2 ViT -> 3 policy towers -> action); the
 learner update, `algo.learner.Learner.update` (GAE -> Lagrange ascent ->
-PPO epochs over `SafeVLAPolicy.forward_seq` -> optax's clip + Adam), with
-the packed-qkv flash-attention forward and backward as hand-written CUDA
-kernels (`csrc/flash_attention_{fwd,bwd}.cu`, built at first use by
-`ops/_build.py`).
+PPO epochs over `SafeVLAPolicy.forward_seq` -> optax's clip + Adam); and the
+sync online trainer, `training.online.OnlineTrainer.train` (`rollout.env_pool`
+-> `rollout.runner.RolloutRunner.collect` -> the update, with checkpoints),
+on a copy of the FakeController / ObjectNav environment stack (`envs`,
+`tasks`). The packed-qkv flash-attention forward and backward and the row
+LayerNorm forward and backward are hand-written CUDA kernels (`csrc/{flash_attention_fwd,flash_attention_bwd,
+layer_norm}.cu`, built at first use by `ops/_build.py`).
 
 Entry points default to `device="cuda"` and raise when CUDA is absent unless
 the caller asks for `device="cpu"`; on the CPU every kernel wrapper runs its

@@ -1,11 +1,11 @@
-"""Configuration dataclasses read by the serving path and the learner update.
+"""Configuration dataclasses read by the serving path, the learner update,
+the rollout runner and the sync online trainer.
 
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
 `LagrangeConfig` and `TrainingStageConfig`, and of the `TrainConfig` fields
-the inference agent and the update read (`max_steps`, `augmentation_version`,
-`num_train_processes`, `seed`, `stages`), with identical defaults. The rest
-of the JAX config tree (offline, mesh, eval, the runner's fields) is ported
-with the slices that read it.
+the inference agent, the update, the runner and the trainer read, with
+identical defaults. The rest of the JAX config tree (offline, mesh, eval) is
+ported with the slices that read it.
 """
 
 from __future__ import annotations
@@ -113,12 +113,19 @@ class TrainingStageConfig:
 
 @dataclass
 class TrainConfig:
-    """The fields of the online run configuration the serving path and the
-    update read."""
+    """The fields of the online run configuration the serving path, the
+    update, the runner and the trainer read."""
 
+    tag: str = "SafeVLA-TPU-ObjectNavType"
     num_train_processes: int = 32
     max_steps: int = 500  # per-episode cap; augmentation resamples this often
+    steps_in_house_before_force_scene_advance: int = 2000
+    save_interval: int = 50_000
+    output_dir: str = "output"
     seed: int = 123
+    il_ckpt_path: Optional[str] = None
+    resume_ckpt_path: Optional[str] = None
+    total_steps: int = 1_000_000_000
     # 3-stage pipeline (reference dinov2_vits_tsfm_base.py:310-379): stage 0
     # trains only the critics, stages 1-2 the full PPO-Lagrangian loss
     stages: List[TrainingStageConfig] = field(
@@ -128,7 +135,11 @@ class TrainConfig:
             TrainingStageConfig(["ppo_log_loss"], int(1e9) - 1_000_000),
         ]
     )
+    use_data_augmentation: bool = True
     augmentation_version: str = "v2"
+    # the JAX default is the async rollout/update pipeline (stale-by-one
+    # window PPO); the port runs the sync trainer only and refuses async
+    async_pipeline: bool = True
 
 
 @dataclass

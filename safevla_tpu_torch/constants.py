@@ -1,14 +1,24 @@
-"""Action-space size and image-normalisation constants.
+"""Action-space size, image-normalisation and robot / camera constants.
 
-Copy of what the serving path needs from `safevla_tpu/constants.py`
-(:38-67, :135-149). The action list keeps the same order and the same
-`ACTION_DICT` override, so `NUM_ACTIONS` agrees with the JAX package.
+Copy of what the port needs from `safevla_tpu/constants.py` (:14-30,
+:38-67, :135-149): the action list, the motion and camera constants the
+FakeController and the task samplers read, and the normalisation stats. The
+action list keeps the same order and the same `ACTION_DICT` override, so
+`NUM_ACTIONS` agrees with the JAX package.
 """
 
 from __future__ import annotations
 
 import json
 import os
+
+AGENT_ROTATION_DEG = 30
+AGENT_MOVEMENT_CONSTANT = 0.2
+HORIZON = 0
+
+INTEL_CAMERA_WIDTH, INTEL_CAMERA_HEIGHT = 396, 224
+
+PHYSICS_SETTLING_TIME = 1.0
 
 # 20-action discrete space; the order defines the policy's logit layout
 # (reference: utils/constants/stretch_initialization_utils.py:145-166).

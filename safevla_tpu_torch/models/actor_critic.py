@@ -35,7 +35,7 @@ from safevla_tpu_torch.models.dense import Dense, cast_param
 from safevla_tpu_torch.models.fusion import FusionTransformer, TorchMultiheadAttention
 from safevla_tpu_torch.models.image_encoders import build_image_encoder
 from safevla_tpu_torch.models.llama_decoder import DecoderConfig, LlamaDecoder, RMSNorm
-from safevla_tpu_torch.models.norms import CompatLayerNorm
+from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
 from safevla_tpu_torch.models.t5 import T5Config, T5Encoder, T5LayerNorm
 from safevla_tpu_torch.models.vit import DinoViT, LayerScale
 from safevla_tpu_torch.ops.masks import incremental_episode_mask, packed_block_causal_mask
@@ -68,13 +68,14 @@ class VisualEncoder(nn.Module):
             nn.Conv2d(c.vision_feature_dim, h0, 1), nn.ReLU(),
             nn.Conv2d(h0, h1, 1), nn.ReLU(),
         )
-        # reference adapter order: Linear, LayerNorm (f32, eps 1e-6), ReLU
+        # reference adapter order: Linear, LayerNorm (f32, eps 1e-6), ReLU;
+        # flax nn.LayerNorm in the JAX package, never the LayerNorm kernel
         self.visual_adapter = nn.Sequential(
-            Dense(h1, h1, compute_dtype=dtype), CompatLayerNorm(h1), nn.ReLU()
+            Dense(h1, h1, compute_dtype=dtype), PlainLayerNorm(h1), nn.ReLU()
         )
         self.text_adapter = nn.Sequential(
             Dense(c.text_embed_size, c.goal_dims, compute_dtype=dtype),
-            CompatLayerNorm(c.goal_dims),
+            PlainLayerNorm(c.goal_dims),
             nn.ReLU(),
         )
         self.fusion_token = nn.Parameter(torch.zeros(c.goal_dims))

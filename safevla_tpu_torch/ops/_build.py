@@ -5,7 +5,8 @@ into its own shared library, at first use, under `safevla_tpu_torch/_build/`
 (listed in .gitignore), then loaded with `ctypes`. The library's file name
 carries a digest of the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. `build()` starts one `nvcc` per source,
-all at once, and waits for them together.
+all at once, and waits for them together. `launch` calls one of a library's
+C functions and raises on the cudaError_t it returns.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 # every kernel source of the port, by name (csrc/<name>.cu)
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -103,3 +104,12 @@ def load_library(name: str, argtypes: Optional[dict] = None) -> ctypes.CDLL:
             getattr(lib, fn).restype = res
         _LIBS[name] = lib
     return lib
+
+
+def launch(lib: ctypes.CDLL, fn: str, *args) -> None:
+    """Call `lib.fn(*args)`, which returns a cudaError_t; raise unless it is 0
+    (with the message of `lib.<fn>_error_string`)."""
+    err = getattr(lib, fn)(*args)
+    if err != 0:
+        msg = getattr(lib, f"{fn}_error_string")(err).decode()
+        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")

@@ -141,13 +141,6 @@ def _check_cpu_key_lens(key_lens, s: int) -> None:
         raise ValueError(f"key_lens must lie in [1, {s}], got {key_lens.tolist()}")
 
 
-def _launch(lib, fn: str, *args) -> None:
-    err = getattr(lib, fn)(*args)
-    if err != 0:
-        msg = getattr(lib, f"{fn}_error_string")(err).decode()
-        raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
-
-
 def _attention_qkv_fwd(qkv, heads, key_lens):
     """The forward on one device: kernel on CUDA, plain version on the CPU."""
     b, s, lanes, dh = _split_heads(qkv, heads)
@@ -155,12 +148,12 @@ def _attention_qkv_fwd(qkv, heads, key_lens):
         _check_cpu_key_lens(key_lens, s)
         return attention_qkv_reference(qkv, heads, key_lens)
     _check_cuda_args(qkv, dh, b, key_lens, "attention_qkv")
-    from safevla_tpu_torch.ops._build import load_library
+    from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_fwd", _C_ARGTYPES)
     out = torch.empty((b, s, lanes), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
-        _launch(
+        launch(
             lib, "attention_qkv_fwd",
             qkv.data_ptr(),
             None if key_lens is None else key_lens.data_ptr(),
@@ -192,12 +185,12 @@ def attention_qkv_bwd(
     g = g.to(qkv.dtype).contiguous()
     if g.device != qkv.device or g.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs g on qkv's device, 16-byte aligned")
-    from safevla_tpu_torch.ops._build import load_library
+    from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_bwd", _C_ARGTYPES_BWD)
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
     with torch.cuda.device(qkv.device):
-        _launch(
+        launch(
             lib, "attention_qkv_bwd",
             qkv.data_ptr(),
             g.data_ptr(),

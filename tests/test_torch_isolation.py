@@ -75,3 +75,13 @@ def test_checkpoint_restore_is_not_ported_yet():
 
     with pytest.raises(NotImplementedError):
         InferenceAgent.build(Config(), "some/checkpoint", num_streams=2, device="cpu")
+
+
+def test_trainer_refuses_missing_cuda(monkeypatch):
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        OnlineTrainer(Config(), make_sampler_factory(), num_workers=0, async_pipeline=False)

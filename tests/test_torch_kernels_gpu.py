@@ -10,7 +10,9 @@ Tolerances: bf16 atol 2e-2 (one bf16 rounding of outputs of magnitude < 1,
 plus probability roundings that may fall differently), f32 atol 1e-4. The
 backward kernel's bf16 tolerance is 1e-2: a rounding point of p or ds that
 falls the other way moves a gradient by a bf16 ulp of it (2^-9 at the
-update's shape, for each of dq, dk and dv).
+update's shape, for each of dq, dk and dv). The LayerNorm kernels' bf16
+outputs reach ~6, so they are held to one bf16 ulp of the plain version
+(2^-7 |want| + 1e-3), f32 to 1e-5.
 """
 
 import numpy as np
@@ -110,3 +112,111 @@ def test_attention_autograd_on_the_card_launches_both_kernels(cuda):
         qkv.detach(), 2, kl, 2 * fa.attention_qkv_reference(qkv.detach(), 2, kl)
     )
     assert (qkv.grad - want).abs().max().item() <= 1e-4
+
+
+# (R, D, x dtype, out dtype): every LayerNorm shape of the trainer's path
+# (ViT rows of 2G = 32 frames x 448 tokens at D 384, bf16 out and the final
+# norm's f32 out; fusion rows of G = 16 samples x 208 tokens and the CLS
+# rows; the update's 128-sample chunk) and f32 configs
+LN_CASES = [
+    (32 * 448, 384, torch.bfloat16, torch.bfloat16),
+    (32 * 448, 384, torch.bfloat16, torch.float32),
+    (16 * 208, 512, torch.bfloat16, torch.bfloat16),
+    (16, 512, torch.bfloat16, torch.bfloat16),
+    (128 * 208, 512, torch.bfloat16, torch.bfloat16),
+    (128, 512, torch.bfloat16, torch.bfloat16),
+    (40, 512, torch.float32, torch.float32),
+    (13, 1024, torch.float32, torch.bfloat16),
+]
+
+
+def _ln_inputs(r, d, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((3 * rng.standard_normal((r, d)) + 1).astype(np.float32)).to("cuda", dtype)
+    gamma = torch.from_numpy((1 + 0.2 * rng.standard_normal(d)).astype(np.float32)).cuda()
+    beta = torch.from_numpy((0.2 * rng.standard_normal(d)).astype(np.float32)).cuda()
+    return x, gamma, beta
+
+
+def _ln_close(got, want):
+    """bf16: within one bf16 ulp of the reference, 2^-7 |want| (+ 1e-3 near
+    0), since one rounding may fall the other way; f32 within 1e-5."""
+    diff = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        return bool((diff <= 2**-7 * want.float().abs() + 1e-3).all())
+    return diff.max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,d,dtype,out_dtype", LN_CASES)
+def test_layer_norm_kernels_match_plain_versions(cuda, r, d, dtype, out_dtype):
+    """Forward and dx: bf16 within one bf16 ulp of the plain version, f32
+    within 1e-5; dgamma / dbeta within 1e-4 of their magnitude; two backward
+    runs give the same bits (partial rows, no atomics)."""
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    x, gamma, beta = _ln_inputs(r, d, dtype, r + d)
+    before = (ln.layer_norm.launches, ln.layer_norm_bwd.launches)
+    got = ln.layer_norm(x, gamma, beta, 1e-6, out_dtype)
+    want = ln.layer_norm_fwd_reference(x, gamma, beta, 1e-6, out_dtype)
+    assert got.dtype == out_dtype and got.shape == (r, d)
+    assert _ln_close(got, want)
+
+    g = torch.randn((r, d), generator=torch.Generator("cuda").manual_seed(r), device="cuda").to(out_dtype)
+    dx, dgamma, dbeta = ln.layer_norm_bwd(x, gamma, g)
+    again = ln.layer_norm_bwd(x, gamma, g)
+    wdx, wdgamma, wdbeta = ln.layer_norm_bwd_reference(x, gamma, g)
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip((dx, dgamma, dbeta), again))
+    assert dx.dtype == dtype and dgamma.dtype == dbeta.dtype == torch.float32
+    assert _ln_close(dx, wdx)
+    for a, b in ((dgamma, wdgamma), (dbeta, wdbeta)):
+        assert (a - b).abs().max().item() <= 1e-4 * (1 + b.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_layer_norm_autograd_on_the_card_launches_both_kernels(cuda):
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    x, gamma, beta = _ln_inputs(24, 256, torch.float32, 5)
+    x, gamma, beta = (t.requires_grad_(True) for t in (x, gamma, beta))
+    before = (ln.layer_norm.launches, ln.layer_norm_bwd.launches)
+    ln.layer_norm(x.view(4, 6, 256), gamma, beta).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ln.layer_norm.launches, ln.layer_norm_bwd.launches) == (before[0] + 1, before[1] + 1)
+    y = ln.layer_norm_fwd_reference(x.detach(), gamma.detach(), beta.detach())
+    wdx, wdg, wdb = ln.layer_norm_bwd_reference(x.detach(), gamma.detach(), 2 * y)
+    for got, want in ((x.grad, wdx), (gamma.grad, wdg), (beta.grad, wdb)):
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    gamma, beta = torch.ones(192, device="cuda"), torch.zeros(192, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ln.layer_norm(torch.zeros((4, 192), device="cuda"), gamma, beta)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        ln.layer_norm(torch.zeros((4, 128), device="cuda", dtype=torch.float16), gamma[:128], beta[:128])
+
+
+@pytest.mark.gpu
+def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
+    """On the card CompatLayerNorm always launches the kernel (and agrees with
+    its plain code) and raises on a width the kernel does not take; the
+    adapter norms (PlainLayerNorm) never launch it."""
+    from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    x, _, _ = _ln_inputs(16, 384, torch.bfloat16, 3)
+    mod = CompatLayerNorm(384, out_dtype=torch.bfloat16).cuda()
+    before = ln.layer_norm.launches
+    got = mod(x.view(2, 8, 384))
+    assert ln.layer_norm.launches == before + 1
+    PlainLayerNorm(384).cuda()(x)
+    assert ln.layer_norm.launches == before + 1
+    assert _ln_close(got.view(16, 384), mod.plain(x))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CompatLayerNorm(192).cuda()(x[:, :192].contiguous())
