@@ -9,8 +9,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      all at once);
   2. kernels vs plain: each kernel against its plain PyTorch version on the
      card, at the shapes the serving path, the rollout and the update give
-     it; times of the kernel, the plain version and one PyTorch library call
-     of the same function;
+     it, and the attention kernels at two edges of their tiles; times of the
+     kernel, the plain version and one PyTorch library call of the same
+     function;
   3. reference: a small policy (f32 towers and ViT, head dim 64 and feature
      dims of 128, so every kernel runs) on the card against the same weights
      on the CPU, for acts and for one Learner.update; and one collected
@@ -257,6 +258,8 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen):
         torch.cuda.synchronize()
         assert got.shape == want.shape and torch.isfinite(got).all(), name
         assert torch.equal(got, again), f"{name}: the backward kernel is not deterministic"
+        for i, n in enumerate(key_lens):  # masked key rows: dk and dv exactly 0
+            assert torch.all(got[i, n:, lanes:] == 0), f"{name} {dtype}: nonzero dk / dv on masked keys"
         diff = (got.float() - want.float()).abs()
         per = {part: diff[..., i * lanes : (i + 1) * lanes].max().item()
                for i, part in enumerate(("dq", "dk", "dv"))}
@@ -1090,7 +1093,13 @@ def main() -> int:
         check_attention(fa, "fusion_rollout", g, 208, 8, rollout_kl, gen),
         check_attention(fa, "fusion_update", 128, 208, 8, update_kl, gen),
     ]
+    # two edges of the bf16 kernels' tiles: S not a multiple of 64 with one
+    # valid key, a key count on a tile border and all S keys valid; one batch
+    # row at S=65 (a tile of 64 and one row)
+    edges = [("edge_s201", 3, 201, 6, [1, 64, 201]), ("edge_b1_s65", 1, 65, 8, [65])]
+    shapes += [check_attention(fa, *edge, gen) for edge in edges]
     bwd = check_attention_bwd(fa, "fusion_update", 128, 208, 8, update_kl, gen)
+    bwd_shapes = [bwd] + [check_attention_bwd(fa, *edge, gen) for edge in edges]
     bf16, f32 = torch.bfloat16, torch.float32
     ln_shapes = [  # (name, rows, D, x dtype, out dtype)
         ("vit_rollout", 2 * g * 448, 384, bf16, bf16),
@@ -1146,6 +1155,10 @@ def main() -> int:
             "shapes": all_shapes,
         }
 
+    attention_design = {  # the attention kernels dispatch by dtype
+        "bfloat16": "tensor cores (mma.sync.m16n8k16, ldmatrix, cp.async): every launch on the main path",
+        "float32": "CUDA cores (f32 FMA): the checks and the small f32 reference policy",
+    }
     kernels = [
         # headline numbers at the ViT serving shape (12 of the 18 launches
         # per act); every shape in full under "shapes"
@@ -1154,13 +1167,13 @@ def main() -> int:
             {"serving": serving["attention_launches"] + serving_ln["attention_launches"],
              "training": training["launches"]["attention_fwd"],
              "trainer": window_launches["attention_fwd"]},
-            shapes[0], shapes, ATTN_TOL_BF16,
+            shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
         row("flash_attention_bwd", "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
             "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
             {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"]},
-            bwd, [bwd], BWD_TOL_BF16,
+            bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
         # per act)

@@ -15,76 +15,401 @@
 //   ds_ij = p_ij (dp_ij - D_i); dsb = io(ds);
 //   dq_i = io(scale * sum_j dsb_ij k_j); dk_j = io(scale * sum_i dsb_ij q_i);
 //   dv_j = io(dv_j); every sum accumulated in f32. Masked key rows
-//   (j >= key_lens[b]) get p = 0, so their dk and dv are exactly 0.
+//   (j >= key_lens[b]) get exactly zero dk and dv. key_lens[b] must lie in
+//   [1, S]: the kernel traps otherwise.
 //
-// Design (simple first, one block per (head, batch row), no atomics):
-//   * Q, K, V and G of (b, h) are staged once in dynamic shared memory, each
-//     row padded by one 32-bit word so that lanes reading different rows hit
-//     different banks (bf16: ~110 KB at S=208). In f32 the four would take
-//     ~216 KB plus the per-warp rows, over the 227 KB limit, so the f32
-//     instantiation stages Q, K, V and reads G rows from global memory
-//     (L2-resident). f32 serves the checks and the small reference policy.
-//   * Phase 1, one warp per query row i (16 warps): lanes split the valid
-//     keys; q_i, then g_i, sit in registers for s and dp; shuffles reduce m,
-//     rowsum(e) and D_i; the row's p and io(ds) go to per-warp rows of shared
-//     memory; then lanes split the 64 head dims (2 each) for dq_i. m, rowsum
-//     and D of every row are kept in shared memory.
-//   * Phase 2, after a block barrier, one warp per key row j: lanes split the
-//     query rows and recompute p_ij and io(ds_ij) with k_j, then v_j, in
-//     registers (the same FMA order as phase 1, so the same bits); then lanes
-//     split the head dims for dv_j and dk_j.
-//   Each gradient row is summed by one warp in a fixed order, so the result
-//   is deterministic (two runs give the same bits).
-//   * key_lens[b] must lie in [1, S]; the kernel traps otherwise (a host-side
-//     check would synchronise every call).
+// What bounds it on an H100: ~10*S*kl*Dh flops per (b, h) for the five
+// products (s, dp, dv, dq, dk) against 7*B*S*H*Dh IO elements (qkv and g
+// read once, dqkv written once). At the update's shape (S=208, Dh=64, ~190
+// valid keys) that is ~135 flops per byte, under the ~295 at which the bf16
+// tensor cores become the limit: an ideal kernel is bound by memory.
 //
-// What bounds it on an H100: the work is ~10*S*kl*Dh flops per (b, h) (s, dp,
-// dv, dq, dk) against 7*B*S*H*Dh IO elements (qkv and g read once, dqkv
-// written once). At the update's shape (S=208, Dh=64, ~190 valid keys) that is
-// ~270 flops per bf16 element, ~135 per byte: under the ~295 at which the
-// bf16 tensor cores become the limit, so an ideal kernel is bound by memory.
-// This one is far from it: every product runs on the CUDA cores in f32 (FMA),
-// p is recomputed in both phases, and one block of 512 threads fills an SM
-// (the staged operands take ~139 KB). Left for a later change: wgmma tiles for
-// the five products, TMA loads, and several blocks per SM.
+// The dtype picks the design (dispatch by dtype; a failed build or launch
+// raises in either). Neither uses atomics: every gradient row is summed by
+// one warp in a fixed order, so two runs give the same bits.
+//
+// bf16 (every launch on the main path) runs on the tensor cores,
+// mma.sync.m16n8k16 with f32 accumulators (helpers in hopper_mma.cuh), in
+// one block of 4 warps per (head, batch row) and two phases. The forward
+// saves only (qkv, key_lens), so the block recomputes the softmax statistics
+// itself; keeping them in shared memory between the phases needs neither a
+// second kernel nor a scratch buffer in device memory.
+//   * Q, G (rows < S) and K, V (rows < key_lens[b], rounded up to 16) arrive
+//     by cp.async (16-byte chunks) into XOR-swizzled planes read by ldmatrix;
+//     rows past S or key_lens[b] are zero-filled by the copy, and key tiles
+//     wholly past key_lens[b] are never loaded. At S=208 the four planes and
+//     the statistics take 106 KB, so two blocks fit on an SM; S is bounded by
+//     the 227 KB a block may use (524 bytes a row: S <= 432), past which the
+//     launch fails and the wrapper raises.
+//   * Phase A, one warp per 16 query rows (q and g held as A fragments):
+//     pass 1 runs q.k^T for the row max m and rowsum(e) (each lane keeps the
+//     max and sum of its own columns, rescaling the sum when its max grows,
+//     and the row's four lanes merge them at the end; p is rounded only once
+//     m and the sum are final); pass 2 recomputes s, forms
+//     p = bf16(e * (1 / rowsum)) and dp = g.v^T for D; pass 3 recomputes
+//     both, forms ds = p (dp - D) and feeds dsb from the accumulators
+//     straight into the A fragments of dq += dsb.k. The warp writes dq, and
+//     m, 1 / rowsum and D into shared memory.
+//   * Phase B, after a barrier, one warp per 16 key rows (k and v held as A
+//     fragments): over the query rows, s^T = k.q^T and dp^T = v.g^T, then
+//     p^T and dsb^T from the phase-A statistics, which are the A fragments of
+//     dv += p^T.g and dk += dsb^T.q (g and q through ldmatrix.trans). The
+//     two phases may round a p differently (their sums run in another
+//     order); both are the TPU kernel's function.
+//   * Both phases walk their columns in chunks of 32 (four independent
+//     accumulators a product, so the mma chains overlap), unmasked while the
+//     chunk holds only valid keys, then in masked chunks of 16. Logits are
+//     kept in log2 units (one FFMA and one exp2 an element) and p multiplies
+//     by 1 / rowsum instead of dividing: both agree with the plain version's
+//     exp and quotient to a few ulp of f32, far under the bf16 rounding of p.
+//   * mma.sync, not wgmma: below the ridge, small tiles, and the
+//     accumulator-to-A-fragment reuse above.
+//
+// f32 (the checks and the small f32 reference policy; TF32 tensor cores
+// would miss the 1e-4 tolerance) keeps the CUDA-core design of the first
+// port: one block of 16 warps per (head, batch row); Q, K and V staged in
+// shared memory (rows padded by one word), G read from global memory; phase 1
+// one warp per query row (lanes split the keys; shuffles reduce m, rowsum and
+// D; lanes split the head dims for dq), phase 2 one warp per key row (p and
+// ds recomputed with the same FMA order, so the same bits; dk and dv), f32
+// FMAs throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
 constexpr int kHeadDim = 64;
+
+// ---------------------------------------------------------------- bf16 ---
+
+constexpr int kTcThreads = 128;  // 4 warps
+
+__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
+
+size_t tc_smem_bytes(int S) {
+  const size_t s16 = static_cast<size_t>(round16(S));
+  return 4 * s16 * hopper::kRowBytes + 3 * s16 * sizeof(float);
+}
+
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// Calls body(Int<NT>(), Int<kMask>(), c0) over the columns [0, end) in
+// chunks: 32 wide (NT = 4 n tiles) while the chunk lies below `full`, with no
+// mask, then 16 wide (NT = 2), masked. Wider chunks give the mma chains of a
+// chunk more independent accumulators.
+template <typename Body>
+__device__ __forceinline__ void over_chunks(int full, int end, Body&& body) {
+  int c0 = 0;
+  for (; c0 + 32 <= full; c0 += 32) body(Int<4>(), Int<0>(), c0);
+  for (; c0 < end; c0 += 16) body(Int<2>(), Int<1>(), c0);
+}
+
+// c (16 rows x 8*NT columns, as NT n tiles) = a . bt[n0..n0+8*NT-1]^T, where
+// a is held as 4 A fragments (64 deep) and bt is a swizzled plane stored
+// n-major.
+template <int NT>
+__device__ __forceinline__ void product(float (&c)[NT][4], const uint32_t (&a)[4][4], uint32_t bt,
+                                        int n0, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      uint32_t b[4];
+      hopper::ldsm_x4(b, hopper::bt_addr(bt, n0 + 16 * jp, kk, lane));
+      hopper::mma(c[2 * jp], a[kk], b[0], b[1]);
+      hopper::mma(c[2 * jp + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x 64) += bf16(c) (16 x 8*NT, as A fragments) . plane rows
+// k0..k0+8*NT-1 (all 64 columns, through ldmatrix.trans).
+template <int NT>
+__device__ __forceinline__ void accumulate(float (&acc)[8][4], const float (&c)[NT][4],
+                                           uint32_t plane, int k0, int lane) {
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks) {
+    uint32_t a[4];
+    hopper::acc_to_a(a, c[2 * ks], c[2 * ks + 1]);
+#pragma unroll
+    for (int jn = 0; jn < 4; ++jn) {
+      uint32_t b[4];
+      hopper::ldsm_x4_t(b, hopper::b_addr_t(plane, k0 + 16 * ks, jn, lane));
+      hopper::mma(acc[2 * jn], a, b[0], b[1]);
+      hopper::mma(acc[2 * jn + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Stores rows r and r + 8 (r = r0 + lane / 4) of a 16 x 64 accumulator,
+// times `mul`, to dst (head column 0 of row 0; rows `stride` apart), rounded
+// to bf16. Rows >= limit are skipped; rows >= zero_from get zeros.
+__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long stride,
+                                           const float (&acc)[8][4], float mul, int r0,
+                                           int limit, int zero_from, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + (lane >> 2) + 8 * half;
+    if (r >= limit) continue;
+    const bool zero = r >= zero_from;
+    __nv_bfloat16* row = dst + r * stride + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          zero ? 0u : hopper::pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
+    }
+  }
+}
+
+// Logits are kept in log2 units: e = exp(s - m) = exp2(s * log2(e) - m *
+// log2(e)), one FFMA and one exp2 each (the f32 values agree to a few ulp).
+// A finite floor instead of -inf for "no key yet" keeps every rescale finite.
+constexpr float kNoMax = -1e30f;
+
+// Phase B for one slice of 16 key rows: dk and dv over every query chunk.
+// kMaskKeys: some of the slice's rows are >= key_lens[b] (valid[] says which
+// of this lane's two rows are keys).
+template <bool kMaskKeys>
+__device__ __forceinline__ void dk_dv_slice(float (&dk)[8][4], float (&dv)[8][4],
+                                            const uint32_t (&kf)[4][4], const uint32_t (&vf)[4][4],
+                                            uint32_t q_s, uint32_t g_s, const float* m_s,
+                                            const float* l_s, const float* d_s, int s16,
+                                            const bool (&valid)[2], float scale2, int lane) {
+  const int col0 = 2 * (lane & 3);
+  over_chunks(s16, s16, [&](auto nt, auto, int i0) {
+    constexpr int NT = decltype(nt)::value;
+    float st[NT][4], dpt[NT][4];
+    product<NT>(st, kf, q_s, i0, lane);   // s^T = k . q^T
+    product<NT>(dpt, vf, g_s, i0, lane);  // dp^T = v . g^T
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int q = i0 + 8 * j + col0;
+      const float2 m2 = *reinterpret_cast<const float2*>(m_s + q);
+      const float2 l2 = *reinterpret_cast<const float2*>(l_s + q);
+      const float2 d2 = *reinterpret_cast<const float2*>(d_s + q);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mm = (e & 1) ? m2.y : m2.x;
+        const float ll = (e & 1) ? l2.y : l2.x;
+        const float dd = (e & 1) ? d2.y : d2.x;
+        float p = hopper::round_bf16(exp2f(fmaf(st[j][e], scale2, -mm)) * ll);
+        if (kMaskKeys && !valid[e >> 1]) p = 0.f;
+        dpt[j][e] = p * (dpt[j][e] - dd);
+        st[j][e] = p;
+      }
+    }
+    accumulate<NT>(dv, st, g_s, i0, lane);   // dv += p^T . g
+    accumulate<NT>(dk, dpt, q_s, i0, lane);  // dk += dsb^T . q
+  });
+}
+
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
+                            const __nv_bfloat16* __restrict__ g, const int* __restrict__ key_lens,
+                            __nv_bfloat16* __restrict__ dqkv, int S, int H, long long stride_b,
+                            long long stride_s, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int h = static_cast<int>(blockIdx.x);
+  const int b = static_cast<int>(blockIdx.y);
+  const int kl = key_lens ? key_lens[b] : S;
+  if (kl < 1 || kl > S) __trap();
+  const int s16 = round16(S);
+  const int nk16 = round16(kl);
+  const int lanes = H * kHeadDim;
+  const __nv_bfloat16* base = qkv + b * stride_b + h * kHeadDim;
+  const __nv_bfloat16* g_base = g + static_cast<size_t>(b) * S * lanes + h * kHeadDim;
+  __nv_bfloat16* d_base = dqkv + b * stride_b + h * kHeadDim;
+
+  // shared memory: the Q, K, V and G planes (s16 swizzled rows each), then
+  // m (log2 units), 1 / rowsum and D of every query row
+  const uint32_t plane = static_cast<uint32_t>(s16) * hopper::kRowBytes;
+  const uint32_t q_s = hopper::smem_addr(smem_raw);
+  const uint32_t k_s = q_s + plane;
+  const uint32_t v_s = k_s + plane;
+  const uint32_t g_s = v_s + plane;
+  float* m_s = reinterpret_cast<float*>(smem_raw + 4 * static_cast<size_t>(plane));
+  float* l_s = m_s + s16;
+  float* d_s = l_s + s16;
+
+  for (int i = threadIdx.x; i < s16 * 8; i += kTcThreads) {
+    const int r = i >> 3, c = i & 7;
+    const uint32_t off = hopper::swz(r, c);
+    const bool q_ok = r < S;
+    const int rq = q_ok ? r : 0;
+    hopper::cp_async16(q_s + off, base + rq * stride_s + c * 8, q_ok);
+    hopper::cp_async16(g_s + off, g_base + static_cast<size_t>(rq) * lanes + c * 8, q_ok);
+    if (r < nk16) {
+      const bool k_ok = r < kl;
+      const __nv_bfloat16* src = base + (k_ok ? r : 0) * stride_s + c * 8;
+      hopper::cp_async16(k_s + off, src + lanes, k_ok);
+      hopper::cp_async16(v_s + off, src + 2 * lanes, k_ok);
+    }
+  }
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+
+  const int col0 = 2 * (lane & 3);
+  const float scale2 = scale * 1.4426950408889634f;
+
+  // phase A: one warp per 16 query rows -> m, 1 / rowsum, D and dq
+  for (int r0 = 16 * warp; r0 < s16; r0 += 16 * (kTcThreads / 32)) {
+    uint32_t qf[4][4], gf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::ldsm_x4(qf[kk], hopper::a_addr(q_s, r0, kk, lane));
+      hopper::ldsm_x4(gf[kk], hopper::a_addr(g_s, r0, kk, lane));
+    }
+
+    // pass 1: the row max and rowsum(e); each lane keeps its own columns'
+    // max and sum (rescaled when its max grows), merged across the 4 lanes
+    // of the row at the end
+    float m[2] = {kNoMax, kNoMax}, l[2] = {0.f, 0.f};
+    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
+      constexpr int NT = decltype(nt)::value;
+      constexpr bool kMask = decltype(masked)::value;
+      const int valid = kl - k0 - col0;  // columns 8j + (e & 1) < valid are keys
+      float s[NT][4];
+      product<NT>(s, qf, k_s, k0, lane);
+      float mn[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= scale2;
+          if (!kMask || 8 * j + (e & 1) < valid) mn[e >> 1] = fmaxf(mn[e >> 1], s[j][e]);
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        l[hh] *= exp2f(m[hh] - mn[hh]);
+        m[hh] = mn[hh];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!kMask || 8 * j + (e & 1) < valid) l[e >> 1] += exp2f(s[j][e] - m[e >> 1]);
+        }
+      }
+    });
+    // p = bf16(e * (1 / rowsum)): the f32 quotient to within an ulp
+    float inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mx = hopper::quad_max(m[hh]);
+      inv_l[hh] = 1.f / hopper::quad_sum(l[hh] * exp2f(m[hh] - mx));
+      m[hh] = mx;
+    }
+
+    // p of one chunk, in place of its logits
+    auto probs = [&](auto nt, auto masked, auto& s, int k0) {
+      constexpr int NT = decltype(nt)::value;
+      constexpr bool kMask = decltype(masked)::value;
+      const int valid = kl - k0 - col0;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = hopper::round_bf16(exp2f(fmaf(s[j][e], scale2, -m[e >> 1])) * inv_l[e >> 1]);
+          s[j][e] = (!kMask || 8 * j + (e & 1) < valid) ? p : 0.f;
+        }
+      }
+    };
+
+    // pass 2: D = sum_j dp_ij p_ij
+    float dsum[2] = {0.f, 0.f};
+    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
+      constexpr int NT = decltype(nt)::value;
+      float s[NT][4], dp[NT][4];
+      product<NT>(s, qf, k_s, k0, lane);
+      product<NT>(dp, gf, v_s, k0, lane);
+      probs(nt, masked, s, k0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[j][e] * s[j][e];
+      }
+    });
+    const float D[2] = {hopper::quad_sum(dsum[0]), hopper::quad_sum(dsum[1])};
+
+    // pass 3: ds = p (dp - D), dq += bf16(ds) . k
+    float dq[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
+      constexpr int NT = decltype(nt)::value;
+      float s[NT][4], dp[NT][4];
+      product<NT>(s, qf, k_s, k0, lane);
+      product<NT>(dp, gf, v_s, k0, lane);
+      probs(nt, masked, s, k0);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - D[e >> 1];
+      }
+      accumulate<NT>(dq, s, k_s, k0, lane);
+    });
+    store_rows(d_base, stride_s, dq, scale, r0, S, S, lane);
+    if ((lane & 3) == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + (lane >> 2) + 8 * hh;
+        m_s[r] = m[hh];
+        l_s[r] = inv_l[hh];
+        d_s[r] = D[hh];
+      }
+    }
+  }
+  __syncthreads();
+
+  // phase B: one warp per 16 key rows -> dk and dv
+  for (int j0 = 16 * warp; j0 < nk16; j0 += 16 * (kTcThreads / 32)) {
+    uint32_t kf[4][4], vf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hopper::ldsm_x4(kf[kk], hopper::a_addr(k_s, j0, kk, lane));
+      hopper::ldsm_x4(vf[kk], hopper::a_addr(v_s, j0, kk, lane));
+    }
+    const bool valid[2] = {j0 + (lane >> 2) < kl, j0 + (lane >> 2) + 8 < kl};
+    float dk[8][4], dv[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+      dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+    }
+    if (j0 + 16 <= kl)
+      dk_dv_slice<false>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
+    else
+      dk_dv_slice<true>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
+    store_rows(d_base + lanes, stride_s, dk, scale, j0, S, kl, lane);
+    store_rows(d_base + 2 * lanes, stride_s, dv, 1.f, j0, S, kl, lane);
+  }
+
+  // key rows nk16..S-1 (wholly past key_lens[b]): dk = dv = 0
+  for (int i = threadIdx.x; i < (S - nk16) * 16; i += kTcThreads) {
+    const int r = nk16 + (i >> 4), c = i & 15;
+    *reinterpret_cast<uint4*>(d_base + r * stride_s + (c < 8 ? lanes : 2 * lanes) + (c & 7) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ----------------------------------------------------------------- f32 ---
+
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<__nv_bfloat16> {
-  // 64 values + 2 pad = 33 words per staged row
-  static constexpr int kRowStride = kHeadDim + 2;
-  __device__ static float2 load2(const __nv_bfloat16* p) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  }
-  __device__ static void store2(__nv_bfloat16* p, float a, float b) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-  }
-  __device__ static float round_io(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-};
-
-template <>
-struct Io<float> {
-  // 64 values + 1 pad = 65 words per staged row
-  static constexpr int kRowStride = kHeadDim + 1;
-  __device__ static float2 load2(const float* p) { return make_float2(p[0], p[1]); }
-  __device__ static void store2(float* p, float a, float b) {
-    p[0] = a;
-    p[1] = b;
-  }
-  __device__ static float round_io(float x) { return x; }
-};
+constexpr int kRowStride = kHeadDim + 1;  // 65 words per staged row
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -98,93 +423,67 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copies one 16-byte chunk from global memory into a staged row whose start
-// is only 4-byte aligned (the padded stride breaks 16-byte alignment).
-__device__ __forceinline__ void stage16(void* dst, const void* src) {
-  const uint4 v = *reinterpret_cast<const uint4*>(src);
-  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-  d[0] = v.x;
-  d[1] = v.y;
-  d[2] = v.z;
-  d[3] = v.w;
+__device__ __forceinline__ void stage_row(float* dst, const float* src) {
+#pragma unroll
+  for (int c = 0; c < kHeadDim; c += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + c);
+    dst[c] = v.x;
+    dst[c + 1] = v.y;
+    dst[c + 2] = v.z;
+    dst[c + 3] = v.w;
+  }
 }
 
-template <typename T>
-__device__ __forceinline__ void load_row(float (&r)[kHeadDim], const T* p) {
+__device__ __forceinline__ void load_row(float (&r)[kHeadDim], const float* p) {
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 2) {
-    const float2 t = Io<T>::load2(p + d);
-    r[d] = t.x;
-    r[d + 1] = t.y;
-  }
+  for (int d = 0; d < kHeadDim; ++d) r[d] = p[d];
 }
 
 // r . row, with d ascending: phase 1 and phase 2 both compute each product
 // with this function, so p and ds agree bit for bit between them.
-template <typename T>
-__device__ __forceinline__ float dot_row(const float (&r)[kHeadDim], const T* row) {
+__device__ __forceinline__ float dot_row(const float (&r)[kHeadDim], const float* row) {
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < kHeadDim; d += 2) {
-    const float2 x = Io<T>::load2(row + d);
-    acc = fmaf(r[d], x.x, acc);
-    acc = fmaf(r[d + 1], x.y, acc);
-  }
+  for (int d = 0; d < kHeadDim; ++d) acc = fmaf(r[d], row[d], acc);
   return acc;
 }
 
-// bf16 stages G too; f32 reads G from global memory (see the note at the top)
-template <typename T>
-constexpr bool kStageG = sizeof(T) == 2;
-
-template <typename T>
-size_t smem_bytes(int S) {
-  const size_t rows = (kStageG<T> ? 4 : 3) * static_cast<size_t>(S) * Io<T>::kRowStride * sizeof(T);
-  return rows + (2 * static_cast<size_t>(kWarps) + 3) * S * sizeof(float);
+size_t f32_smem_bytes(int S) {
+  return 3 * static_cast<size_t>(S) * kRowStride * sizeof(float) +
+         (2 * static_cast<size_t>(kWarps) + 3) * S * sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    attention_qkv_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ g,
-                             const int* __restrict__ key_lens, T* __restrict__ dqkv, int S, int H,
-                             long long stride_b, long long stride_s, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kRS = Io<T>::kRowStride;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = kHeadDim / kVec;
-
+    attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
+                             const int* __restrict__ key_lens, float* __restrict__ dqkv, int S,
+                             int H, long long stride_b, long long stride_s, float scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   const int h = static_cast<int>(blockIdx.x);
   const int b = static_cast<int>(blockIdx.y);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
 
-  const size_t plane = static_cast<size_t>(S) * kRS;
-  T* qs = reinterpret_cast<T*>(smem_raw);
-  T* ks = qs + plane;
-  T* vs = ks + plane;
-  T* gs = vs + plane;  // unused when !kStageG<T>
-  float* prow_all = reinterpret_cast<float*>(kStageG<T> ? gs + plane : gs);
+  const size_t plane = static_cast<size_t>(S) * kRowStride;
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ks = qs + plane;
+  float* vs = ks + plane;
+  float* prow_all = vs + plane;
   float* drow_all = prow_all + kWarps * S;
   float* m_s = drow_all + kWarps * S;
   float* l_s = m_s + S;
   float* d_s = l_s + S;
 
   const int lanes = H * kHeadDim;
-  const T* base = qkv + b * stride_b + h * kHeadDim;
-  const T* gg = g + (static_cast<size_t>(b) * S) * lanes + h * kHeadDim;
-  for (int i = threadIdx.x; i < S * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i - r * kChunks) * kVec;
-    const T* src = base + r * stride_s + c;
-    stage16(qs + r * kRS + c, src);
+  const float* base = qkv + b * stride_b + h * kHeadDim;
+  const float* grows = g + (static_cast<size_t>(b) * S) * lanes + h * kHeadDim;
+  for (int r = threadIdx.x; r < S; r += kThreads) {
+    const float* src = base + r * stride_s;
+    stage_row(qs + r * kRowStride, src);
     if (r < kl) {
-      stage16(ks + r * kRS + c, src + lanes);
-      stage16(vs + r * kRS + c, src + 2 * lanes);
+      stage_row(ks + r * kRowStride, src + lanes);
+      stage_row(vs + r * kRowStride, src + 2 * lanes);
     }
-    if (kStageG<T>) stage16(gs + r * kRS + c, gg + static_cast<size_t>(r) * lanes + c);
   }
-  const T* grows = kStageG<T> ? gs : gg;
-  const long long gstride = kStageG<T> ? kRS : lanes;
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
@@ -192,15 +491,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int d0 = 2 * lane;
   float* prow = prow_all + warp * S;
   float* drow = drow_all + warp * S;
-  T* out_base = dqkv + b * stride_b + h * kHeadDim + d0;
+  float* out_base = dqkv + b * stride_b + h * kHeadDim + d0;
   float r[kHeadDim];
 
   // phase 1: one warp per query row -> m, rowsum(e), D, and dq
   for (int i = warp; i < S; i += kWarps) {
-    load_row<T>(r, qs + i * kRS);
+    load_row(r, qs + i * kRowStride);
     float mx = __int_as_float(0xff800000);  // -inf
     for (int j = lane; j < kl; j += 32) {
-      const float s = dot_row<T>(r, ks + j * kRS) * scale;
+      const float s = dot_row(r, ks + j * kRowStride) * scale;
       prow[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -212,26 +511,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       sum += e;
     }
     sum = warp_sum(sum);
-    load_row<T>(r, grows + i * gstride);
+    load_row(r, grows + i * lanes);
     float dsum = 0.f;
     for (int j = lane; j < kl; j += 32) {
-      const float p = Io<T>::round_io(prow[j] / sum);
-      const float dp = dot_row<T>(r, vs + j * kRS);
+      const float p = prow[j] / sum;
+      const float dp = dot_row(r, vs + j * kRowStride);
       prow[j] = p;
       drow[j] = dp;
       dsum = fmaf(dp, p, dsum);
     }
     const float dsum_all = warp_sum(dsum);
-    for (int j = lane; j < kl; j += 32) drow[j] = Io<T>::round_io(prow[j] * (drow[j] - dsum_all));
+    for (int j = lane; j < kl; j += 32) drow[j] = prow[j] * (drow[j] - dsum_all);
     __syncwarp();
     float a0 = 0.f, a1 = 0.f;
     for (int j = 0; j < kl; ++j) {
       const float ds = drow[j];
-      const float2 k = Io<T>::load2(ks + j * kRS + d0);
-      a0 = fmaf(ds, k.x, a0);
-      a1 = fmaf(ds, k.y, a1);
+      a0 = fmaf(ds, ks[j * kRowStride + d0], a0);
+      a1 = fmaf(ds, ks[j * kRowStride + d0 + 1], a1);
     }
-    Io<T>::store2(out_base + i * stride_s, a0 * scale, a1 * scale);
+    float* o = out_base + i * stride_s;
+    o[0] = a0 * scale;
+    o[1] = a1 * scale;
     if (lane == 0) {
       m_s[i] = mx;
       l_s[i] = sum;
@@ -243,60 +543,79 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // phase 2: one warp per key row -> dk and dv
   for (int j = warp; j < S; j += kWarps) {
-    T* out = out_base + j * stride_s;
+    float* out = out_base + j * stride_s;
     if (j >= kl) {  // masked key: p = 0 for every query row
-      Io<T>::store2(out + lanes, 0.f, 0.f);
-      Io<T>::store2(out + 2 * lanes, 0.f, 0.f);
+      out[lanes] = out[lanes + 1] = 0.f;
+      out[2 * lanes] = out[2 * lanes + 1] = 0.f;
       continue;
     }
-    load_row<T>(r, ks + j * kRS);
+    load_row(r, ks + j * kRowStride);
     for (int i = lane; i < S; i += 32) {
-      const float s = dot_row<T>(r, qs + i * kRS) * scale;
-      prow[i] = Io<T>::round_io(expf(s - m_s[i]) / l_s[i]);
+      const float s = dot_row(r, qs + i * kRowStride) * scale;
+      prow[i] = expf(s - m_s[i]) / l_s[i];
     }
-    load_row<T>(r, vs + j * kRS);
+    load_row(r, vs + j * kRowStride);
     for (int i = lane; i < S; i += 32) {
-      const float dp = dot_row<T>(r, grows + i * gstride);
-      drow[i] = Io<T>::round_io(prow[i] * (dp - d_s[i]));
+      const float dp = dot_row(r, grows + i * lanes);
+      drow[i] = prow[i] * (dp - d_s[i]);
     }
     __syncwarp();
     float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
     for (int i = 0; i < S; ++i) {
       const float p = prow[i];
       const float ds = drow[i];
-      const float2 gv = Io<T>::load2(grows + i * gstride + d0);
-      const float2 qv = Io<T>::load2(qs + i * kRS + d0);
-      v0 = fmaf(p, gv.x, v0);
-      v1 = fmaf(p, gv.y, v1);
-      k0 = fmaf(ds, qv.x, k0);
-      k1 = fmaf(ds, qv.y, k1);
+      const float* gr = grows + i * lanes + d0;
+      const float* qr = qs + i * kRowStride + d0;
+      v0 = fmaf(p, gr[0], v0);
+      v1 = fmaf(p, gr[1], v1);
+      k0 = fmaf(ds, qr[0], k0);
+      k1 = fmaf(ds, qr[1], k1);
     }
-    Io<T>::store2(out + lanes, k0 * scale, k1 * scale);
-    Io<T>::store2(out + 2 * lanes, v0, v1);
+    out[lanes] = k0 * scale;
+    out[lanes + 1] = k1 * scale;
+    out[2 * lanes] = v0;
+    out[2 * lanes + 1] = v1;
     __syncwarp();
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* qkv, const void* g, const void* key_lens, void* dqkv, int B, int S,
-                   int H, long long stride_b, long long stride_s, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T>(S);
-  cudaError_t err = cudaFuncSetAttribute(attention_qkv_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+cudaError_t launch_bf16(const void* qkv, const void* g, const void* key_lens, void* dqkv, int B,
+                        int S, int H, long long stride_b, long long stride_s, float scale,
+                        cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(S);
+  cudaError_t err = set_smem(attention_bwd_tc_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(H, B);
-  attention_qkv_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(g), static_cast<const int*>(key_lens),
-      static_cast<T*>(dqkv), S, H, stride_b, stride_s, scale);
+  attention_bwd_tc_kernel<<<dim3(H, B), kTcThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(g),
+      static_cast<const int*>(key_lens), static_cast<__nv_bfloat16*>(dqkv), S, H, stride_b,
+      stride_s, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* qkv, const void* g, const void* key_lens, void* dqkv, int B,
+                       int S, int H, long long stride_b, long long stride_s, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes(S);
+  cudaError_t err = set_smem(attention_bwd_f32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_f32_kernel<<<dim3(H, B), kThreads, smem, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(g),
+      static_cast<const int*>(key_lens), static_cast<float*>(dqkv), S, H, stride_b, stride_s,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32. qkv and dqkv share the strides (in
-// elements) stride_b, stride_s with a contiguous last axis; g is contiguous
-// (B, S, H*Dh); every row starts on a 16-byte boundary.
+// dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores). qkv and dqkv
+// share the strides (in elements) stride_b, stride_s with a contiguous last
+// axis; g is contiguous (B, S, H*Dh); every row starts on a 16-byte boundary.
 // Returns a cudaError_t (0 on success).
 extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key_lens, void* dqkv,
                                  int B, int S, int H, int head_dim, long long stride_b,
@@ -304,9 +623,9 @@ extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key
   if (head_dim != kHeadDim || B < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<__nv_bfloat16>(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
+    return launch_bf16(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
   if (dtype == 1)
-    return launch<float>(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
+    return launch_f32(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
   return cudaErrorInvalidValue;
 }
 

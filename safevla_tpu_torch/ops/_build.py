@@ -3,10 +3,11 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by `nvcc`
 into its own shared library, at first use, under `safevla_tpu_torch/_build/`
 (listed in .gitignore), then loaded with `ctypes`. The library's file name
-carries a digest of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. `build()` starts one `nvcc` per source,
-all at once, and waits for them together. `launch` calls one of a library's
-C functions and raises on the cudaError_t it returns.
+carries a digest of the source, the shared headers `csrc/*.cuh` and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. `build()` starts one `nvcc` per source, all at once, and waits for
+them together. `launch` calls one of a library's C functions and raises on
+the cudaError_t it returns.
 """
 
 from __future__ import annotations
@@ -55,10 +56,14 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+    """The library of csrc/<name>.cu, named by a digest of the source, every
+    shared header csrc/*.cuh (any source may include them) and the flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> float:

@@ -21,6 +21,12 @@ CASES = [
     (3, 208, 8, [170, 190, 201]),
     (2, 448, 6, [433, 433]),
     (5, 64, 4, None),
+    # the edges of the card kernels' tiles, where the plain version they are
+    # held to must be right: one valid key and all S, S = 65 (a tile of 64
+    # and one row), a key count on a tile border, one batch row
+    (2, 65, 2, [1, 65]),
+    (3, 201, 6, [1, 64, 201]),
+    (1, 208, 8, [208]),
 ]
 
 

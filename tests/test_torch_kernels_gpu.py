@@ -55,6 +55,46 @@ def test_attention_kernel_matches_plain_version(cuda, b, s, h, key_lens, dtype, 
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+# the edges of the bf16 kernels' tiles (64 query rows and 64 keys a tile in
+# the forward, 16-row slices in the backward): S not a multiple of 64, valid
+# key counts of 1, of S and on a tile border, one batch row, 6 and 8 heads
+EDGE_CASES = [
+    # (B, S, H, key_lens)
+    (2, 208, 8, [1, 208]),
+    (3, 201, 6, [64, 128, 201]),
+    (1, 65, 8, [65]),
+    (2, 65, 6, [1, 64]),
+    (4, 208, 8, [64, 128, 1, 208]),
+]
+EDGE_DTYPES = [(torch.bfloat16, 2e-2, 1e-2), (torch.float32, 1e-4, 1e-4)]  # (dtype, fwd tol, bwd tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,key_lens", EDGE_CASES)
+@pytest.mark.parametrize("dtype,tol,bwd_tol", EDGE_DTYPES)
+def test_attention_kernels_at_tile_edges(cuda, b, s, h, key_lens, dtype, tol, bwd_tol):
+    """Forward and backward against their plain versions at the tile edges;
+    the backward gives the same bits twice and exactly zero dk and dv on
+    every masked key row."""
+    rng = np.random.default_rng(b * 1000 + s + h)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * 64), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal((b, s, h * 64), dtype=np.float32)).to("cuda", dtype)
+    kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
+    got = fa.attention_qkv(qkv, h, kl)
+    want = fa.attention_qkv_reference(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    again = fa.attention_qkv_bwd(qkv, h, kl, g)
+    d_want = fa.attention_qkv_bwd_reference(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s, h * 64) and torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    assert torch.equal(d, again)
+    assert (d.float() - d_want.float()).abs().max().item() <= bwd_tol
+    lanes = h * 64
+    for i, n in enumerate(key_lens):
+        assert torch.all(d[i, n:, lanes:] == 0)
+
+
 @pytest.mark.gpu
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     qkv = torch.zeros((2, 16, 3 * 2 * 32), device="cuda", dtype=torch.bfloat16)
