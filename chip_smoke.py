@@ -11,7 +11,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      card, at the shapes the serving path, the rollout and the update give
      it, and the attention kernels at two edges of their tiles; times of the
      kernel, the plain version and one PyTorch library call of the same
-     function;
+     function (CUDA-event ms, host µs to enqueue a call, profiler device
+     ms); the LayerNorm backward's kernels per call, and its two designs
+     (one cooperative kernel, two kernels) timed side by side;
   3. reference: a small policy (f32 towers and ViT, head dim 64 and feature
      dims of 128, so every kernel runs) on the card against the same weights
      on the CPU, for acts and for one Learner.update; and one collected
@@ -130,6 +132,24 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Host time (µs) to enqueue one fn(): perf_counter over `iters`
+    back-to-back calls, with the synchronise outside the timed span."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def median3(measure, fn, **kw) -> float:
+    """The median of three runs of `measure(fn)` (cuda_ms or host_us)."""
+    return float(np.median([measure(fn, **kw) for _ in range(3)]))
+
+
 def device_profiler():
     """torch.profiler over the card's activity alone (kernels, copies, sets):
     no CPU events, so a window of ~400K launches is parsed in seconds."""
@@ -165,6 +185,40 @@ def device_ms_per_call(fn, iters: int = 20) -> float:
             fn()
         torch.cuda.synchronize()
     return device_rows(prof)[0] / iters or None
+
+
+def kernels_per_call(fn, calls: int = 4, tries: int = 3) -> float:
+    """Device activities (kernels, copies, sets) per fn(), from the profiler
+    over `calls` calls. A profiled run in which it saw no device activity
+    at all (it misses a whole run now and then) is taken again, up to
+    `tries` times; 0 if it never saw any."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with device_profiler() as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(n for _, _, n in device_rows(prof)[1])
+        if n:
+            return n / calls
+    return 0.0
+
+
+def timings(kernel, plain, library, plain_iters: int = 50) -> dict:
+    """A kernel's wrapper, its plain version and the library call of the same
+    function, each on the same inputs: CUDA-event ms (the median of three
+    timings over 50 back-to-back calls), host µs to enqueue a call (median of
+    three over 200) and the profiler's device ms of a call."""
+    return {
+        "ms": median3(cuda_ms, kernel),
+        "host_us": median3(host_us, kernel),
+        "device_ms": device_ms_per_call(kernel),
+        "plain_ms": cuda_ms(plain, iters=plain_iters),
+        "library_ms": median3(cuda_ms, library),
+        "library_host_us": median3(host_us, library),
+        "library_device_ms": device_ms_per_call(library),
+    }
 
 
 def attention_bound(b, s, heads, dh, key_lens, itemsize):
@@ -213,10 +267,8 @@ def check_attention(fa, name, b, s, heads, key_lens, gen):
         "max_abs_err": err,
         "max_abs_err_f32": err32,
         "tol": ATTN_TOL_BF16,
-        "ms": cuda_ms(lambda: fa.attention_qkv(qkv, heads, kl)),
-        "device_ms": device_ms_per_call(lambda: fa.attention_qkv(qkv, heads, kl)),
-        "plain_ms": cuda_ms(lambda: fa.attention_qkv_reference(qkv, heads, kl)),
-        "library_ms": cuda_ms(sdpa),
+        **timings(lambda: fa.attention_qkv(qkv, heads, kl),
+                  lambda: fa.attention_qkv_reference(qkv, heads, kl), sdpa),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -287,10 +339,8 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen):
         "max_abs_err_by_part": errs,
         "max_abs_want_bf16": magnitude,
         "tol": BWD_TOL_BF16,
-        "ms": cuda_ms(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g)),
-        "device_ms": device_ms_per_call(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g)),
-        "plain_ms": cuda_ms(lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), iters=10),
-        "library_ms": cuda_ms(sdpa_bwd),
+        **timings(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g),
+                  lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), sdpa_bwd, plain_iters=10),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
@@ -331,6 +381,33 @@ def cycling(fn, sets):
     return call
 
 
+def ln_shapes():
+    """(name, rows, D, x dtype, out dtype) of every LayerNorm forward of the
+    path: the rollout's (G = 16 streams per overlap group: the ViT on 2G
+    frames of 448 tokens, the fusion on G samples of 208), the update's (a
+    fusion chunk of 128 samples) and serving's (8 streams)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = TRAINER_STREAMS // TRAINER_GROUPS
+    return [
+        ("vit_rollout", 2 * g * 448, 384, bf16, bf16),
+        ("vit_rollout_final", 2 * g * 448, 384, bf16, f32),
+        ("fusion_rollout", g * 208, 512, bf16, bf16),
+        ("fusion_rollout_cls", g, 512, bf16, bf16),
+        ("fusion_update", 128 * 208, 512, bf16, bf16),
+        ("fusion_update_cls", 128, 512, bf16, bf16),
+        ("vit_serving", 2 * STREAMS * 448, 384, bf16, bf16),
+        ("vit_serving_final", 2 * STREAMS * 448, 384, bf16, f32),
+        ("fusion_serving", STREAMS * 208, 512, bf16, bf16),
+        ("fusion_serving_cls", STREAMS, 512, bf16, bf16),
+        ("fusion_update_f32", 128 * 208, 512, f32, f32),
+    ]
+
+
+# (name, rows, D) of the LayerNorm backward on the path: the update's fusion
+# chunk and its CLS rows
+LN_BWD_SHAPES = [("fusion_update", 128 * 208, 512), ("fusion_update_cls", 128, 512)]
+
+
 def _ln_inputs(r, d, dtype, gen):
     x = (3 * torch.randn((r, d), generator=gen, device="cuda") + 1).to(dtype)
     gamma = 1 + 0.2 * torch.randn(d, generator=gen, device="cuda")
@@ -361,10 +438,11 @@ def check_layer_norm(ln, name, r, d, dtype, out_dtype, gen):
     res = {
         "shape": name, "rows": r, "dim": d, "dtype": str(dtype), "out_dtype": str(out_dtype),
         "max_abs_err": err, "tol_ratio": excess, "tol": LN_TOL, "input_copies": len(xs),
-        "ms": cuda_ms(kernel),
-        "device_ms": device_ms_per_call(kernel),
-        "plain_ms": cuda_ms(cycling(lambda a: ln.layer_norm_fwd_reference(a, gamma, beta, 1e-6, out_dtype), xs)),
-        "library_ms": cuda_ms(cycling(lib, xs)),
+        **timings(kernel, cycling(lambda a: ln.layer_norm_fwd_reference(a, gamma, beta, 1e-6, out_dtype), xs),
+                  cycling(lib, xs)),
+        # F.layer_norm returns x's dtype: where out_dtype differs (the ViT's
+        # final norm) the yardstick computes another function
+        "library_out_dtype": str(dtype),
         "library_max_abs_err": (lib(x).float() - want.float()).abs().max().item(),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
@@ -413,11 +491,10 @@ def check_layer_norm_bwd(ln, name, r, d, gen):
         "shape": name, "rows": r, "dim": d, "dtype": "torch.bfloat16",
         "max_abs_err": errs["bfloat16"]["dx"], "max_abs_err_by_part": errs,
         "tol": LN_TOL, "input_copies": len(sets),
-        "ms": cuda_ms(kernel),
-        # the kernel and the wrapper's sum of the partial rows
-        "device_ms": device_ms_per_call(kernel),
-        "plain_ms": cuda_ms(cycling(lambda a, b: ln.layer_norm_bwd_reference(a, gamma, b), sets)),
-        "library_ms": cuda_ms(cycling(lib_bwd, graphs)),
+        # device ms: every kernel one call runs, dgamma / dbeta included
+        **timings(kernel, cycling(lambda a, b: ln.layer_norm_bwd_reference(a, gamma, b), sets),
+                  cycling(lib_bwd, graphs)),
+        "kernels_per_call": kernels_per_call(lambda: ln.layer_norm_bwd(x, gamma, g)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
     log(f"[kernels] layer_norm_bwd {json.dumps(res)}")
@@ -909,6 +986,7 @@ def train(fa):
         "max_weight_change": max(moved),
         "last_metrics": {k: float(v) for k, v in metrics.items()},
         "top": prof["top"],
+        "layer_norm_kernels": prof["layer_norm"],
     }
     log(f"[train] {json.dumps(res)}")
     return res
@@ -1052,6 +1130,9 @@ def profile_update(learner, ts, batch):
         "train_state": ts,
         "device_ms": device_ms,
         "top": [{"name": k[:80], "ms_per_update": ms, "calls_per_update": n} for k, ms, n in rows[:12]],
+        # every LayerNorm kernel of the update, wherever it ranks
+        "layer_norm": [{"name": k[:80], "ms_per_update": ms, "calls_per_update": n}
+                       for k, ms, n in rows if "layer_norm" in k],
     }
 
 
@@ -1100,25 +1181,10 @@ def main() -> int:
     shapes += [check_attention(fa, *edge, gen) for edge in edges]
     bwd = check_attention_bwd(fa, "fusion_update", 128, 208, 8, update_kl, gen)
     bwd_shapes = [bwd] + [check_attention_bwd(fa, *edge, gen) for edge in edges]
-    bf16, f32 = torch.bfloat16, torch.float32
-    ln_shapes = [  # (name, rows, D, x dtype, out dtype)
-        ("vit_rollout", 2 * g * 448, 384, bf16, bf16),
-        ("vit_rollout_final", 2 * g * 448, 384, bf16, f32),
-        ("fusion_rollout", g * 208, 512, bf16, bf16),
-        ("fusion_rollout_cls", g, 512, bf16, bf16),
-        ("fusion_update", 128 * 208, 512, bf16, bf16),
-        ("fusion_update_cls", 128, 512, bf16, bf16),
-        ("vit_serving", 2 * STREAMS * 448, 384, bf16, bf16),
-        ("vit_serving_final", 2 * STREAMS * 448, 384, bf16, f32),
-        ("fusion_serving", STREAMS * 208, 512, bf16, bf16),
-        ("fusion_serving_cls", STREAMS, 512, bf16, bf16),
-        ("fusion_update_f32", 128 * 208, 512, f32, f32),
-    ]
-    ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes]
-    ln_bwd = [
-        check_layer_norm_bwd(ln, "fusion_update", 128 * 208, 512, gen),
-        check_layer_norm_bwd(ln, "fusion_update_cls", 128, 512, gen),
-    ]
+    ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
+    ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES]
+    for res in ln_bwd:  # one cooperative kernel a call, dgamma / dbeta included
+        assert res["kernels_per_call"] == 1, f"layer_norm_bwd {res['shape']}: {res['kernels_per_call']} kernels"
 
     phase_done = lambda name: log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
     phase_done("kernels vs plain")
@@ -1151,7 +1217,9 @@ def main() -> int:
             "ms": headline["ms"], "kernel_ms": headline["ms"], "device_ms": headline["device_ms"],
             "plain_ms": headline["plain_ms"],
             "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
-            "library_ms": headline["library_ms"], "headline_shape": headline["shape"],
+            "library_ms": headline["library_ms"], "host_us": headline["host_us"],
+            "library_host_us": headline["library_host_us"],
+            "library_device_ms": headline["library_device_ms"], "headline_shape": headline["shape"],
             "shapes": all_shapes,
         }
 
@@ -1190,7 +1258,9 @@ def main() -> int:
             {"training": training["launches"]["layer_norm_bwd"],
              "trainer": window_launches["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
-            launches_per_update=training["layer_norm_bwd_launches_per_update"]),
+            launches_per_update=training["layer_norm_bwd_launches_per_update"],
+            design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
+            kernels_per_call=1),
     ]
     for k in kernels:  # every kernel of the trainer's path ran in it
         assert k["launches_trainer"] > 0, k["name"]

@@ -6,8 +6,10 @@ into its own shared library, at first use, under `safevla_tpu_torch/_build/`
 carries a digest of the source, the shared headers `csrc/*.cuh` and the
 flags, so an edited source or header is rebuilt and a stale library is never
 loaded. `build()` starts one `nvcc` per source, all at once, and waits for
-them together. `launch` calls one of a library's C functions and raises on
-the cudaError_t it returns.
+them together. `bind` resolves a library's C functions once, as ctypes
+function objects that raise on the cudaError_t they return: a wrapper holds
+them and pays no lookup per call. `launch` looks a C function up and calls
+it, raising the same way.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -118,3 +121,31 @@ def launch(lib: ctypes.CDLL, fn: str, *args) -> None:
     if err != 0:
         msg = getattr(lib, f"{fn}_error_string")(err).decode()
         raise RuntimeError(f"{fn} launch failed: {msg} (cudaError {err})")
+
+
+def bind(name: str, signatures: dict) -> SimpleNamespace:
+    """The C functions of csrc/<name>.cu named in `signatures` (function name
+    -> (argtypes, restype)), each resolved once with its argtypes and
+    restype set. A function whose restype is c_int returns a cudaError_t:
+    its object raises unless that is 0, with the message of the library's
+    `<name>_error_string`."""
+    lib = load_library(name)
+    err_string = lib[f"{name}_error_string"]
+    err_string.argtypes, err_string.restype = [ctypes.c_int], ctypes.c_char_p
+    fns = {}
+    for fn, (args, res) in signatures.items():
+        f = lib[fn]  # a new function object, owned by this namespace
+        f.argtypes, f.restype = args, res
+        if res is ctypes.c_int:
+            f.errcheck = _raise_on_error(fn, err_string)
+        fns[fn] = f
+    return SimpleNamespace(**fns)
+
+
+def _raise_on_error(fn: str, err_string):
+    def check(err, func, args):
+        if err:
+            raise RuntimeError(f"{fn} failed: {err_string(err).decode()} (cudaError {err})")
+        return err
+
+    return check

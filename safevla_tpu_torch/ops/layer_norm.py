@@ -13,45 +13,54 @@ normalises the last axis of x, its leading axes flattened into (R, D) rows:
   dgamma = sum g * xhat and dbeta = sum g over the rows, in f32.
 
 On a CUDA tensor the forward launches `csrc/layer_norm.cu::layer_norm_fwd`
-and the backward `::layer_norm_bwd` (which writes one partial dgamma / dbeta
-row per block; the sum of those rows happens here) or raise; they never fall
-back. On a CPU tensor both run their plain versions,
-`layer_norm_fwd_reference` and `layer_norm_bwd_reference`, through the same
-autograd Function. x, the output and g are bfloat16 or float32; D is a
-multiple of 128 up to 1024.
+and the backward `::layer_norm_bwd` (one cooperative kernel that also folds
+its per-block partial dgamma / dbeta rows, from a workspace allocated here)
+or raise; they never fall back. On a CPU tensor both run their plain
+versions, `layer_norm_fwd_reference` and `layer_norm_bwd_reference`,
+through the same autograd Function. x, the output and g are bfloat16 or
+float32; D is a multiple of 128 up to 1024.
+
+The call path is kept short, since a call's host time is longer than its
+kernel at every shape of the path: the library's C functions are resolved
+once (`_build.bind`), the stream is read as a raw handle, and the C side
+makes x's card current only when it is not.
 """
 
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 MAX_DIM = 1024
+_VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _C_ARGTYPES = {
     "layer_norm_fwd": (
         [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, gamma, beta, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_float,  # R, D, eps
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # x dtype, out dtype, stream
+            _VOID, _VOID, _VOID, _VOID,  # x, gamma, beta, out
+            _INT, _INT, _FLOAT,  # R, D, eps
+            _INT, _INT, _INT, _VOID,  # x dtype, out dtype, device, stream
         ],
-        ctypes.c_int,
+        _INT,
     ),
-    "layer_norm_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "layer_norm_bwd": (
         [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # x, gamma, g, dx
-            ctypes.c_void_p, ctypes.c_void_p,  # dgamma / dbeta partial rows
-            ctypes.c_int, ctypes.c_int, ctypes.c_float,  # R, D, eps
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,  # x dtype, g dtype, stream
+            _VOID, _VOID, _VOID, _VOID,  # x, gamma, g, dx
+            _VOID, _VOID,  # partial rows workspace (blocks, 2D), dparams (2, D)
+            _INT, _INT, _INT, _FLOAT,  # R, D, blocks, eps
+            _INT, _INT, _INT, _VOID,  # x dtype, g dtype, device, stream
         ],
-        ctypes.c_int,
+        _INT,
     ),
-    "layer_norm_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "layer_norm_bwd_partial_rows": ([ctypes.c_int], ctypes.c_int),
+    "layer_norm_bwd_max_blocks": ([_INT, _INT, _INT, _INT, _VOID], _INT),  # D, dtypes, device, out
+    "layer_norm_error_string": ([_INT], ctypes.c_char_p),
 }
+BWD_WARPS = 8  # rows a backward block works on at once (csrc/layer_norm.cu kBwdWarps)
+_C = None  # the library's C functions, bound at the first launch
+_MAX_BLOCKS = {}  # (D, x dtype, g dtype, device) -> blocks of the backward that fit at once
 
 
 def _stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,81 +97,107 @@ def layer_norm_bwd_reference(
     return dx, (gf * xhat).sum(dim=0), gf.sum(dim=0)
 
 
-def _check_cuda(x: torch.Tensor, gamma: torch.Tensor, what: str) -> Tuple[int, int]:
-    r, d = x.shape
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{what}: the CUDA kernel takes bfloat16 or float32, not {x.dtype}")
-    if d % 128 or d > MAX_DIM:
+def _bind() -> SimpleNamespace:
+    global _C
+    from safevla_tpu_torch.ops._build import bind
+
+    c = bind("layer_norm", _C_ARGTYPES)
+    c.stream = torch._C._cuda_getCurrentRawStream  # device index -> cudaStream_t
+    _C = c
+    return c
+
+
+def _f32(p: torch.Tensor) -> torch.Tensor:
+    return p if p.dtype is torch.float32 and p.is_contiguous() else p.float().contiguous()
+
+
+def _check_cuda(x2, xc, d, gamma, dev, what) -> None:
+    """What guards the kernel's memory: x's dtype, D, contiguity and 16-byte
+    alignment; gamma f32 (D,), aligned, on x's card."""
+    if xc is None:
+        raise ValueError(f"{what}: the CUDA kernel takes bfloat16 or float32, not {x2.dtype}")
+    if d % 128 or not 0 < d <= MAX_DIM:
         raise ValueError(f"{what}: the CUDA kernel takes D a multiple of 128 up to {MAX_DIM}, not {d}")
-    if not x.is_contiguous() or x.data_ptr() % 16:
+    if not x2.is_contiguous() or x2.data_ptr() % 16:
         raise ValueError(f"{what}: the CUDA kernel needs contiguous, 16-byte aligned rows")
-    if gamma.shape != (d,) or gamma.dtype != torch.float32 or gamma.device != x.device:
-        raise ValueError(f"{what}: gamma must be float32 ({d},) on {x.device}")
-    return r, d
+    if gamma.shape != (d,) or gamma.get_device() != dev or gamma.data_ptr() % 16:
+        raise ValueError(f"{what}: gamma must be float32 ({d},), 16-byte aligned, on {x2.device}")
 
 
-def _params_f32(*ps: torch.Tensor):
-    return [p.float().contiguous() for p in ps]
-
-
-def _layer_norm_fwd(x2, gamma, beta, eps, out_dtype):
-    """The forward on (R, D) rows: kernel on CUDA, plain version on the CPU."""
-    if x2.device.type == "cpu":
-        return layer_norm_fwd_reference(x2, gamma, beta, eps, out_dtype)
-    if x2.device.type != "cuda":
-        raise ValueError(f"layer_norm runs on cuda or cpu tensors, not {x2.device}")
-    gamma, beta = _params_f32(gamma, beta)
-    r, d = _check_cuda(x2, gamma, "layer_norm")
-    if out_dtype not in _DTYPE_CODES or beta.shape != (d,) or beta.device != x2.device:
+def _layer_norm_fwd(x, gamma, beta, eps, out_dtype):
+    """The forward over the last axis of any-rank x, in x's shape: kernel on
+    CUDA, plain version on the CPU."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layer_norm_fwd_reference(x, gamma, beta, eps, out_dtype)
+        raise ValueError(f"layer_norm runs on cuda or cpu tensors, not {x.device}")
+    c = _C or _bind()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    d = x.shape[-1]
+    dev = x.get_device()
+    xc, oc = _DTYPE_CODES.get(x.dtype), _DTYPE_CODES.get(out_dtype)
+    gamma, beta = _f32(gamma), _f32(beta)
+    _check_cuda(x, xc, d, gamma, dev, "layer_norm")
+    if oc is None or beta.shape != (d,) or beta.get_device() != dev or beta.data_ptr() % 16:
         raise ValueError(f"layer_norm: out_dtype {out_dtype} / beta {tuple(beta.shape)} not taken")
-    from safevla_tpu_torch.ops._build import launch, load_library
-
-    lib = load_library("layer_norm", _C_ARGTYPES)
-    out = torch.empty((r, d), dtype=out_dtype, device=x2.device)
-    with torch.cuda.device(x2.device):
-        launch(
-            lib, "layer_norm_fwd",
-            x2.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            r, d, eps, _DTYPE_CODES[x2.dtype], _DTYPE_CODES[out_dtype],
-            torch.cuda.current_stream(x2.device).cuda_stream,
-        )
+    out = torch.empty_like(x, dtype=out_dtype)  # x's shape, so no view on either side
+    c.layer_norm_fwd(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+        x.numel() // d, d, eps, xc, oc, dev, c.stream(dev),
+    )
     layer_norm.launches += 1
     return out
+
+
+def bwd_blocks(r: int, max_blocks: int) -> int:
+    """Blocks of the backward's grid for R rows: as many as fit on the card
+    at once (`max_blocks`), but no more than one per BWD_WARPS rows, so that
+    at a few rows every warp still has one. Block b takes rows
+    [b * R // blocks, (b + 1) * R // blocks)."""
+    return min(max_blocks, -(-r // BWD_WARPS))
 
 
 def layer_norm_bwd(
     x2: torch.Tensor, gamma: torch.Tensor, g: torch.Tensor, eps: float = 1e-6
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The LayerNorm VJP on (R, D) rows: g -> (dx in x's dtype, dgamma,
-    dbeta in f32). On a CUDA tensor it launches the backward kernel and sums
-    its per-block partial rows, or raises; on a CPU tensor it runs
+    dbeta in f32). On a CUDA tensor it launches the backward kernel (dgamma
+    and dbeta included), or raises; on a CPU tensor it runs
     `layer_norm_bwd_reference`."""
     if g.shape != x2.shape:
         raise ValueError(f"g must be {tuple(x2.shape)}, got {tuple(g.shape)}")
-    if x2.device.type == "cpu":
-        return layer_norm_bwd_reference(x2, gamma, g, eps)
-    if x2.device.type != "cuda":
+    if not x2.is_cuda:
+        if x2.device.type == "cpu":
+            return layer_norm_bwd_reference(x2, gamma, g, eps)
         raise ValueError(f"layer_norm_bwd runs on cuda or cpu tensors, not {x2.device}")
-    (gamma,) = _params_f32(gamma)
-    r, d = _check_cuda(x2, gamma, "layer_norm_bwd")
-    g = g.contiguous()
-    if g.dtype not in _DTYPE_CODES or g.device != x2.device or g.data_ptr() % 16:
+    c = _C or _bind()
+    r, d = x2.shape
+    dev = x2.get_device()
+    xc, gc = _DTYPE_CODES.get(x2.dtype), _DTYPE_CODES.get(g.dtype)
+    gamma = _f32(gamma)
+    _check_cuda(x2, xc, d, gamma, dev, "layer_norm_bwd")
+    if not g.is_contiguous():
+        g = g.contiguous()
+    if gc is None or g.get_device() != dev or g.data_ptr() % 16:
         raise ValueError("layer_norm_bwd: g must be bfloat16 or float32, 16-byte aligned, on x's device")
-    from safevla_tpu_torch.ops._build import launch, load_library
-
-    lib = load_library("layer_norm", _C_ARGTYPES)
+    key = (d, xc, gc, dev)
+    most = _MAX_BLOCKS.get(key)
+    if most is None:
+        n = ctypes.c_int(0)
+        c.layer_norm_bwd_max_blocks(d, xc, gc, dev, ctypes.byref(n))
+        most = _MAX_BLOCKS[key] = n.value
+    blocks = bwd_blocks(r, most)
     dx = torch.empty_like(x2)
-    parts = torch.empty((2, lib.layer_norm_bwd_partial_rows(r), d), dtype=torch.float32, device=x2.device)
-    with torch.cuda.device(x2.device):
-        launch(
-            lib, "layer_norm_bwd",
-            x2.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            parts[0].data_ptr(), parts[1].data_ptr(),
-            r, d, eps, _DTYPE_CODES[x2.dtype], _DTYPE_CODES[g.dtype],
-            torch.cuda.current_stream(x2.device).cuda_stream,
-        )
+    # one allocation: the blocks' partial rows, then [dgamma; dbeta]
+    part = x2.new_empty((blocks + 1, 2, d), dtype=torch.float32)
+    ptr = part.data_ptr()
+    c.layer_norm_bwd(
+        x2.data_ptr(), gamma.data_ptr(), g.data_ptr(), dx.data_ptr(), ptr, ptr + blocks * 8 * d,
+        r, d, blocks, eps, xc, gc, dev, c.stream(dev),
+    )
     layer_norm_bwd.launches += 1
-    dgamma, dbeta = parts.sum(dim=1)
+    dgamma, dbeta = part[blocks].unbind()
     return dx, dgamma, dbeta
 
 
@@ -195,14 +230,12 @@ def layer_norm(
     flattened into rows; gamma / beta (D,) f32; output in `out_dtype`
     (x's dtype when None). Differentiable in x, gamma and beta: when a
     gradient is taken, the backward is `layer_norm_bwd`."""
-    shape = x.shape
-    x2 = x.reshape(-1, shape[-1]).contiguous()
     out_dtype = out_dtype or x.dtype
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad or beta.requires_grad):
-        y = _LayerNorm.apply(x2, gamma, beta, eps, out_dtype)
-    else:
-        y = _layer_norm_fwd(x2, gamma, beta, eps, out_dtype)
-    return y.reshape(shape)
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        return _LayerNorm.apply(x2, gamma, beta, eps, out_dtype).reshape(shape)
+    return _layer_norm_fwd(x, gamma, beta, eps, out_dtype)
 
 
 layer_norm.launches = 0  # kernel launches since the last reset (a plain int)

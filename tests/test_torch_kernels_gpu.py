@@ -168,6 +168,21 @@ LN_CASES = [
     (40, 512, torch.float32, torch.float32),
     (13, 1024, torch.float32, torch.bfloat16),
 ]
+# the edges of the tiling: one row, a ragged block (8 rows a block in the
+# one-pass forward, a row a warp; 16 bf16 rows in its loop, a row a
+# half-warp), 132 * k rows or blocks +- 1 (k = 1 and 2: a wave of one or two
+# blocks an SM; 16: the backward's largest grid of 264 blocks), and
+# 1056 * k +- 1 for k = 3, 4, 5, 6 and 8 (the move from one pass to the loop
+# at k blocks of 8 rows an SM) and 16 (two such waves), at the path's D and
+# at the narrowest and widest D the kernels take
+LN_EDGE_ROWS = [1, 17, 131, 133, 263, 265, 2111, 2113, 3167, 3169, 4223, 4225, 5279, 5281, 6335, 6337,
+                8447, 8449, 16895, 16897]
+LN_CASES += [
+    (r, d, dtype, dtype)
+    for dtype in (torch.bfloat16, torch.float32)
+    for d, rows in ((384, LN_EDGE_ROWS), (512, LN_EDGE_ROWS), (128, [17, 133, 2113]), (1024, [17, 133, 2113]))
+    for r in rows
+]
 
 
 def _ln_inputs(r, d, dtype, seed):
@@ -260,3 +275,60 @@ def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
     assert _ln_close(got.view(16, 384), mod.plain(x))
     with pytest.raises(ValueError, match="multiple of 128"):
         CompatLayerNorm(192).cuda()(x[:, :192].contiguous())
+
+
+def _device_activity_names(fn, calls):
+    """Names of the device activities of `calls` calls of fn(), from the
+    profiler. A profiled run in which it saw no device activity at all (it
+    misses a whole run now and then) is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [128, 128 * 208])
+def test_layer_norm_bwd_runs_only_the_chosen_designs_kernels(cuda, r):
+    """One backward call is one cooperative kernel, dgamma and dbeta
+    included: no other kernel, copy or set."""
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    x, gamma, _ = _ln_inputs(r, 512, torch.bfloat16, 4)
+    g = torch.randn((r, 512), generator=torch.Generator("cuda").manual_seed(4), device="cuda").to(torch.bfloat16)
+    names = _device_activity_names(lambda: ln.layer_norm_bwd(x, gamma, g), calls=4)
+    assert len(names) == 4, names
+    assert all("layer_norm_bwd" in n for n in names), names
+
+
+@pytest.mark.gpu
+def test_layer_norm_bwd_on_two_streams_at_once_gives_the_same_bits(cuda):
+    """Backward calls on two CUDA streams at once (each a grid of the
+    card's co-resident size, each with its own workspace) give the bits of
+    a call on the default stream."""
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    r = 128 * 208
+    x, gamma, _ = _ln_inputs(r, 512, torch.bfloat16, 6)
+    g = torch.randn((r, 512), generator=torch.Generator("cuda").manual_seed(6), device="cuda").to(torch.bfloat16)
+    want = ln.layer_norm_bwd(x, gamma, g)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            outs.append([ln.layer_norm_bwd(x, gamma, g) for _ in range(4)])
+    torch.cuda.synchronize()
+    for calls in outs:
+        for got in calls:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))

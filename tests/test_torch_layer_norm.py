@@ -134,3 +134,21 @@ def test_only_compat_layer_norm_takes_the_kernel_wrapper(monkeypatch):
     CompatLayerNorm(128)(torch.zeros(2, 128))
     PlainLayerNorm(128)(torch.zeros(3, 128))
     assert calls == [(2, 128)]
+
+
+@pytest.mark.parametrize("r", [1, 16, 128, 3328, 14336, 26624])
+@pytest.mark.parametrize("max_blocks", [132, 264])
+def test_backward_grid_covers_every_row_once(r, max_blocks):
+    """The backward's blocks (`bwd_blocks`) with the kernel's share of rows
+    per block, [b * R // blocks, (b + 1) * R // blocks): every row exactly
+    once, no block without a row, never more blocks than fit on the card,
+    and at up to 8 rows a block, every warp has a row (128 rows: 16 blocks
+    of 8 warps)."""
+    blocks = ln.bwd_blocks(r, max_blocks)
+    assert 1 <= blocks <= max_blocks
+    shares = [range(b * r // blocks, (b + 1) * r // blocks) for b in range(blocks)]
+    rows = [i for share in shares for i in share]
+    assert rows == list(range(r))
+    assert min(len(s) for s in shares) >= 1
+    if r <= max_blocks * ln.BWD_WARPS:
+        assert max(len(s) for s in shares) <= ln.BWD_WARPS
