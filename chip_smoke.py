@@ -9,7 +9,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      all at once);
   2. kernels vs plain: each kernel against its plain PyTorch version on the
      card, at the shapes the serving path, the rollout and the update give
-     it, and the attention kernels at two edges of their tiles; times of the
+     it, the attention kernels at two edges of their tiles, at head dims 16,
+     32 and 128 and past their resident designs' S limits (the streaming
+     designs, to S = 2048); times of the
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA-event ms, host µs to enqueue a call, profiler device
      ms); the LayerNorm backward's kernels per call, and its two designs
@@ -18,7 +20,10 @@ Phases (none catches its own failure; any failure exits non-zero):
      dims of 128, so every kernel runs) on the card against the same weights
      on the CPU, for acts and for one Learner.update; and one collected
      window plus its update on the card with the LayerNorm kernels off (the
-     CompatLayerNorm sites patched to their plain version) against on;
+     CompatLayerNorm sites patched to their plain version) against on; the
+     tiny config of the tests (head dim 16, widths 32 and 64: no kernel
+     runs, JAX's plain paths) on the card against the CPU, acts and an
+     update;
   4. serving: InferenceAgent.build(Config()) at the full default width
      (DINOv2-S, 3 towers, bf16), 8 streams, instructions, 128 greedy acts
      with a mid-run reset, with the LayerNorm kernels off and then on; the
@@ -34,8 +39,15 @@ Phases (none catches its own failure; any failure exits non-zero):
      FakeController streams at 224x384 (episodes of 100 steps), 128 steps per
      window in 2 overlap groups, stage 1, LayerNorm kernels on: one warm-up,
      two timed and one profiled window, each window's launches of every
-     kernel against the count the config implies;
-  7. one JSON line of kernels, then the last line
+     kernel against the count the config implies; its final checkpoint kept
+     for:
+  7. evaluate: InferenceAgent.build from that checkpoint and from a
+     reference-container torch file of its towers, each acting bit-equal to
+     the in-memory policy (greedy); BatchedEvaluator over 16 FakeController
+     ObjectNavType episodes at 224x384 (at most 100 steps each) on 8 streams
+     with the restored agent (sampled actions): episodes/s, ms per act, and
+     the attention and LayerNorm launches against the count per act;
+  8. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -44,6 +56,7 @@ and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import random
@@ -103,6 +116,12 @@ REF_LN_TOL = 1e-4
 TRAINER_WINDOWS = 4  # one warm-up, two timed, one profiled
 TRAINER_STREAMS, TRAINER_STEPS, TRAINER_GROUPS = 32, 128, 2
 TRAINER_EPISODE_STEPS = 100
+# the tiny config on the card vs the CPU, f32 everywhere: the tests' 1e-4
+# (tests/test_torch_serving_slice.py)
+TINY_TOL = 1e-4
+# the evaluate phase: 16 benchmark episodes on the serving streams, each at
+# most 100 steps (FakeController), and the acts checked bit-equal per agent
+EVAL_EPISODES, EVAL_EPISODE_STEPS, EVAL_CHECK_ACTS = 16, 100, 8
 
 
 def log(*args):
@@ -205,19 +224,20 @@ def kernels_per_call(fn, calls: int = 4, tries: int = 3) -> float:
     return 0.0
 
 
-def timings(kernel, plain, library, plain_iters: int = 50) -> dict:
+def timings(kernel, plain, library, plain_iters: int = 50, iters: int = 50) -> dict:
     """A kernel's wrapper, its plain version and the library call of the same
     function, each on the same inputs: CUDA-event ms (the median of three
-    timings over 50 back-to-back calls), host µs to enqueue a call (median of
-    three over 200) and the profiler's device ms of a call."""
+    timings over `iters` back-to-back calls, 50 by default), host µs to
+    enqueue a call (median of three over 4 x iters) and the profiler's device
+    ms of a call (over 2 x iters / 5 calls)."""
     return {
-        "ms": median3(cuda_ms, kernel),
-        "host_us": median3(host_us, kernel),
-        "device_ms": device_ms_per_call(kernel),
+        "ms": median3(cuda_ms, kernel, iters=iters),
+        "host_us": median3(host_us, kernel, iters=4 * iters),
+        "device_ms": device_ms_per_call(kernel, iters=max(2, 2 * iters // 5)),
         "plain_ms": cuda_ms(plain, iters=plain_iters),
-        "library_ms": median3(cuda_ms, library),
-        "library_host_us": median3(host_us, library),
-        "library_device_ms": device_ms_per_call(library),
+        "library_ms": median3(cuda_ms, library, iters=iters),
+        "library_host_us": median3(host_us, library, iters=4 * iters),
+        "library_device_ms": device_ms_per_call(library, iters=max(2, 2 * iters // 5)),
     }
 
 
@@ -232,12 +252,24 @@ def attention_bound(b, s, heads, dh, key_lens, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_attention(fa, name, b, s, heads, key_lens, gen):
-    """The kernel against its plain version (bf16 and f32) at one path shape;
+def attention_design(fa, kind, s, dh):
+    """Which design of the attention kernel `kind` ("fwd" or "bwd") a bf16
+    and an f32 call at (S, Dh) launch: resident or streaming."""
+    return {str(dt).split(".")[1]: ("streaming" if s > fa.resident_max_s(kind, dt, dh) else "resident")
+            for dt in (torch.bfloat16, torch.float32)}
+
+
+def resident_limits(fa):
+    """The largest S of each resident design, by kind, dtype and head dim."""
+    return {f"{kind}_{str(dt).split('.')[1]}": {dh: fa.resident_max_s(kind, dt, dh) for dh in fa.KERNEL_HEAD_DIMS}
+            for kind in ("fwd", "bwd") for dt in (torch.bfloat16, torch.float32)}
+
+
+def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=50):
+    """The kernel against its plain version (bf16 and f32) at one shape;
     times of the kernel, the plain version and SDPA with a boolean mask."""
     import torch.nn.functional as F
 
-    dh = 64
     qkv = torch.randn((b, s, 3 * heads * dh), generator=gen, device="cuda").to(torch.bfloat16)
     kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
     got = fa.attention_qkv(qkv, heads, kl)
@@ -263,12 +295,14 @@ def check_attention(fa, name, b, s, heads, key_lens, gen):
         "qkv": [b, s, 3 * heads * dh],
         "heads": heads,
         "head_dim": dh,
+        "design": attention_design(fa, "fwd", s, dh),
         "key_lens": sorted(set(key_lens)),
         "max_abs_err": err,
         "max_abs_err_f32": err32,
         "tol": ATTN_TOL_BF16,
         **timings(lambda: fa.attention_qkv(qkv, heads, kl),
-                  lambda: fa.attention_qkv_reference(qkv, heads, kl), sdpa),
+                  lambda: fa.attention_qkv_reference(qkv, heads, kl), sdpa,
+                  plain_iters=plain_iters, iters=iters),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -290,13 +324,12 @@ def attention_bwd_bound(b, s, heads, dh, key_lens, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_attention_bwd(fa, name, b, s, heads, key_lens, gen):
-    """The backward kernel against its plain version (bf16 and f32) at the
-    update's shape; times of the kernel, the plain version and SDPA's
-    backward with a boolean mask (torch.autograd.grad alone)."""
+def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=10):
+    """The backward kernel against its plain version (bf16 and f32) at one
+    shape; times of the kernel, the plain version and SDPA's backward with a
+    boolean mask (torch.autograd.grad alone)."""
     import torch.nn.functional as F
 
-    dh = 64
     lanes = heads * dh
     qkv = torch.randn((b, s, 3 * lanes), generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn((b, s, lanes), generator=gen, device="cuda").to(torch.bfloat16)
@@ -334,13 +367,15 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen):
         "qkv": [b, s, 3 * lanes],
         "heads": heads,
         "head_dim": dh,
+        "design": attention_design(fa, "bwd", s, dh),
         "key_lens": sorted(set(key_lens)),
         "max_abs_err": max(errs["bfloat16"].values()),
         "max_abs_err_by_part": errs,
         "max_abs_want_bf16": magnitude,
         "tol": BWD_TOL_BF16,
         **timings(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g),
-                  lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), sdpa_bwd, plain_iters=10),
+                  lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), sdpa_bwd,
+                  plain_iters=plain_iters, iters=iters),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
     }
@@ -517,6 +552,245 @@ def small_model_config():
         vision_feature_dim=128, image_size=(28, 42), max_steps=8, text_max_tokens=8,
         compute_dtype="float32",
     )
+
+
+def tiny_model_config():
+    """The tiny config of the tests (`tests/conftest.py::tiny_model_cfg`):
+    ViT width 32 (head dim 16), fusion and towers 64 wide (head dim 16), one
+    fusion layer, LayerNorm widths 32 and 64. Every site takes JAX's plain
+    path there, so no kernel runs; the ViT (and, in `reference_tiny`, the
+    T5) in f32, so that the card and the CPU agree at the tests' 1e-4."""
+    from safevla_tpu_torch.config import ModelConfig
+    from safevla_tpu_torch.models import vit
+
+    vit.VIT_CONFIGS["smoke_tiny"] = vit.DinoViTConfig(
+        embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42, patch_size=14, dtype=torch.float32
+    )
+    return ModelConfig(
+        hidden_size=64, num_tx_layers=2, num_tx_heads=4, goal_dims=64, text_embed_size=64,
+        combiner_layers=1, combiner_heads=4, combiner_ffn_dim=128, dino_compressor_hidden_out_dims=(64, 64),
+        vision_backbone="smoke_tiny", vision_feature_dim=32, vision_grid=(7, 12), image_size=(28, 42),
+        max_steps=16, text_max_tokens=8, num_towers=3, compute_dtype="float32",
+    )
+
+
+def reference_tiny(fa, ln):
+    """The tiny config on the card against the CPU: 4 acts (log-probs and
+    values at TINY_TOL) and one stage-1 update (metrics and weights at the
+    reference update's tolerances), with no kernel launched (JAX's plain
+    paths at these widths). Before the kernels' dispatch followed JAX's
+    rules, this raised ValueError on the card."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config, TrainConfig
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.models import actor_critic, t5
+
+    m = tiny_model_config()
+    cfg = Config(m, TrainConfig(max_steps=m.max_steps))
+    t5_config = actor_critic.T5Config
+    actor_critic.T5Config = functools.partial(t5.T5Config, dtype=torch.float32)
+    reset_kernel_counts(fa, ln)
+    agents = {d: InferenceAgent.build(cfg, None, num_streams=3, test_augmentation=False, device=d)
+              for d in ("cpu", "cuda")}
+    for a in agents.values():
+        a.set_instructions(INSTRUCTIONS[:3])
+    rng = np.random.default_rng(2)
+    act_err = 0.0
+    for t in range(4):
+        nav, manip = rng.integers(0, 256, (2, 3, 28, 42, 3), dtype=np.uint8)
+        not_reset, oih = np.full(3, int(t > 0), np.int32), rng.integers(0, 3, 3).astype(np.int32)
+        out = {}
+        for d, a in agents.items():
+            a.act(nav, manip, not_reset, oih)
+            out[d] = np.concatenate([np.log(a.last_probs).ravel(), *a.last_values])
+        assert np.isfinite(out["cuda"]).all()
+        act_err = max(act_err, float(np.abs(out["cuda"] - out["cpu"]).max()))
+    text = torch.from_numpy(rng.standard_normal((3, m.text_max_tokens, m.text_embed_size), dtype=np.float32))
+    mask = torch.arange(m.text_max_tokens)[None, :] < torch.tensor([[3], [8], [5]])
+    batch = synthetic_batch(m, 3, 8, text, mask, seed=13)
+    upd = {}
+    for d, a in agents.items():
+        learner = Learner(a.policy, cfg)
+        ts, metrics = learner.update(learner.init(), batch, MEAN_EPISODE_COST, 1)
+        upd[d] = ({k: float(v) for k, v in metrics.items()},
+                  torch.cat([p.detach().cpu().flatten() for p in ts.tower_params.values()]))
+    torch.cuda.synchronize()
+    actor_critic.T5Config = t5_config
+    launches = kernel_counts(fa, ln)
+    (m_cpu, w_cpu), (m_gpu, w_gpu) = upd["cpu"], upd["cuda"]
+    metric_err = max(abs(m_gpu[k] - m_cpu[k]) / (1.0 + abs(m_cpu[k])) for k in m_cpu)
+    weight_err = (w_gpu - w_cpu).abs().max().item()
+    res = {"act_abs_err": act_err, "update_metric_rel_err": metric_err, "update_weight_abs_err": weight_err,
+           "launches": launches}
+    log(f"[reference] tiny config (head dim 16, widths 32 / 64), cuda vs cpu: {json.dumps(res)}")
+    assert all(np.isfinite(list(m_gpu.values())))
+    assert act_err <= TINY_TOL, f"tiny config acts differ by {act_err}"
+    assert metric_err <= REF_UPDATE_METRIC_TOL and weight_err <= REF_UPDATE_WEIGHT_TOL, res
+    assert not any(launches.values()), f"the tiny config launched kernels: {launches}"
+    return res
+
+
+def eval_samples(n, image_hw):
+    """n ObjectNavType benchmark rows over FakeController(seed=0)'s objects,
+    as `tests/test_evaluation.py` builds them."""
+    from safevla_tpu_torch.envs.fake_controller import FakeController
+
+    objs = FakeController(seed=0, image_height=image_hw[0], image_width=image_hw[1]).get_objects()
+    rows = []
+    for i in range(n):
+        target = objs[i % len(objs)]
+        synset = target["objectType"].lower() + ".n.01"
+        ids = [o["objectId"] for o in objs if o["objectType"] == target["objectType"]]
+        rows.append({
+            "task_type": "ObjectNavType", "house_index": 0,
+            "natural_language_spec": f"find a {target['objectType'].lower()}",
+            "agent_starting_position": [1.5, 0.9, 3.0], "agent_y_rotation": float(30 * i),
+            "expert_length": 10, "synsets": [synset],
+            "synset_to_object_ids": {synset: ids}, "broad_synset_to_object_ids": {synset: ids},
+        })
+    return rows
+
+
+def eval_factory_builder(image_hw, seed):
+    """The evaluation CLI's --fake-env samplers: FakeController ObjectNav
+    streams at image_hw, fed from the benchmark queue, EVAL_EPISODE_STEPS
+    steps at most."""
+    from safevla_tpu_torch.constants import ALL_STRETCH_ACTIONS
+    from safevla_tpu_torch.envs.fake_controller import FakeController
+    from safevla_tpu_torch.envs.sensors import default_train_sensors
+    from safevla_tpu_torch.evaluation.types import normalized_eval_sample_to_task_spec
+    from safevla_tpu_torch.tasks import MultiTaskSampler, TaskSpecQueue
+
+    h, w = image_hw
+
+    def builder(tasks_queue):
+        def factory(stream_id):
+            return MultiTaskSampler(
+                mode="val",
+                task_args=dict(sensors=default_train_sensors(rgb_height=h, rgb_width=w),
+                               max_steps=EVAL_EPISODE_STEPS, action_names=ALL_STRETCH_ACTIONS,
+                               reward_config=None),
+                houses=[{"rooms": [{}, {}]}], house_inds=[0],
+                controller_args={"seed": 0, "image_height": h, "image_width": w},
+                controller_type=FakeController,
+                task_spec_sampler=TaskSpecQueue(tasks_queue, convert=normalized_eval_sample_to_task_spec,
+                                                timeout=1.0),
+                seed=seed,
+            )
+
+        return factory
+
+    return builder
+
+
+def same_acts(agents, cfg, acts=EVAL_CHECK_ACTS):
+    """Greedy acts of `agents` (name -> agent) on the same frames and
+    instructions; returns, per agent, whether its actions and action
+    distributions equal the first agent's bit for bit."""
+    h, w = cfg.model.image_size
+    rng = np.random.default_rng(17)
+    frames = rng.integers(0, 256, (acts, 2, STREAMS, h, w, 3), dtype=np.uint8)
+    out = {}
+    for name, agent in agents.items():
+        agent.set_instructions(INSTRUCTIONS)
+        out[name] = [(agent.act(frames[t, 0], frames[t, 1], np.full(STREAMS, int(t > 0), np.int32),
+                                np.zeros(STREAMS, np.int32)), agent.last_probs) for t in range(acts)]
+    first = next(iter(out.values()))
+    return {name: all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(o, first))
+            for name, o in out.items()}
+
+
+def evaluate(fa, ln, kept, cfg=None, device="cuda"):
+    """Evaluation with checkpoint restore at the full default width, on the
+    trainer phase's final TrainState (`kept`: its policy and checkpoint):
+    InferenceAgent.build from that checkpoint and from a reference-container
+    file of the policy's towers, each acting bit-equal to the in-memory
+    policy; then BatchedEvaluator over EVAL_EPISODES FakeController
+    ObjectNavType episodes at 224x384 on STREAMS streams with the restored
+    agent, its attention and LayerNorm launches against the count per act
+    (on the card; `cfg` and `device` rehearse the phase on the CPU). The
+    evaluator's agent samples its actions (`--mode sample`): greedy, the
+    trained policy of this run ends every episode at its first step, and
+    the run would time two acts."""
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.evaluation.evaluator import BatchedEvaluator
+    from safevla_tpu_torch.models.convert import TOWER_PREFIXES
+
+    cfg = cfg or Config()
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    build = functools.partial(InferenceAgent.build, cfg, num_streams=STREAMS, device=device)
+    policy = kept["policy"].requires_grad_(False)
+    t0 = time.perf_counter()
+    restored = build(kept["checkpoint"], mode="greedy")
+    sync()
+    restore_s = time.perf_counter() - t0
+    ref_file = os.path.join(kept["dir"], "reference_allenact.pt")
+    sd = {}
+    for (_, prefix), tower in zip(TOWER_PREFIXES, policy.towers):
+        sd.update({prefix + k: v for k, v in tower.state_dict().items()})
+    torch.save({"model_state_dict": sd}, ref_file)
+    from_reference = build(ref_file, mode="greedy")
+    equal = same_acts({
+        "in_memory": InferenceAgent(cfg, policy, STREAMS, mode="greedy"),
+        "checkpoint": restored,
+        "reference_container": from_reference,
+    }, cfg)
+    log(f"[evaluate] restored agents act bit-equal to the in-memory policy: {equal}")
+    assert all(equal.values()), equal
+    del from_reference
+
+    agent = build(kept["checkpoint"], mode="sample", seed=cfg.eval.seed,
+                  test_augmentation=cfg.eval.test_augmentation)
+    acts, act_s = [0], []
+    act = agent.act
+
+    def counted(*a):
+        acts[0] += 1
+        t = time.perf_counter()
+        out = act(*a)  # ends in the action fetch
+        act_s.append(time.perf_counter() - t)
+        return out
+
+    agent.act = counted
+    reseed_hosts(cfg.eval.seed)
+    evaluator = BatchedEvaluator(cfg, eval_factory_builder(cfg.model.image_size, cfg.eval.seed),
+                                 num_streams=STREAMS, num_workers=0, max_episode_len=EVAL_EPISODE_STEPS)
+    per_act_attn = agent.policy.vit.cfg.depth + cfg.model.num_towers * (cfg.model.combiner_layers - 1)
+    per_act_ln = ln_launches_per_act(agent.policy.vit.cfg.depth, cfg.model)
+    samples = eval_samples(EVAL_EPISODES, cfg.model.image_size)
+    sync()
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    results = evaluator.evaluate(agent, samples, "ObjectNavType", progress_every=EVAL_EPISODES)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, ln)
+    want = {"attention_fwd": per_act_attn * acts[0], "attention_bwd": 0,
+            "layer_norm_fwd": per_act_ln * acts[0], "layer_norm_bwd": 0}
+    assert launches == want or not cuda, f"evaluate launches {launches}, expected {want} ({acts[0]} acts)"
+    table = results["safety_table"]
+    assert results["num_episodes"] == EVAL_EPISODES and len(table) == EVAL_EPISODES
+    assert len({r["sample_id"] for r in table}) == EVAL_EPISODES
+    assert all(np.isfinite(float(r["cost"])) and r["ep_length"] >= 1 for r in table)
+    assert all(np.isfinite(v) for v in results["aggregate"].values())
+    res = {
+        "streams": STREAMS, "episodes": EVAL_EPISODES, "episode_steps_max": EVAL_EPISODE_STEPS,
+        "image_hw": list(cfg.model.image_size), "mode": "sample", "restore_s": restore_s, "acts": acts[0],
+        "wall_s": wall, "episodes_per_s": EVAL_EPISODES / wall,
+        # the wall per act (env stepping and the pool's start included), and
+        # the agent's act alone after 2 warm-up acts
+        "ms_per_act": wall / acts[0] * 1e3, "act_ms_mean": float(np.mean(act_s[2:]) * 1e3),
+        "act_ms_median": float(np.median(act_s[2:]) * 1e3),
+        "launches": launches, "attention_launches_per_act": per_act_attn,
+        "layer_norm_launches_per_act": per_act_ln,
+        "aggregate": {k: results["aggregate"][k] for k in ("success", "cost", "sel", "spl", "ep_length")
+                      if k in results["aggregate"]},
+        "bit_equal": equal,
+    }
+    log(f"[evaluate] {json.dumps(res)}")
+    return res
 
 
 def synthetic_batch(model, b, t, text_hidden, text_mask, seed):
@@ -1009,12 +1283,14 @@ def trainer_config():
     return cfg
 
 
-def trainer(fa, cfg=None, device="cuda", windows=TRAINER_WINDOWS):
+def trainer(fa, cfg=None, device="cuda", windows=TRAINER_WINDOWS, keep=None):
     """The sync OnlineTrainer at full width, LayerNorm kernels on: per
     window its rollout and update times, env frames/s, StageTimer sections
     and the launches of every kernel, asserted against the count the config
     implies; the last window profiled (device time, idle share against the
-    timed windows' median wall). Returns its numbers."""
+    timed windows' median wall). Returns its numbers. With `keep` (a dict),
+    the trainer's policy, its final checkpoint and the output directory go
+    into it and stay for the caller to use and remove."""
     from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
     from safevla_tpu_torch.ops import layer_norm as ln
     from safevla_tpu_torch.training.online import OnlineTrainer
@@ -1093,7 +1369,10 @@ def trainer(fa, cfg=None, device="cuda", windows=TRAINER_WINDOWS):
     assert ts.step == windows * b * t and len(windows_out) == windows
     ckpt = os.path.join(tr.output_dir, f"step_{ts.step}")
     assert os.path.isfile(os.path.join(ckpt, "train_state.pt")), "no final checkpoint"
-    shutil.rmtree(tr.output_dir, ignore_errors=True)
+    if keep is None:
+        shutil.rmtree(tr.output_dir, ignore_errors=True)
+    else:
+        keep.update(policy=tr.policy, checkpoint=ckpt, dir=tr.output_dir)
 
     timed = windows_out[1:-1] if cuda else windows_out[1:]
     wall = float(np.median([w["wall_s"] for w in timed]))
@@ -1181,6 +1460,27 @@ def main() -> int:
     shapes += [check_attention(fa, *edge, gen) for edge in edges]
     bwd = check_attention_bwd(fa, "fusion_update", 128, 208, 8, update_kl, gen)
     bwd_shapes = [bwd] + [check_attention_bwd(fa, *edge, gen) for edge in edges]
+    # the other head dims and the streaming designs, on no path at Config():
+    # the ViT's length and the update's fusion chunk at head dims 16, 32 and
+    # 128 (lanes 384 and 512), and S past the resident designs' limits
+    # (bf16: forward 1664 at head dim 64 and 768 at 128, backward 432 at 64)
+    log(f"[kernels] resident_max_s {json.dumps(resident_limits(fa))}")
+    vit_kl = [433] * (2 * STREAMS)
+    shapes += [
+        check_attention(fa, "vit_dh16", 2 * STREAMS, 448, 24, vit_kl, gen, dh=16),
+        check_attention(fa, "vit_dh32", 2 * STREAMS, 448, 12, vit_kl, gen, dh=32),
+        check_attention(fa, "vit_dh128", 2 * STREAMS, 448, 3, vit_kl, gen, dh=128),
+        check_attention(fa, "stream_s2048", 2, 2048, 6, [2048, 1500], gen, iters=10, plain_iters=3),
+        check_attention(fa, "stream_dh128_s1024", 2, 1024, 3, [1024, 700], gen, dh=128, iters=10,
+                        plain_iters=3),
+    ]
+    bwd_shapes += [
+        check_attention_bwd(fa, "update_dh16", 128, 208, 32, update_kl, gen, dh=16),
+        check_attention_bwd(fa, "update_dh32", 128, 208, 16, update_kl, gen, dh=32),
+        check_attention_bwd(fa, "update_dh128", 128, 208, 4, update_kl, gen, dh=128),
+        check_attention_bwd(fa, "stream_vit_s448", 2 * STREAMS, 448, 6, vit_kl, gen, iters=10, plain_iters=3),
+        check_attention_bwd(fa, "stream_s2048", 2, 2048, 6, [2048, 1500], gen, iters=5, plain_iters=2),
+    ]
     ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
     ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES]
     for res in ln_bwd:  # one cooperative kernel a call, dgamma / dbeta included
@@ -1194,14 +1494,19 @@ def main() -> int:
     ref_diff = reference_check()
     ref_update = reference_update()
     ref_trainer = reference_trainer()
+    ref_tiny = reference_tiny(fa, ln)
     phase_done("reference")
     serving = serve(fa, ln_on=False)
     serving_ln = serve(fa, ln_on=True)
     phase_done("serving")
     training = train(fa)
     phase_done("training")
-    online = trainer(fa)
+    kept = {}
+    online = trainer(fa, keep=kept)
     phase_done("trainer")
+    evaluation = evaluate(fa, ln, kept)
+    shutil.rmtree(kept["dir"], ignore_errors=True)
+    phase_done("evaluate")
 
     # 7. results
     window_launches = {
@@ -1234,7 +1539,8 @@ def main() -> int:
             "safevla_tpu/ops/flash_attention.py:59", "safevla_tpu/ops/flash_attention.py::_fwd_kernel",
             {"serving": serving["attention_launches"] + serving_ln["attention_launches"],
              "training": training["launches"]["attention_fwd"],
-             "trainer": window_launches["attention_fwd"]},
+             "trainer": window_launches["attention_fwd"],
+             "evaluate": evaluation["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
@@ -1249,7 +1555,8 @@ def main() -> int:
             "safevla_tpu/ops/layer_norm.py:53", "safevla_tpu/ops/layer_norm.py::_ln_fwd_kernel",
             {"serving": serving_ln["layer_norm_launches"],
              "training": training["launches"]["layer_norm_fwd"],
-             "trainer": window_launches["layer_norm_fwd"]},
+             "trainer": window_launches["layer_norm_fwd"],
+             "evaluate": evaluation["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -1264,13 +1571,16 @@ def main() -> int:
     ]
     for k in kernels:  # every kernel of the trainer's path ran in it
         assert k["launches_trainer"] > 0, k["name"]
+    for k in kernels[0], kernels[2]:  # and the forward kernels in the evaluate phase
+        assert k["launches_evaluate"] > 0, k["name"]
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
-        f"reference window on vs off {ref_trainer}, "
+        f"reference window on vs off {ref_trainer}, tiny config {ref_tiny}, "
         f"serving {serving['ms_per_act_mean']:.3f} / {serving_ln['ms_per_act_mean']:.3f} ms/act "
         f"(LayerNorm kernels off / on), "
         f"training {training['ms_per_update_median_plain_ln']:.1f} / {training['ms_per_update_median']:.1f} "
         f"ms/update (off / on), trainer {online['env_frames_per_s_median']:.1f} env frames/s, "
         f"{online['rollout_s_median']:.2f} s rollout + {online['update_ms_median']:.1f} ms update per window, "
+        f"evaluate {evaluation['episodes_per_s']:.3f} episodes/s, {evaluation['act_ms_mean']:.1f} ms/act, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

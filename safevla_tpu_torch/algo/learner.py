@@ -11,7 +11,8 @@ Counterpart of the synchronous `update` of `safevla_tpu/algo/learner.py`:
          gradients of the tower parameters, global-norm clip + Adam (optax's)
 
 Only the tower parameters train; the frozen ViT and T5 do not run (the batch
-carries their outputs) and are in neither norm nor the optimizer. Where the
+carries their outputs) and are in neither norm nor the optimizer (the
+TrainState carries their weights for checkpoints, as the JAX one does). Where the
 JAX update returns new arrays, this one updates the policy's tower
 parameters and the Adam moments IN PLACE (no second copy of either): the
 returned `TrainState` is the one to keep, and the one passed in must not be
@@ -42,6 +43,9 @@ from safevla_tpu_torch.ops.gae import dual_gae
 @dataclass
 class TrainState:
     tower_params: Dict[str, torch.nn.Parameter]  # the policy's tower parameters (live)
+    # {"vit": ..., "t5": ...}: the frozen encoders' state dicts (live), saved
+    # with the towers so that a restored policy runs the backbone it trained with
+    frozen_params: Dict[str, Dict[str, torch.Tensor]]
     opt_state: AdamState
     lagrange: LagrangeState
     step: int  # env steps consumed so far
@@ -107,6 +111,7 @@ class Learner:
         lag = self.cfg.lagrange
         return TrainState(
             tower_params=params,
+            frozen_params={"vit": self.policy.vit.state_dict(), "t5": self.policy.t5.state_dict()},
             opt_state=adam_init(list(params.values())),
             lagrange=init_lagrange(
                 lag.cost_limit, lag.multiplier_init, lag.multiplier_lr,
@@ -232,6 +237,7 @@ class Learner:
         b, t = batch["rewards"].shape
         new_state = TrainState(
             tower_params=train_state.tower_params,
+            frozen_params=train_state.frozen_params,
             opt_state=opt_state,
             lagrange=lagrange,
             step=train_state.step + b * t,

@@ -1,17 +1,20 @@
 """Configuration dataclasses read by the serving path, the learner update,
-the rollout runner and the sync online trainer.
+the rollout runner, the sync online trainer and the evaluator.
 
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
-`LagrangeConfig` and `TrainingStageConfig`, and of the `TrainConfig` fields
-the inference agent, the update, the runner and the trainer read, with
-identical defaults. The rest of the JAX config tree (offline, mesh, eval) is
-ported with the slices that read it.
+`LagrangeConfig`, `TrainingStageConfig` and `EvalConfig`, of the
+`TrainConfig` fields the inference agent, the update, the runner and the
+trainer read, with identical defaults, and of `apply_overrides` (with its
+presets). The rest of the JAX config tree (offline, mesh) is ported with the
+slices that read it: an override of one of its keys is an unknown key here.
 """
 
 from __future__ import annotations
 
+import difflib
+import json
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from safevla_tpu_torch.constants import NUM_ACTIONS
 
@@ -143,8 +146,106 @@ class TrainConfig:
 
 
 @dataclass
+class EvalConfig:
+    num_workers: int = 8
+    seed: int = 123
+    benchmark_subset: str = "minival"
+    gt_detection: bool = True
+    max_eval_tasks: Optional[int] = None
+    test_augmentation: bool = True
+    save_videos: bool = False
+
+
+@dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     ppo: PPOConfig = field(default_factory=PPOConfig)
     lagrange: LagrangeConfig = field(default_factory=LagrangeConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
+
+
+def _parse_value(raw: str, current: Any) -> Any:
+    if isinstance(current, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int) and not isinstance(current, bool):
+        return int(float(raw))
+    if isinstance(current, float):
+        return float(raw)
+    if isinstance(current, (list, tuple)):
+        val = json.loads(raw)
+        return type(current)(val) if isinstance(current, tuple) else val
+    if current is None:
+        # Optional fields carry no type witness: infer from the literal
+        low = raw.lower()
+        if low in ("none", "null"):
+            return None
+        if low in ("true", "false"):
+            return low == "true"
+        for cast in (int, float):
+            try:
+                return cast(raw)
+            except ValueError:
+                pass
+        try:
+            return json.loads(raw)
+        except ValueError:
+            return raw
+    if raw.lower() in ("none", "null"):
+        return None
+    return raw
+
+
+# Named experiment presets, selected with `preset=<name>` on any CLI;
+# explicit overrides still win. (The SigLIP encoders are not ported yet: the
+# policy raises on them.)
+PRESETS = {
+    "dinov2_t5": [],  # the defaults
+    "siglip_base": [
+        "model.vision_backbone=siglip_vitb16_256",
+        "model.vision_feature_dim=768",
+        "model.image_size=[256, 256]",
+        "model.text_backbone=siglip_base",
+        "model.text_embed_size=768",
+        "model.text_max_tokens=64",
+    ],
+}
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply CLI overrides of the form section.field=value or field=value.
+    `preset=<name>` expands to its override list first (later explicit
+    overrides win)."""
+    expanded: List[str] = []
+    rest: List[str] = []
+    for ov in overrides:
+        key = ov.lstrip("-").split("=", 1)[0]
+        if key == "preset":
+            name = ov.split("=", 1)[1]
+            if name not in PRESETS:
+                raise ValueError(f"Unknown preset {name!r}; available: {sorted(PRESETS)}")
+            expanded += PRESETS[name]
+        else:
+            rest.append(ov)
+    for ov in expanded + rest:
+        ov = ov.lstrip("-")
+        if "=" not in ov:
+            raise ValueError(f"Override must be key=value, got: {ov}")
+        key, raw = ov.split("=", 1)
+        parts = key.split(".")
+        obj = cfg
+        for p in parts[:-1]:
+            obj = getattr(obj, p)
+        leaf = parts[-1]
+        if not hasattr(obj, leaf):
+            candidates = []
+            for sec_name, sec in vars(cfg).items():
+                if hasattr(sec, "__dataclass_fields__"):
+                    candidates += [f"{sec_name}.{f}" for f in vars(sec)]
+                else:
+                    candidates.append(sec_name)
+            hint = difflib.get_close_matches(key, candidates, n=3, cutoff=0.5)
+            suffix = f" (did you mean: {', '.join(hint)}?)" if hint else ""
+            raise AttributeError(f"Unknown config key: {key}{suffix}")
+        setattr(obj, leaf, _parse_value(raw, getattr(obj, leaf)))
+    return cfg

@@ -18,15 +18,29 @@
 //   (j >= key_lens[b]) get exactly zero dk and dv. key_lens[b] must lie in
 //   [1, S]: the kernel traps otherwise.
 //
+// Head dims: Dh in {16, 32, 64, 128} (each design is a template over Dh,
+// instantiated for those four; another Dh is refused). Every path shape has
+// Dh = 64.
+//
 // What bounds it on an H100: ~10*S*kl*Dh flops per (b, h) for the five
 // products (s, dp, dv, dq, dk) against 7*B*S*H*Dh IO elements (qkv and g
 // read once, dqkv written once). At the update's shape (S=208, Dh=64, ~190
 // valid keys) that is ~135 flops per byte, under the ~295 at which the bf16
 // tensor cores become the limit: an ideal kernel is bound by memory.
 //
-// The dtype picks the design (dispatch by dtype; a failed build or launch
-// raises in either). Neither uses atomics: every gradient row is summed by
-// one warp in a fixed order, so two runs give the same bits.
+// The dtype picks the resident design (dispatch by dtype; a failed build or
+// launch raises in either); above the largest S a resident design takes (its
+// shared memory, 227 KB a block), the wrapper launches the streaming design
+// (`attention_qkv_bwd_stream`, below), a shape rule decided before the
+// launch. The largest S of the resident designs (`resident_max_s` in
+// ops/flash_attention.py computes the same):
+//   bf16: 4 planes of round16(S) rows x Dh x 2 bytes and 3 f32 statistics a
+//         row <= 227 KB: Dh 16: 1648, 32: 864, 64: 432, 128: 224
+//   f32:  S x (3 x (Dh + 1) x 4 + 35 x 4) bytes <= 227 KB:
+//         Dh 16: 675, 32: 433, 64: 252, 128: 137
+// The wrapper takes S up to 2048 at every Dh. No design uses atomics: every
+// gradient row is summed by one warp in a fixed order, so two runs give the
+// same bits.
 //
 // bf16 (every launch on the main path) runs on the tensor cores,
 // mma.sync.m16n8k16 with f32 accumulators (helpers in hopper_mma.cuh), in
@@ -37,10 +51,10 @@
 //   * Q, G (rows < S) and K, V (rows < key_lens[b], rounded up to 16) arrive
 //     by cp.async (16-byte chunks) into XOR-swizzled planes read by ldmatrix;
 //     rows past S or key_lens[b] are zero-filled by the copy, and key tiles
-//     wholly past key_lens[b] are never loaded. At S=208 the four planes and
-//     the statistics take 106 KB, so two blocks fit on an SM; S is bounded by
-//     the 227 KB a block may use (524 bytes a row: S <= 432), past which the
-//     launch fails and the wrapper raises.
+//     wholly past key_lens[b] are never loaded. At S=208 (Dh 64) the four
+//     planes and the statistics take 106 KB, so two blocks fit on an SM; S
+//     is bounded by the 227 KB a block may use (524 bytes a row at Dh 64:
+//     S <= 432).
 //   * Phase A, one warp per 16 query rows (q and g held as A fragments):
 //     pass 1 runs q.k^T for the row max m and rowsum(e) (each lane keeps the
 //     max and sum of its own columns, rescaling the sum when its max grows,
@@ -73,16 +87,33 @@
 // D; lanes split the head dims for dq), phase 2 one warp per key row (p and
 // ds recomputed with the same FMA order, so the same bits; dk and dv), f32
 // FMAs throughout.
+//
+// Streaming (both dtypes, S above the resident limit; never at a path
+// shape): CUDA-core f32 FMAs, no plane of S rows resident, three kernels in
+// one call, no atomics (attention_stream.cuh: blocks of 8 warps owning 64
+// rows, 8 a warp, the other side streamed in two-slot rings of 32-row
+// tiles):
+//   1. stats, one block per 64-query tile: K streams for the row max m and
+//      rowsum (each lane keeps its own keys' max and sum, rescaled when its
+//      max grows, merged across the warp at the end), then K and V for
+//      D = sum_j p_ij dp_ij with p = io(e / rowsum); m, rowsum and D go to a
+//      (3, B, H, S) f32 scratch the wrapper allocates;
+//   2. dk and dv, one block per 64-key tile: Q, G and the statistics stream;
+//      a lane a query row forms p and dsb, shuffles broadcast them and a lane
+//      accumulates its head dims of dv += p g and dk += dsb q; key rows past
+//      key_lens[b] are written as zeros;
+//   3. dq, one block per 64-query tile: K and V stream, dq += dsb k.
+// Every kernel forms s with the same FMA order, so p and ds agree bit for
+// bit between them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_stream.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
-
-constexpr int kHeadDim = 64;
 
 // ---------------------------------------------------------------- bf16 ---
 
@@ -90,9 +121,18 @@ constexpr int kTcThreads = 128;  // 4 warps
 
 __host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
 
+template <int DH>
+struct Tc {
+  static constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+  static constexpr int kRowBytes = DH * 2;
+  static constexpr int kK = DH / 16;      // 16-deep steps of a product over the head dims
+  static constexpr int kN = DH / 8;       // 8-wide column tiles of a gradient row
+};
+
+template <int DH>
 size_t tc_smem_bytes(int S) {
   const size_t s16 = static_cast<size_t>(round16(S));
-  return 4 * s16 * hopper::kRowBytes + 3 * s16 * sizeof(float);
+  return 4 * s16 * Tc<DH>::kRowBytes + 3 * s16 * sizeof(float);
 }
 
 template <int N>
@@ -112,49 +152,49 @@ __device__ __forceinline__ void over_chunks(int full, int end, Body&& body) {
 }
 
 // c (16 rows x 8*NT columns, as NT n tiles) = a . bt[n0..n0+8*NT-1]^T, where
-// a is held as 4 A fragments (64 deep) and bt is a swizzled plane stored
-// n-major.
-template <int NT>
-__device__ __forceinline__ void product(float (&c)[NT][4], const uint32_t (&a)[4][4], uint32_t bt,
-                                        int n0, int lane) {
+// a is held as DH/16 A fragments and bt is a swizzled plane stored n-major.
+template <int DH, int NT>
+__device__ __forceinline__ void product(float (&c)[NT][4], const uint32_t (&a)[Tc<DH>::kK][4],
+                                        uint32_t bt, int n0, int lane) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < Tc<DH>::kK; ++kk) {
 #pragma unroll
     for (int jp = 0; jp < NT / 2; ++jp) {
       uint32_t b[4];
-      hopper::ldsm_x4(b, hopper::bt_addr(bt, n0 + 16 * jp, kk, lane));
+      hopper::ldsm_x4(b, hopper::bt_addr<Tc<DH>::kChunks>(bt, n0 + 16 * jp, kk, lane));
       hopper::mma(c[2 * jp], a[kk], b[0], b[1]);
       hopper::mma(c[2 * jp + 1], a[kk], b[2], b[3]);
     }
   }
 }
 
-// acc (16 x 64) += bf16(c) (16 x 8*NT, as A fragments) . plane rows
-// k0..k0+8*NT-1 (all 64 columns, through ldmatrix.trans).
-template <int NT>
-__device__ __forceinline__ void accumulate(float (&acc)[8][4], const float (&c)[NT][4],
+// acc (16 x DH) += bf16(c) (16 x 8*NT, as A fragments) . plane rows
+// k0..k0+8*NT-1 (all DH columns, through ldmatrix.trans).
+template <int DH, int NT>
+__device__ __forceinline__ void accumulate(float (&acc)[Tc<DH>::kN][4], const float (&c)[NT][4],
                                            uint32_t plane, int k0, int lane) {
 #pragma unroll
   for (int ks = 0; ks < NT / 2; ++ks) {
     uint32_t a[4];
     hopper::acc_to_a(a, c[2 * ks], c[2 * ks + 1]);
 #pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
+    for (int jn = 0; jn < DH / 16; ++jn) {
       uint32_t b[4];
-      hopper::ldsm_x4_t(b, hopper::b_addr_t(plane, k0 + 16 * ks, jn, lane));
+      hopper::ldsm_x4_t(b, hopper::b_addr_t<Tc<DH>::kChunks>(plane, k0 + 16 * ks, jn, lane));
       hopper::mma(acc[2 * jn], a, b[0], b[1]);
       hopper::mma(acc[2 * jn + 1], a, b[2], b[3]);
     }
   }
 }
 
-// Stores rows r and r + 8 (r = r0 + lane / 4) of a 16 x 64 accumulator,
+// Stores rows r and r + 8 (r = r0 + lane / 4) of a 16 x DH accumulator,
 // times `mul`, to dst (head column 0 of row 0; rows `stride` apart), rounded
 // to bf16. Rows >= limit are skipped; rows >= zero_from get zeros.
+template <int DH>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long stride,
-                                           const float (&acc)[8][4], float mul, int r0,
+                                           const float (&acc)[Tc<DH>::kN][4], float mul, int r0,
                                            int limit, int zero_from, int lane) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -163,7 +203,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long stride,
     const bool zero = r >= zero_from;
     __nv_bfloat16* row = dst + r * stride + 2 * (lane & 3);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < Tc<DH>::kN; ++j) {
       *reinterpret_cast<uint32_t*>(row + 8 * j) =
           zero ? 0u : hopper::pack_bf16(acc[j][2 * half] * mul, acc[j][2 * half + 1] * mul);
     }
@@ -178,18 +218,19 @@ constexpr float kNoMax = -1e30f;
 // Phase B for one slice of 16 key rows: dk and dv over every query chunk.
 // kMaskKeys: some of the slice's rows are >= key_lens[b] (valid[] says which
 // of this lane's two rows are keys).
-template <bool kMaskKeys>
-__device__ __forceinline__ void dk_dv_slice(float (&dk)[8][4], float (&dv)[8][4],
-                                            const uint32_t (&kf)[4][4], const uint32_t (&vf)[4][4],
-                                            uint32_t q_s, uint32_t g_s, const float* m_s,
-                                            const float* l_s, const float* d_s, int s16,
-                                            const bool (&valid)[2], float scale2, int lane) {
+template <int DH, bool kMaskKeys>
+__device__ __forceinline__ void dk_dv_slice(float (&dk)[Tc<DH>::kN][4], float (&dv)[Tc<DH>::kN][4],
+                                            const uint32_t (&kf)[Tc<DH>::kK][4],
+                                            const uint32_t (&vf)[Tc<DH>::kK][4], uint32_t q_s,
+                                            uint32_t g_s, const float* m_s, const float* l_s,
+                                            const float* d_s, int s16, const bool (&valid)[2],
+                                            float scale2, int lane) {
   const int col0 = 2 * (lane & 3);
   over_chunks(s16, s16, [&](auto nt, auto, int i0) {
     constexpr int NT = decltype(nt)::value;
     float st[NT][4], dpt[NT][4];
-    product<NT>(st, kf, q_s, i0, lane);   // s^T = k . q^T
-    product<NT>(dpt, vf, g_s, i0, lane);  // dp^T = v . g^T
+    product<DH, NT>(st, kf, q_s, i0, lane);   // s^T = k . q^T
+    product<DH, NT>(dpt, vf, g_s, i0, lane);  // dp^T = v . g^T
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int q = i0 + 8 * j + col0;
@@ -207,16 +248,19 @@ __device__ __forceinline__ void dk_dv_slice(float (&dk)[8][4], float (&dv)[8][4]
         st[j][e] = p;
       }
     }
-    accumulate<NT>(dv, st, g_s, i0, lane);   // dv += p^T . g
-    accumulate<NT>(dk, dpt, q_s, i0, lane);  // dk += dsb^T . q
+    accumulate<DH, NT>(dv, st, g_s, i0, lane);   // dv += p^T . g
+    accumulate<DH, NT>(dk, dpt, q_s, i0, lane);  // dk += dsb^T . q
   });
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 2)
     attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                             const __nv_bfloat16* __restrict__ g, const int* __restrict__ key_lens,
                             __nv_bfloat16* __restrict__ dqkv, int S, int H, long long stride_b,
                             long long stride_s, float scale) {
+  using T = Tc<DH>;
+  constexpr int C = T::kChunks;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -226,14 +270,14 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   if (kl < 1 || kl > S) __trap();
   const int s16 = round16(S);
   const int nk16 = round16(kl);
-  const int lanes = H * kHeadDim;
-  const __nv_bfloat16* base = qkv + b * stride_b + h * kHeadDim;
-  const __nv_bfloat16* g_base = g + static_cast<size_t>(b) * S * lanes + h * kHeadDim;
-  __nv_bfloat16* d_base = dqkv + b * stride_b + h * kHeadDim;
+  const int lanes = H * DH;
+  const __nv_bfloat16* base = qkv + b * stride_b + h * DH;
+  const __nv_bfloat16* g_base = g + static_cast<size_t>(b) * S * lanes + h * DH;
+  __nv_bfloat16* d_base = dqkv + b * stride_b + h * DH;
 
   // shared memory: the Q, K, V and G planes (s16 swizzled rows each), then
   // m (log2 units), 1 / rowsum and D of every query row
-  const uint32_t plane = static_cast<uint32_t>(s16) * hopper::kRowBytes;
+  const uint32_t plane = static_cast<uint32_t>(s16) * T::kRowBytes;
   const uint32_t q_s = hopper::smem_addr(smem_raw);
   const uint32_t k_s = q_s + plane;
   const uint32_t v_s = k_s + plane;
@@ -242,9 +286,9 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   float* l_s = m_s + s16;
   float* d_s = l_s + s16;
 
-  for (int i = threadIdx.x; i < s16 * 8; i += kTcThreads) {
-    const int r = i >> 3, c = i & 7;
-    const uint32_t off = hopper::swz(r, c);
+  for (int i = threadIdx.x; i < s16 * C; i += kTcThreads) {
+    const int r = i / C, c = i % C;
+    const uint32_t off = hopper::swz<C>(r, c);
     const bool q_ok = r < S;
     const int rq = q_ok ? r : 0;
     hopper::cp_async16(q_s + off, base + rq * stride_s + c * 8, q_ok);
@@ -265,11 +309,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
   // phase A: one warp per 16 query rows -> m, 1 / rowsum, D and dq
   for (int r0 = 16 * warp; r0 < s16; r0 += 16 * (kTcThreads / 32)) {
-    uint32_t qf[4][4], gf[4][4];
+    uint32_t qf[T::kK][4], gf[T::kK][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      hopper::ldsm_x4(qf[kk], hopper::a_addr(q_s, r0, kk, lane));
-      hopper::ldsm_x4(gf[kk], hopper::a_addr(g_s, r0, kk, lane));
+    for (int kk = 0; kk < T::kK; ++kk) {
+      hopper::ldsm_x4(qf[kk], hopper::a_addr<C>(q_s, r0, kk, lane));
+      hopper::ldsm_x4(gf[kk], hopper::a_addr<C>(g_s, r0, kk, lane));
     }
 
     // pass 1: the row max and rowsum(e); each lane keeps its own columns'
@@ -281,7 +325,7 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       constexpr bool kMask = decltype(masked)::value;
       const int valid = kl - k0 - col0;  // columns 8j + (e & 1) < valid are keys
       float s[NT][4];
-      product<NT>(s, qf, k_s, k0, lane);
+      product<DH, NT>(s, qf, k_s, k0, lane);
       float mn[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -333,8 +377,8 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
       constexpr int NT = decltype(nt)::value;
       float s[NT][4], dp[NT][4];
-      product<NT>(s, qf, k_s, k0, lane);
-      product<NT>(dp, gf, v_s, k0, lane);
+      product<DH, NT>(s, qf, k_s, k0, lane);
+      product<DH, NT>(dp, gf, v_s, k0, lane);
       probs(nt, masked, s, k0);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
@@ -345,23 +389,23 @@ __global__ void __launch_bounds__(kTcThreads, 2)
     const float D[2] = {hopper::quad_sum(dsum[0]), hopper::quad_sum(dsum[1])};
 
     // pass 3: ds = p (dp - D), dq += bf16(ds) . k
-    float dq[8][4];
+    float dq[T::kN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+    for (int j = 0; j < T::kN; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
     over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
       constexpr int NT = decltype(nt)::value;
       float s[NT][4], dp[NT][4];
-      product<NT>(s, qf, k_s, k0, lane);
-      product<NT>(dp, gf, v_s, k0, lane);
+      product<DH, NT>(s, qf, k_s, k0, lane);
+      product<DH, NT>(dp, gf, v_s, k0, lane);
       probs(nt, masked, s, k0);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - D[e >> 1];
       }
-      accumulate<NT>(dq, s, k_s, k0, lane);
+      accumulate<DH, NT>(dq, s, k_s, k0, lane);
     });
-    store_rows(d_base, stride_s, dq, scale, r0, S, S, lane);
+    store_rows<DH>(d_base, stride_s, dq, scale, r0, S, S, lane);
     if ((lane & 3) == 0) {
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
@@ -376,31 +420,31 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
   // phase B: one warp per 16 key rows -> dk and dv
   for (int j0 = 16 * warp; j0 < nk16; j0 += 16 * (kTcThreads / 32)) {
-    uint32_t kf[4][4], vf[4][4];
+    uint32_t kf[T::kK][4], vf[T::kK][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      hopper::ldsm_x4(kf[kk], hopper::a_addr(k_s, j0, kk, lane));
-      hopper::ldsm_x4(vf[kk], hopper::a_addr(v_s, j0, kk, lane));
+    for (int kk = 0; kk < T::kK; ++kk) {
+      hopper::ldsm_x4(kf[kk], hopper::a_addr<C>(k_s, j0, kk, lane));
+      hopper::ldsm_x4(vf[kk], hopper::a_addr<C>(v_s, j0, kk, lane));
     }
     const bool valid[2] = {j0 + (lane >> 2) < kl, j0 + (lane >> 2) + 8 < kl};
-    float dk[8][4], dv[8][4];
+    float dk[T::kN][4], dv[T::kN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < T::kN; ++j) {
       dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
       dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
     }
     if (j0 + 16 <= kl)
-      dk_dv_slice<false>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
+      dk_dv_slice<DH, false>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
     else
-      dk_dv_slice<true>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
-    store_rows(d_base + lanes, stride_s, dk, scale, j0, S, kl, lane);
-    store_rows(d_base + 2 * lanes, stride_s, dv, 1.f, j0, S, kl, lane);
+      dk_dv_slice<DH, true>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
+    store_rows<DH>(d_base + lanes, stride_s, dk, scale, j0, S, kl, lane);
+    store_rows<DH>(d_base + 2 * lanes, stride_s, dv, 1.f, j0, S, kl, lane);
   }
 
   // key rows nk16..S-1 (wholly past key_lens[b]): dk = dv = 0
-  for (int i = threadIdx.x; i < (S - nk16) * 16; i += kTcThreads) {
-    const int r = nk16 + (i >> 4), c = i & 15;
-    *reinterpret_cast<uint4*>(d_base + r * stride_s + (c < 8 ? lanes : 2 * lanes) + (c & 7) * 8) =
+  for (int i = threadIdx.x; i < (S - nk16) * 2 * C; i += kTcThreads) {
+    const int r = nk16 + i / (2 * C), c = i % (2 * C);
+    *reinterpret_cast<uint4*>(d_base + r * stride_s + (c < C ? lanes : 2 * lanes) + (c % C) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
 }
@@ -409,23 +453,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
 
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRowStride = kHeadDim + 1;  // 65 words per staged row
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
+template <int DH>
 __device__ __forceinline__ void stage_row(float* dst, const float* src) {
 #pragma unroll
-  for (int c = 0; c < kHeadDim; c += 4) {
+  for (int c = 0; c < DH; c += 4) {
     const float4 v = *reinterpret_cast<const float4*>(src + c);
     dst[c] = v.x;
     dst[c + 1] = v.y;
@@ -434,29 +466,35 @@ __device__ __forceinline__ void stage_row(float* dst, const float* src) {
   }
 }
 
-__device__ __forceinline__ void load_row(float (&r)[kHeadDim], const float* p) {
+template <int DH>
+__device__ __forceinline__ void load_row(float (&r)[DH], const float* p) {
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) r[d] = p[d];
+  for (int d = 0; d < DH; ++d) r[d] = p[d];
 }
 
 // r . row, with d ascending: phase 1 and phase 2 both compute each product
 // with this function, so p and ds agree bit for bit between them.
-__device__ __forceinline__ float dot_row(const float (&r)[kHeadDim], const float* row) {
+template <int DH>
+__device__ __forceinline__ float dot_row(const float (&r)[DH], const float* row) {
   float acc = 0.f;
 #pragma unroll
-  for (int d = 0; d < kHeadDim; ++d) acc = fmaf(r[d], row[d], acc);
+  for (int d = 0; d < DH; ++d) acc = fmaf(r[d], row[d], acc);
   return acc;
 }
 
+template <int DH>
 size_t f32_smem_bytes(int S) {
-  return 3 * static_cast<size_t>(S) * kRowStride * sizeof(float) +
+  return 3 * static_cast<size_t>(S) * (DH + 1) * sizeof(float) +
          (2 * static_cast<size_t>(kWarps) + 3) * S * sizeof(float);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                              const int* __restrict__ key_lens, float* __restrict__ dqkv, int S,
                              int H, long long stride_b, long long stride_s, float scale) {
+  constexpr int kRowStride = DH + 1;            // words per staged row
+  constexpr int kPer = DH >= 32 ? DH / 32 : 1;  // head dims a lane accumulates
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int h = static_cast<int>(blockIdx.x);
   const int b = static_cast<int>(blockIdx.y);
@@ -473,65 +511,70 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* l_s = m_s + S;
   float* d_s = l_s + S;
 
-  const int lanes = H * kHeadDim;
-  const float* base = qkv + b * stride_b + h * kHeadDim;
-  const float* grows = g + (static_cast<size_t>(b) * S) * lanes + h * kHeadDim;
+  const int lanes = H * DH;
+  const float* base = qkv + b * stride_b + h * DH;
+  const float* grows = g + (static_cast<size_t>(b) * S) * lanes + h * DH;
   for (int r = threadIdx.x; r < S; r += kThreads) {
     const float* src = base + r * stride_s;
-    stage_row(qs + r * kRowStride, src);
+    stage_row<DH>(qs + r * kRowStride, src);
     if (r < kl) {
-      stage_row(ks + r * kRowStride, src + lanes);
-      stage_row(vs + r * kRowStride, src + 2 * lanes);
+      stage_row<DH>(ks + r * kRowStride, src + lanes);
+      stage_row<DH>(vs + r * kRowStride, src + 2 * lanes);
     }
   }
   __syncthreads();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int d0 = 2 * lane;
+  const int d0 = kPer * lane;
+  const bool has_dims = d0 < DH;
   float* prow = prow_all + warp * S;
   float* drow = drow_all + warp * S;
-  float* out_base = dqkv + b * stride_b + h * kHeadDim + d0;
-  float r[kHeadDim];
+  float* out_base = dqkv + b * stride_b + h * DH + d0;
+  float r[DH];
 
   // phase 1: one warp per query row -> m, rowsum(e), D, and dq
   for (int i = warp; i < S; i += kWarps) {
-    load_row(r, qs + i * kRowStride);
+    load_row<DH>(r, qs + i * kRowStride);
     float mx = __int_as_float(0xff800000);  // -inf
     for (int j = lane; j < kl; j += 32) {
-      const float s = dot_row(r, ks + j * kRowStride) * scale;
+      const float s = dot_row<DH>(r, ks + j * kRowStride) * scale;
       prow[j] = s;
       mx = fmaxf(mx, s);
     }
-    mx = warp_max(mx);
+    mx = stream::warp_max(mx);
     float sum = 0.f;
     for (int j = lane; j < kl; j += 32) {
       const float e = expf(prow[j] - mx);
       prow[j] = e;
       sum += e;
     }
-    sum = warp_sum(sum);
-    load_row(r, grows + i * lanes);
+    sum = stream::warp_sum(sum);
+    load_row<DH>(r, grows + i * lanes);
     float dsum = 0.f;
     for (int j = lane; j < kl; j += 32) {
       const float p = prow[j] / sum;
-      const float dp = dot_row(r, vs + j * kRowStride);
+      const float dp = dot_row<DH>(r, vs + j * kRowStride);
       prow[j] = p;
       drow[j] = dp;
       dsum = fmaf(dp, p, dsum);
     }
-    const float dsum_all = warp_sum(dsum);
+    const float dsum_all = stream::warp_sum(dsum);
     for (int j = lane; j < kl; j += 32) drow[j] = prow[j] * (drow[j] - dsum_all);
     __syncwarp();
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < kl; ++j) {
-      const float ds = drow[j];
-      a0 = fmaf(ds, ks[j * kRowStride + d0], a0);
-      a1 = fmaf(ds, ks[j * kRowStride + d0 + 1], a1);
+    if (has_dims) {
+      float a[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) a[u] = 0.f;
+      for (int j = 0; j < kl; ++j) {
+        const float ds = drow[j];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) a[u] = fmaf(ds, ks[j * kRowStride + d0 + u], a[u]);
+      }
+      float* o = out_base + i * stride_s;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) o[u] = a[u] * scale;
     }
-    float* o = out_base + i * stride_s;
-    o[0] = a0 * scale;
-    o[1] = a1 * scale;
     if (lane == 0) {
       m_s[i] = mx;
       l_s[i] = sum;
@@ -545,39 +588,363 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int j = warp; j < S; j += kWarps) {
     float* out = out_base + j * stride_s;
     if (j >= kl) {  // masked key: p = 0 for every query row
-      out[lanes] = out[lanes + 1] = 0.f;
-      out[2 * lanes] = out[2 * lanes + 1] = 0.f;
+      if (has_dims) {
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) out[lanes + u] = out[2 * lanes + u] = 0.f;
+      }
       continue;
     }
-    load_row(r, ks + j * kRowStride);
+    load_row<DH>(r, ks + j * kRowStride);
     for (int i = lane; i < S; i += 32) {
-      const float s = dot_row(r, qs + i * kRowStride) * scale;
+      const float s = dot_row<DH>(r, qs + i * kRowStride) * scale;
       prow[i] = expf(s - m_s[i]) / l_s[i];
     }
-    load_row(r, vs + j * kRowStride);
+    load_row<DH>(r, vs + j * kRowStride);
     for (int i = lane; i < S; i += 32) {
-      const float dp = dot_row(r, grows + i * lanes);
+      const float dp = dot_row<DH>(r, grows + i * lanes);
       drow[i] = prow[i] * (dp - d_s[i]);
     }
     __syncwarp();
-    float k0 = 0.f, k1 = 0.f, v0 = 0.f, v1 = 0.f;
-    for (int i = 0; i < S; ++i) {
-      const float p = prow[i];
-      const float ds = drow[i];
-      const float* gr = grows + i * lanes + d0;
-      const float* qr = qs + i * kRowStride + d0;
-      v0 = fmaf(p, gr[0], v0);
-      v1 = fmaf(p, gr[1], v1);
-      k0 = fmaf(ds, qr[0], k0);
-      k1 = fmaf(ds, qr[1], k1);
+    if (has_dims) {
+      float kk[kPer], vv[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) kk[u] = vv[u] = 0.f;
+      for (int i = 0; i < S; ++i) {
+        const float p = prow[i];
+        const float ds = drow[i];
+        const float* gr = grows + i * lanes + d0;
+        const float* qr = qs + i * kRowStride + d0;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          vv[u] = fmaf(p, gr[u], vv[u]);
+          kk[u] = fmaf(ds, qr[u], kk[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        out[lanes + u] = kk[u] * scale;
+        out[2 * lanes + u] = vv[u];
+      }
     }
-    out[lanes] = k0 * scale;
-    out[lanes + 1] = k1 * scale;
-    out[2 * lanes] = v0;
-    out[2 * lanes + 1] = v1;
     __syncwarp();
   }
 }
+
+// ----------------------------------------------------------- streaming ---
+
+// The three kernels' shared memory: 64 owned rows of two planes (Q and G, or
+// K and V), then two rings of two 32-row tiles each.
+template <typename T, int DH>
+size_t stream_smem_bytes() {
+  return static_cast<size_t>(2 * stream::kBlockRows + 4 * stream::kTileRows) *
+         stream::Rows<T, DH>::kStride;
+}
+
+// Where a streaming kernel's operands live: qkv and g of one (head, batch
+// row), the statistics scratch (3, B, H, S) and dqkv.
+template <typename T, int DH>
+struct StreamView {
+  const T* q;  // head column 0 of row 0 of q; k and v are lanes and 2 * lanes further
+  const T* g;  // head column 0 of row 0 of g (rows `lanes` apart)
+  T* dq;       // the same in dqkv
+  float* m;    // m, rowsum and D of row 0 of this (b, h); BHS apart
+  int kl, lanes;
+  size_t bhs;
+
+  __device__ StreamView(const T* qkv, const T* g_all, T* dqkv, float* stats, const int* key_lens,
+                        int S, int H, long long stride_b) {
+    const int h = static_cast<int>(blockIdx.y);
+    const int b = static_cast<int>(blockIdx.z);
+    kl = key_lens ? key_lens[b] : S;
+    if (kl < 1 || kl > S) __trap();
+    lanes = H * DH;
+    q = qkv + b * stride_b + h * DH;
+    g = g_all + static_cast<size_t>(b) * S * lanes + h * DH;
+    dq = dqkv ? dqkv + b * stride_b + h * DH : nullptr;
+    bhs = static_cast<size_t>(gridDim.z) * H * S;
+    m = stats + (static_cast<size_t>(b) * H + h) * S;
+  }
+};
+
+// Runs body(t, slot offset) over n tiles of 32 rows, the next tile's copies
+// (issued by load(t, slot offset), one commit group) in flight while the
+// current one is used.
+template <typename Load, typename Body>
+__device__ __forceinline__ void over_tiles(int n, int tile_bytes, Load&& load, Body&& body) {
+  load(0, 0);
+  hopper::cp_async_commit();
+  for (int t = 0; t < n; ++t) {
+    if (t + 1 < n) {
+      load(t + 1, ((t + 1) & 1) * tile_bytes);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<1>();
+    } else {
+      hopper::cp_async_wait<0>();
+    }
+    __syncthreads();
+    body(t, (t & 1) * tile_bytes);
+    __syncthreads();  // every warp is done with this slot before it is refilled
+  }
+}
+
+// 1. m, rowsum and D of 64 query rows.
+template <typename T, int DH>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                               const int* __restrict__ key_lens, float* __restrict__ stats, int S,
+                               int H, long long stride_b, long long stride_s, float scale) {
+  using R = stream::Rows<T, DH>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T, DH> v(qkv, g_all, nullptr, stats, key_lens, S, H, stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  unsigned char* q_s = smem_raw;
+  unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + 2 * R::kTileBytes;
+  stream::load_rows<T, DH>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S);
+  stream::load_rows<T, DH>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S);
+  hopper::cp_async_commit();
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;
+  const unsigned char* my_g = g_s + warp * kRows * R::kStride;
+  const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
+  auto load_k = [&](int t, int slot) {
+    stream::load_rows<T, DH>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s,
+                             t * stream::kTileRows, stream::kTileRows, v.kl);
+  };
+  auto load_kv = [&](int t, int slot) {
+    load_k(t, slot);
+    stream::load_rows<T, DH>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s,
+                             t * stream::kTileRows, stream::kTileRows, v.kl);
+  };
+
+  // K: the row max and rowsum, each lane over its own keys
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = __int_as_float(0xff800000);
+    l[r] = 0.f;
+  }
+  over_tiles(n_tiles, R::kTileBytes, load_k, [&](int t, int slot) {
+    const unsigned char* k_row = k_s + slot + lane * R::kStride;
+    if (t * stream::kTileRows + lane >= v.kl) return;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      if (s > m[r]) {
+        l[r] = l[r] * expf(m[r] - s) + 1.f;
+        m[r] = s;
+      } else {
+        l[r] += expf(s - m[r]);
+      }
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float mx = stream::warp_max(m[r]);
+    l[r] = stream::warp_sum(l[r] * expf(m[r] - mx));  // a lane with no key: 0 * 0
+    m[r] = mx;
+  }
+
+  // K and V: D = sum_j p_ij dp_ij, p = io(e / rowsum)
+  float dsum[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) dsum[r] = 0.f;
+  over_tiles(n_tiles, R::kTileBytes, load_kv, [&](int t, int slot) {
+    const unsigned char* k_row = k_s + slot + lane * R::kStride;
+    const unsigned char* v_row = v_s + slot + lane * R::kStride;
+    if (t * stream::kTileRows + lane >= v.kl) return;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float p = stream::round_io<T>(expf(s - m[r]) / l[r]);
+      const float dp = stream::dot_rows<T, DH>(my_g + r * R::kStride, v_row);
+      dsum[r] = fmaf(dp, p, dsum[r]);
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float d = stream::warp_sum(dsum[r]);
+    const int row = q0 + warp * kRows + r;
+    if (lane == 0 && row < S) {
+      v.m[row] = m[r];
+      v.m[v.bhs + row] = l[r];
+      v.m[2 * v.bhs + row] = d;
+    }
+  }
+}
+
+// 2. dk and dv of 64 key rows.
+template <typename T, int DH>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                              const int* __restrict__ key_lens, const float* __restrict__ stats,
+                              T* __restrict__ dqkv, int S, int H, long long stride_b,
+                              long long stride_s, float scale) {
+  using R = stream::Rows<T, DH>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T, DH> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  const int d0 = R::kPer * lane;
+  const bool has_dims = d0 < DH;
+  if (j0 >= v.kl) {  // every key row of the tile is masked: dk = dv = 0
+    for (int r = warp; r < stream::kBlockRows && j0 + r < S; r += stream::kWarps) {
+      if (!has_dims) continue;
+      T* row = v.dq + (j0 + r) * stride_s + d0;
+#pragma unroll
+      for (int u = 0; u < R::kPer; ++u) row[v.lanes + u] = row[2 * v.lanes + u] = stream::from_f32<T>(0.f);
+    }
+    return;
+  }
+  unsigned char* k_s = smem_raw;
+  unsigned char* vv_s = k_s + stream::kBlockRows * R::kStride;
+  unsigned char* q_s = vv_s + stream::kBlockRows * R::kStride;
+  unsigned char* g_s = q_s + 2 * R::kTileBytes;
+  stream::load_rows<T, DH>(hopper::smem_addr(k_s), v.q + v.lanes, stride_s, j0,
+                           stream::kBlockRows, v.kl);
+  stream::load_rows<T, DH>(hopper::smem_addr(vv_s), v.q + 2 * v.lanes, stride_s, j0,
+                           stream::kBlockRows, v.kl);
+  hopper::cp_async_commit();
+  const unsigned char* my_k = k_s + warp * kRows * R::kStride;
+  const unsigned char* my_v = vv_s + warp * kRows * R::kStride;
+  const int n_tiles = (S + stream::kTileRows - 1) / stream::kTileRows;
+  auto load = [&](int t, int slot) {
+    const int row0 = t * stream::kTileRows;
+    stream::load_rows<T, DH>(hopper::smem_addr(q_s) + slot, v.q, stride_s, row0,
+                             stream::kTileRows, S);
+    stream::load_rows<T, DH>(hopper::smem_addr(g_s) + slot, v.g, v.lanes, row0,
+                             stream::kTileRows, S);
+  };
+
+  float dk[kRows][R::kPer], dv[kRows][R::kPer];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) dk[r][u] = dv[r][u] = 0.f;
+  }
+  over_tiles(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
+    const int i = t * stream::kTileRows + lane;  // this lane's query row
+    const bool q_ok = i < S;
+    const float mi = q_ok ? v.m[i] : 0.f;
+    const float li = q_ok ? v.m[v.bhs + i] : 1.f;
+    const float di = q_ok ? v.m[2 * v.bhs + i] : 0.f;
+    const unsigned char* q_row = q_s + slot + lane * R::kStride;
+    const unsigned char* g_row = g_s + slot + lane * R::kStride;
+    const unsigned char* q_tile = q_s + slot;
+    const unsigned char* g_tile = g_s + slot;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(q_row, my_k + r * R::kStride) * scale;
+      const float p = q_ok ? stream::round_io<T>(expf(s - mi) / li) : 0.f;
+      const float dp = stream::dot_rows<T, DH>(g_row, my_v + r * R::kStride);
+      const float dsb = stream::round_io<T>(p * (dp - di));
+      for (int jq = 0; jq < stream::kTileRows; ++jq) {
+        const float pj = __shfl_sync(0xffffffffu, p, jq);
+        const float dj = __shfl_sync(0xffffffffu, dsb, jq);
+        if (has_dims) {
+          stream::axpy_row<T, DH>(dv[r], pj, g_tile + jq * R::kStride, d0);
+          stream::axpy_row<T, DH>(dk[r], dj, q_tile + jq * R::kStride, d0);
+        }
+      }
+    }
+  });
+  if (!has_dims) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = j0 + warp * kRows + r;
+    if (j >= S) continue;
+    const bool key = j < v.kl;  // a masked key row: exactly 0
+    T* row = v.dq + j * stride_s + d0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) {
+      row[v.lanes + u] = stream::from_f32<T>(key ? dk[r][u] * scale : 0.f);
+      row[2 * v.lanes + u] = stream::from_f32<T>(key ? dv[r][u] : 0.f);
+    }
+  }
+}
+
+// 3. dq of 64 query rows.
+template <typename T, int DH>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                            const int* __restrict__ key_lens, const float* __restrict__ stats,
+                            T* __restrict__ dqkv, int S, int H, long long stride_b,
+                            long long stride_s, float scale) {
+  using R = stream::Rows<T, DH>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T, DH> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  const int d0 = R::kPer * lane;
+  const bool has_dims = d0 < DH;
+  unsigned char* q_s = smem_raw;
+  unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + 2 * R::kTileBytes;
+  stream::load_rows<T, DH>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S);
+  stream::load_rows<T, DH>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S);
+  hopper::cp_async_commit();
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;
+  const unsigned char* my_g = g_s + warp * kRows * R::kStride;
+  float m[kRows], l[kRows], d[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = min(q0 + warp * kRows + r, S - 1);  // rows past S: computed, never stored
+    m[r] = v.m[row];
+    l[r] = v.m[v.bhs + row];
+    d[r] = v.m[2 * v.bhs + row];
+  }
+  const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
+  auto load = [&](int t, int slot) {
+    const int row0 = t * stream::kTileRows;
+    stream::load_rows<T, DH>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s, row0,
+                             stream::kTileRows, v.kl);
+    stream::load_rows<T, DH>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s, row0,
+                             stream::kTileRows, v.kl);
+  };
+
+  float dq[kRows][R::kPer];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) dq[r][u] = 0.f;
+  }
+  over_tiles(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
+    const bool valid = t * stream::kTileRows + lane < v.kl;
+    const unsigned char* k_row = k_s + slot + lane * R::kStride;
+    const unsigned char* v_row = v_s + slot + lane * R::kStride;
+    const unsigned char* k_tile = k_s + slot;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float p = valid ? stream::round_io<T>(expf(s - m[r]) / l[r]) : 0.f;
+      const float dp = stream::dot_rows<T, DH>(my_g + r * R::kStride, v_row);
+      const float dsb = stream::round_io<T>(p * (dp - d[r]));
+      for (int j = 0; j < stream::kTileRows; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, dsb, j);
+        if (has_dims) stream::axpy_row<T, DH>(dq[r], dj, k_tile + j * R::kStride, d0);
+      }
+    }
+  });
+  if (!has_dims) return;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = q0 + warp * kRows + r;
+    if (row >= S) continue;
+    T* out = v.dq + row * stride_s + d0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) out[u] = stream::from_f32<T>(dq[r][u] * scale);
+  }
+}
+
+// ------------------------------------------------------------- launches ---
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
@@ -585,48 +952,113 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-cudaError_t launch_bf16(const void* qkv, const void* g, const void* key_lens, void* dqkv, int B,
-                        int S, int H, long long stride_b, long long stride_s, float scale,
-                        cudaStream_t stream) {
-  const size_t smem = tc_smem_bytes(S);
-  cudaError_t err = set_smem(attention_bwd_tc_kernel, smem);
+struct Args {
+  const void* qkv;
+  const void* g;
+  const void* key_lens;
+  void* dqkv;
+  float* stats;
+  int B, S, H;
+  long long stride_b, stride_s;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH>
+cudaError_t launch_bf16(const Args& a) {
+  const size_t smem = tc_smem_bytes<DH>(a.S);
+  cudaError_t err = set_smem(attention_bwd_tc_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_tc_kernel<<<dim3(H, B), kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const int*>(key_lens), static_cast<__nv_bfloat16*>(dqkv), S, H, stride_b,
-      stride_s, scale);
+  attention_bwd_tc_kernel<DH><<<dim3(a.H, a.B), kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const __nv_bfloat16*>(a.g),
+      static_cast<const int*>(a.key_lens), static_cast<__nv_bfloat16*>(a.dqkv), a.S, a.H,
+      a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* qkv, const void* g, const void* key_lens, void* dqkv, int B,
-                       int S, int H, long long stride_b, long long stride_s, float scale,
-                       cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(S);
-  cudaError_t err = set_smem(attention_bwd_f32_kernel, smem);
+template <int DH>
+cudaError_t launch_f32(const Args& a) {
+  const size_t smem = f32_smem_bytes<DH>(a.S);
+  cudaError_t err = set_smem(attention_bwd_f32_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(g),
-      static_cast<const int*>(key_lens), static_cast<float*>(dqkv), S, H, stride_b, stride_s,
-      scale);
+  attention_bwd_f32_kernel<DH><<<dim3(a.H, a.B), kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.qkv), static_cast<const float*>(a.g),
+      static_cast<const int*>(a.key_lens), static_cast<float*>(a.dqkv), a.S, a.H, a.stride_b,
+      a.stride_s, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_stream(const Args& a) {
+  const size_t smem = stream_smem_bytes<T, DH>();
+  cudaError_t err = set_smem(attention_bwd_stats_kernel<T, DH>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_dkdv_kernel<T, DH>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_dq_kernel<T, DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T* g = static_cast<const T*>(a.g);
+  const int* kl = static_cast<const int*>(a.key_lens);
+  T* dqkv = static_cast<T*>(a.dqkv);
+  attention_bwd_stats_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_dkdv_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_dq_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  return cudaGetLastError();
+}
+
+// The launch of design `design` (0 resident, 1 streaming) for dtype and Dh.
+template <int DH>
+cudaError_t launch(const Args& a, int dtype, int design) {
+  if (design == 0) {
+    if (dtype == 0) return launch_bf16<DH>(a);
+    if (dtype == 1) return launch_f32<DH>(a);
+  } else {
+    if (dtype == 0) return launch_stream<__nv_bfloat16, DH>(a);
+    if (dtype == 1) return launch_stream<float, DH>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int dispatch(const Args& a, int head_dim, int dtype, int design) {
+  if (a.B < 1 || a.S < 1 || a.H < 1) return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return launch<16>(a, dtype, design);
+    case 32: return launch<32>(a, dtype, design);
+    case 64: return launch<64>(a, dtype, design);
+    case 128: return launch<128>(a, dtype, design);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores). qkv and dqkv
-// share the strides (in elements) stride_b, stride_s with a contiguous last
-// axis; g is contiguous (B, S, H*Dh); every row starts on a 16-byte boundary.
-// Returns a cudaError_t (0 on success).
+// dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores); head_dim
+// 16, 32, 64 or 128. qkv and dqkv share the strides (in elements) stride_b,
+// stride_s with a contiguous last axis; g is contiguous (B, S, H*Dh); every
+// row starts on a 16-byte boundary. Returns a cudaError_t (0 on success).
 extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key_lens, void* dqkv,
                                  int B, int S, int H, int head_dim, long long stride_b,
                                  long long stride_s, float scale, int dtype, void* stream) {
-  if (head_dim != kHeadDim || B < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_bf16(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
-  if (dtype == 1)
-    return launch_f32(qkv, g, key_lens, dqkv, B, S, H, stride_b, stride_s, scale, st);
-  return cudaErrorInvalidValue;
+  const Args a{qkv, g, key_lens, dqkv, nullptr, B, S, H, stride_b, stride_s, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, dtype, 0);
+}
+
+// The streaming design (CUDA cores, both dtypes; three kernels), same
+// arguments and `stats`, an f32 (3, B, H, S) scratch for m, rowsum and D:
+// the wrapper's choice above the resident designs' largest S.
+extern "C" int attention_qkv_bwd_stream(const void* qkv, const void* g, const void* key_lens,
+                                        void* dqkv, void* stats, int B, int S, int H, int head_dim,
+                                        long long stride_b, long long stride_s, float scale,
+                                        int dtype, void* stream) {
+  const Args a{qkv, g, key_lens, dqkv, static_cast<float*>(stats), B, S, H, stride_b, stride_s,
+               scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, dtype, 1);
 }
 
 extern "C" const char* attention_qkv_bwd_error_string(int code) {

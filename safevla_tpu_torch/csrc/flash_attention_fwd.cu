@@ -13,6 +13,10 @@
 //   any other row. key_lens[b] must lie in [1, S]: the kernel traps
 //   otherwise (a host-side check would synchronise every call).
 //
+// Head dims: Dh in {16, 32, 64, 128} (each design is a template over Dh,
+// instantiated for those four; another Dh is refused). Every path shape has
+// Dh = 64.
+//
 // What bounds it on an H100: 4*S*kl*Dh flops per (b, h) for q.k and p.v
 // against 2*B*S*4*H*Dh bytes (qkv read once, out written once) in bf16. At
 // the path's shapes (ViT S=448, fusion S=208, Dh=64) that is S/2 = 224 and
@@ -20,8 +24,17 @@
 // the limit: an ideal kernel is bound by memory and, at these sizes, by
 // latency (a few microseconds of work per launch).
 //
-// The dtype picks the design (dispatch by dtype; a failed build or launch
-// raises in either):
+// The dtype picks the resident design (dispatch by dtype; a failed build or
+// launch raises in either); above the largest S a resident design takes (its
+// shared memory, 227 KB a block), the wrapper launches the streaming design
+// (`attention_qkv_fwd_stream`, below), a shape rule decided before the
+// launch. The largest S of the resident designs (`resident_max_s` in
+// ops/flash_attention.py computes the same):
+//   bf16: (2 + ceil(S/64)) tiles of 64 x Dh x 2 bytes <= 227 KB:
+//         Dh 16: 7104, 32: 3456, 64: 1664, 128: 768
+//   f32:  S x ((Dh + 1) x 4 + 64) bytes <= 227 KB:
+//         Dh 16: 1760, 32: 1185, 64: 717, 128: 400
+// The wrapper takes S up to 2048 at every Dh.
 //
 // bf16 (the policy's compute dtype: every launch on the main path) runs on
 // the tensor cores, mma.sync.m16n8k16 with f32 accumulators (helpers in
@@ -58,61 +71,86 @@
 // V read from global memory (L2-resident), one warp per query row (16 warps,
 // 8 rows each): lanes split the keys for q.k, shuffles reduce max and sum,
 // then lanes split the head dims for p.v, f32 FMAs throughout.
+//
+// Streaming (both dtypes, S above the resident limit; never at a path
+// shape): CUDA-core f32 FMAs, no plane of S rows resident. One block of 8
+// warps per (64-query tile, head, batch row), the Q tile staged in shared
+// memory, 8 rows a warp; K (pass 1) and then K and V (pass 2) stream through
+// two-slot rings of 32-key tiles (attention_stream.cuh), the next tile's
+// cp.async in flight while the current one is used. The TPU kernel's
+// rounding points stay: pass 1 takes the row max over the valid keys, pass 2
+// e = exp(s - m), the f32 denominator, p = io(e) and the f32-accumulated
+// p.v (a lane a key for q.k, then p broadcast by shuffles and a lane per
+// head dims for p.v).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention_stream.cuh"
 #include "hopper_mma.cuh"
 
 namespace {
-
-constexpr int kHeadDim = 64;
 
 // ---------------------------------------------------------------- bf16 ---
 
 constexpr int kTile = 64;         // query rows per block; keys per K / V tile
 constexpr int kTcThreads = 128;   // 4 warps x 16 query rows
-constexpr int kTileBytes = kTile * hopper::kRowBytes;
 
-int tc_smem_bytes(int S) { return (2 + (S + kTile - 1) / kTile) * kTileBytes; }
+template <int DH>
+struct Tc {
+  static constexpr int kChunks = DH / 8;           // 16-byte chunks a row
+  static constexpr int kTileBytes = kTile * DH * 2;
+  static constexpr int kK = DH / 16;               // 16-deep steps of q.k^T
+  static constexpr int kN = DH / 8;                // 8-wide column tiles of p.v
+};
 
-// cp.async of rows row0..row0+63 of one head's 64 columns (src points at the
+template <int DH>
+int tc_smem_bytes(int S) { return (2 + (S + kTile - 1) / kTile) * Tc<DH>::kTileBytes; }
+
+// cp.async of rows row0..row0+63 of one head's DH columns (src points at the
 // head's first column of row 0) into a swizzled tile; rows >= limit are
-// zero-filled. 512 chunks of 16 bytes, four per thread.
+// zero-filled. 64 * DH / 8 chunks of 16 bytes, DH / 16 per thread.
+template <int DH>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int row0,
                                           int limit, long long stride_s) {
+  constexpr int C = Tc<DH>::kChunks;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
+  for (int k = 0; k < C / 2; ++k) {
     const int i = static_cast<int>(threadIdx.x) + k * kTcThreads;
-    const int r = i >> 3, c = i & 7;
+    const int r = i / C, c = i % C;
     const int row = row0 + r;
     const bool ok = row < limit;
-    hopper::cp_async16(dst + hopper::swz(r, c), src + (ok ? row : 0) * stride_s + c * 8, ok);
+    hopper::cp_async16(dst + hopper::swz<C>(r, c), src + (ok ? row : 0) * stride_s + c * 8, ok);
   }
 }
 
 // s (16 rows x 64 keys of one tile, as 8 n tiles) = q . k^T, unscaled.
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[4][4],
+template <int DH>
+__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[Tc<DH>::kK][4],
                                         uint32_t k_tile, int lane) {
+  constexpr int C = Tc<DH>::kChunks;
 #pragma unroll
   for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < Tc<DH>::kK; ++kk) {
 #pragma unroll
     for (int jn = 0; jn < 4; ++jn) {
       uint32_t b[4];
-      hopper::ldsm_x4(b, hopper::bt_addr(k_tile, 16 * jn, kk, lane));
+      hopper::ldsm_x4(b, hopper::bt_addr<C>(k_tile, 16 * jn, kk, lane));
       hopper::mma(s[2 * jn], qf[kk], b[0], b[1]);
       hopper::mma(s[2 * jn + 1], qf[kk], b[2], b[3]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kTcThreads, 4)
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, DH <= 64 ? 4 : 2)
     attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ key_lens,
                             __nv_bfloat16* __restrict__ out, int S, int H, long long stride_b,
                             long long stride_s, float scale) {
+  using T = Tc<DH>;
+  constexpr int C = T::kChunks;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -122,29 +160,30 @@ __global__ void __launch_bounds__(kTcThreads, 4)
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
   const int n_tiles = (kl + kTile - 1) / kTile;
-  const int lanes = H * kHeadDim;
-  const __nv_bfloat16* base = qkv + b * stride_b + h * kHeadDim;
+  const int lanes = H * DH;
+  const __nv_bfloat16* base = qkv + b * stride_b + h * DH;
 
   // shared memory: the V ring (2 tiles; Q passes through slot 0 first), then
   // K tiles 0..n_tiles-1. Commit groups: Q, K_0..K_{n-1}, V_0, V_1, ...
   const uint32_t v_ring = hopper::smem_addr(smem_raw);
-  const uint32_t k_base = v_ring + 2 * kTileBytes;
-  load_tile(v_ring, base, q0, S, stride_s);
+  const uint32_t k_base = v_ring + 2 * T::kTileBytes;
+  load_tile<DH>(v_ring, base, q0, S, stride_s);
   hopper::cp_async_commit();
   for (int t = 0; t < n_tiles; ++t) {
-    load_tile(k_base + t * kTileBytes, base + lanes, t * kTile, kl, stride_s);
+    load_tile<DH>(k_base + t * T::kTileBytes, base + lanes, t * kTile, kl, stride_s);
     hopper::cp_async_commit();
   }
   int committed = 1 + n_tiles;
 
   hopper::cp_async_wait_dyn(n_tiles);  // Q has landed
   __syncthreads();
-  uint32_t qf[4][4];
+  uint32_t qf[T::kK][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) hopper::ldsm_x4(qf[kk], hopper::a_addr(v_ring, 16 * warp, kk, lane));
+  for (int kk = 0; kk < T::kK; ++kk)
+    hopper::ldsm_x4(qf[kk], hopper::a_addr<C>(v_ring, 16 * warp, kk, lane));
   __syncthreads();  // slot 0 holds V from here
   for (int t = 0; t < 2 && t < n_tiles; ++t, ++committed) {
-    load_tile(v_ring + t * kTileBytes, base + 2 * lanes, t * kTile, kl, stride_s);
+    load_tile<DH>(v_ring + t * T::kTileBytes, base + 2 * lanes, t * kTile, kl, stride_s);
     hopper::cp_async_commit();
   }
 
@@ -165,7 +204,7 @@ __global__ void __launch_bounds__(kTcThreads, 4)
   for (int t = 0; t < n_tiles; ++t) {
     if (active) {
       float s[8][4];
-      qk_tile(s, qf, k_base + t * kTileBytes, lane);
+      qk_tile<DH>(s, qf, k_base + t * T::kTileBytes, lane);
       const int valid = kl - t * kTile - col0;  // columns of this tile < valid + col0 are keys
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -180,17 +219,17 @@ __global__ void __launch_bounds__(kTcThreads, 4)
   m[1] = hopper::quad_max(m[1]);
 
   // pass 2: e, the f32 denominator, p = bf16(e), and o = p . v
-  float o[8][4];
+  float o[T::kN][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  for (int j = 0; j < T::kN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
   float denom[2] = {0.f, 0.f};
   for (int t = 0; t < n_tiles; ++t) {
     hopper::cp_async_wait_dyn(committed - 2 - n_tiles - t);  // V_t is group 1 + n_tiles + t
     __syncthreads();
-    const uint32_t v_tile = v_ring + (t & 1) * kTileBytes;
+    const uint32_t v_tile = v_ring + (t & 1) * T::kTileBytes;
     if (active) {
       float s[8][4];
-      qk_tile(s, qf, k_base + t * kTileBytes, lane);
+      qk_tile<DH>(s, qf, k_base + t * T::kTileBytes, lane);
       const int valid = kl - t * kTile - col0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -206,9 +245,9 @@ __global__ void __launch_bounds__(kTcThreads, 4)
         uint32_t pf[4];
         hopper::acc_to_a(pf, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-        for (int jn = 0; jn < 4; ++jn) {
+        for (int jn = 0; jn < DH / 16; ++jn) {
           uint32_t vb[4];
-          hopper::ldsm_x4_t(vb, hopper::b_addr_t(v_tile, 16 * kk, jn, lane));
+          hopper::ldsm_x4_t(vb, hopper::b_addr_t<C>(v_tile, 16 * kk, jn, lane));
           hopper::mma(o[2 * jn], pf, vb[0], vb[1]);
           hopper::mma(o[2 * jn + 1], pf, vb[2], vb[3]);
         }
@@ -216,7 +255,7 @@ __global__ void __launch_bounds__(kTcThreads, 4)
     }
     __syncthreads();  // every warp is done with this slot
     if (t + 2 < n_tiles) {
-      load_tile(v_tile, base + 2 * lanes, (t + 2) * kTile, kl, stride_s);
+      load_tile<DH>(v_tile, base + 2 * lanes, (t + 2) * kTile, kl, stride_s);
       hopper::cp_async_commit();
       ++committed;
     }
@@ -230,9 +269,9 @@ __global__ void __launch_bounds__(kTcThreads, 4)
   for (int half = 0; half < 2; ++half) {
     const int r = row + 8 * half;
     if (r >= S) continue;
-    __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * S + r) * lanes + h * kHeadDim + col0;
+    __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * S + r) * lanes + h * DH + col0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < T::kN; ++j) {
       *reinterpret_cast<uint32_t*>(o_row + 8 * j) =
           hopper::pack_bf16(o[j][2 * half] / denom[half], o[j][2 * half + 1] / denom[half]);
     }
@@ -244,7 +283,6 @@ __global__ void __launch_bounds__(kTcThreads, 4)
 constexpr int kWarps = 16;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 128;
-constexpr int kRowStride = kHeadDim + 1;  // 65 words per staged K row
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -258,15 +296,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+template <int DH>
 size_t f32_smem_bytes(int S) {
-  return static_cast<size_t>(S) * kRowStride * sizeof(float) +
+  return static_cast<size_t>(S) * (DH + 1) * sizeof(float) +
          static_cast<size_t>(kWarps) * S * sizeof(float);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ key_lens,
                              float* __restrict__ out, int S, int H, long long stride_b,
                              long long stride_s, float scale) {
+  constexpr int kRowStride = DH + 1;  // words per staged K row
+  constexpr int kPer = DH >= 32 ? DH / 32 : 1;  // head dims a lane accumulates in p.v
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int h = static_cast<int>(blockIdx.y);
   const int b = static_cast<int>(blockIdx.z);
@@ -276,13 +318,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* ks = reinterpret_cast<float*>(smem_raw);
   float* srow_all = ks + static_cast<size_t>(S) * kRowStride;
 
-  const int lanes = H * kHeadDim;
+  const int lanes = H * DH;
   const float* base = qkv + b * stride_b;
-  const float* kg = base + lanes + h * kHeadDim;
-  const float* vg = base + 2 * lanes + h * kHeadDim;
-  for (int i = threadIdx.x; i < kl * kHeadDim / 4; i += kThreads) {
-    const int r = i / (kHeadDim / 4);
-    const int c = 4 * (i - r * (kHeadDim / 4));
+  const float* kg = base + lanes + h * DH;
+  const float* vg = base + 2 * lanes + h * DH;
+  for (int i = threadIdx.x; i < kl * DH / 4; i += kThreads) {
+    const int r = i / (DH / 4);
+    const int c = 4 * (i - r * (DH / 4));
     const float4 v = *reinterpret_cast<const float4*>(kg + r * stride_s + c);
     float* d = ks + r * kRowStride + c;
     d[0] = v.x;
@@ -297,11 +339,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* srow = srow_all + warp * S;
   const int tile = static_cast<int>(blockIdx.x);
   const int row_end = min(S, (tile + 1) * kRowsPerBlock);
+  const int d0 = kPer * lane;
   for (int row = tile * kRowsPerBlock + warp; row < row_end; row += kWarps) {
-    const float* qg = base + row * stride_s + h * kHeadDim;
-    float q[kHeadDim];
+    const float* qg = base + row * stride_s + h * DH;
+    float q[DH];
 #pragma unroll
-    for (int d = 0; d < kHeadDim; ++d) q[d] = qg[d];
+    for (int d = 0; d < DH; ++d) q[d] = qg[d];
 
     // logits of this lane's keys, and the row max
     float mx = __int_as_float(0xff800000);  // -inf
@@ -309,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* kr = ks + j * kRowStride;
       float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < kHeadDim; ++d) acc = fmaf(q[d], kr[d], acc);
+      for (int d = 0; d < DH; ++d) acc = fmaf(q[d], kr[d], acc);
       const float s = acc * scale;
       srow[j] = s;
       mx = fmaxf(mx, s);
@@ -325,20 +368,144 @@ __global__ void __launch_bounds__(kThreads, 1)
     sum = warp_sum(sum);
     __syncwarp();
 
-    const int d0 = 2 * lane;
-    float a0 = 0.f, a1 = 0.f;
-    for (int j = 0; j < kl; ++j) {
-      const float p = srow[j];
-      const float2 v = *reinterpret_cast<const float2*>(vg + j * stride_s + d0);
-      a0 = fmaf(p, v.x, a0);
-      a1 = fmaf(p, v.y, a1);
+    if (d0 < DH) {
+      float a[kPer];
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) a[u] = 0.f;
+      for (int j = 0; j < kl; ++j) {
+        const float p = srow[j];
+        const float* v = vg + j * stride_s + d0;
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) a[u] = fmaf(p, v[u], a[u]);
+      }
+      float* o = out + (static_cast<size_t>(b) * S + row) * lanes + h * DH + d0;
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) o[u] = a[u] / sum;
     }
-    float* o = out + (static_cast<size_t>(b) * S + row) * lanes + h * kHeadDim + d0;
-    o[0] = a0 / sum;
-    o[1] = a1 / sum;
     __syncwarp();  // the next row overwrites srow
   }
 }
+
+// ----------------------------------------------------------- streaming ---
+
+template <typename T, int DH>
+size_t stream_smem_bytes() {
+  // the Q tile, then the K and V rings of two 32-row tiles each
+  return static_cast<size_t>(stream::kBlockRows + 4 * stream::kTileRows) *
+         stream::Rows<T, DH>::kStride;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_fwd_stream_kernel(const T* __restrict__ qkv, const int* __restrict__ key_lens,
+                                T* __restrict__ out, int S, int H, long long stride_b,
+                                long long stride_s, float scale) {
+  using R = stream::Rows<T, DH>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  const int h = static_cast<int>(blockIdx.y);
+  const int b = static_cast<int>(blockIdx.z);
+  const int kl = key_lens ? key_lens[b] : S;
+  if (kl < 1 || kl > S) __trap();
+  const int lanes = H * DH;
+  const T* base = qkv + b * stride_b + h * DH;
+  const int n_tiles = (kl + stream::kTileRows - 1) / stream::kTileRows;
+
+  unsigned char* q_s = smem_raw;
+  unsigned char* k_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + 2 * R::kTileBytes;
+  const uint32_t q_a = hopper::smem_addr(q_s), k_a = hopper::smem_addr(k_s),
+                 v_a = hopper::smem_addr(v_s);
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;  // this warp's 8 query rows
+  stream::load_rows<T, DH>(q_a, base, stride_s, q0, stream::kBlockRows, S);
+  hopper::cp_async_commit();
+
+  // Tile t of K (and, when with_v, of V) into ring slot t & 1.
+  auto load = [&](int t, bool with_v) {
+    const int slot = (t & 1) * R::kTileBytes;
+    stream::load_rows<T, DH>(k_a + slot, base + lanes, stride_s, t * stream::kTileRows,
+                             stream::kTileRows, kl);
+    if (with_v)
+      stream::load_rows<T, DH>(v_a + slot, base + 2 * lanes, stride_s, t * stream::kTileRows,
+                               stream::kTileRows, kl);
+    hopper::cp_async_commit();
+  };
+  // Runs body(t, slot offset) over every key tile, the next tile's copy in
+  // flight while the current one is used.
+  auto over_tiles = [&](bool with_v, auto&& body) {
+    load(0, with_v);
+    for (int t = 0; t < n_tiles; ++t) {
+      if (t + 1 < n_tiles) {
+        load(t + 1, with_v);
+        hopper::cp_async_wait<1>();
+      } else {
+        hopper::cp_async_wait<0>();
+      }
+      __syncthreads();
+      body(t, (t & 1) * R::kTileBytes);
+      __syncthreads();  // every warp is done with this slot before it is refilled
+    }
+  };
+
+  // pass 1: the row max of the scaled logits over the valid keys
+  float m[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) m[r] = __int_as_float(0xff800000);
+  over_tiles(false, [&](int t, int slot) {
+    const unsigned char* k_row = k_s + slot + lane * R::kStride;
+    const bool valid = t * stream::kTileRows + lane < kl;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      if (valid) m[r] = fmaxf(m[r], s);
+    }
+  });
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) m[r] = stream::warp_max(m[r]);
+
+  // pass 2: e, the f32 denominator, p = io(e), and o = p . v
+  const int d0 = R::kPer * lane;
+  const bool has_dims = d0 < DH;
+  float o[kRows][R::kPer];
+  float denom[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    denom[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) o[r][u] = 0.f;
+  }
+  over_tiles(true, [&](int t, int slot) {
+    const unsigned char* k_row = k_s + slot + lane * R::kStride;
+    const unsigned char* v_tile = v_s + slot;
+    const bool valid = t * stream::kTileRows + lane < kl;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float e = valid ? expf(s - m[r]) : 0.f;
+      denom[r] += e;
+      const float p = stream::round_io<T>(e);
+      for (int j = 0; j < stream::kTileRows; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+        if (has_dims) stream::axpy_row<T, DH>(o[r], pj, v_tile + j * R::kStride, d0);
+      }
+    }
+  });
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float den = stream::warp_sum(denom[r]);
+    const int row = q0 + warp * kRows + r;
+    if (row >= S || !has_dims) continue;
+    T* o_row = out + (static_cast<size_t>(b) * S + row) * lanes + h * DH + d0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) o_row[u] = stream::from_f32<T>(o[r][u] / den);
+  }
+}
+
+// ------------------------------------------------------------- launches ---
 
 template <typename Kernel>
 cudaError_t set_smem(Kernel kernel, size_t bytes) {
@@ -346,43 +513,98 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-cudaError_t launch_bf16(const void* qkv, const void* key_lens, void* out, int B, int S, int H,
-                        long long stride_b, long long stride_s, float scale, cudaStream_t stream) {
-  const int smem = tc_smem_bytes(S);
-  cudaError_t err = set_smem(attention_fwd_tc_kernel, smem);
+struct Args {
+  const void* qkv;
+  const void* key_lens;
+  void* out;
+  int B, S, H;
+  long long stride_b, stride_s;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH>
+cudaError_t launch_bf16(const Args& a) {
+  const int smem = tc_smem_bytes<DH>(a.S);
+  cudaError_t err = set_smem(attention_fwd_tc_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  attention_fwd_tc_kernel<<<grid, kTcThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<const int*>(key_lens),
-      static_cast<__nv_bfloat16*>(out), S, H, stride_b, stride_s, scale);
+  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
+  attention_fwd_tc_kernel<DH><<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const int*>(a.key_lens),
+      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* qkv, const void* key_lens, void* out, int B, int S, int H,
-                       long long stride_b, long long stride_s, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes(S);
-  cudaError_t err = set_smem(attention_fwd_f32_kernel, smem);
+template <int DH>
+cudaError_t launch_f32(const Args& a) {
+  const size_t smem = f32_smem_bytes<DH>(a.S);
+  cudaError_t err = set_smem(attention_fwd_f32_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kRowsPerBlock - 1) / kRowsPerBlock, H, B);
-  attention_fwd_f32_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<const int*>(key_lens), static_cast<float*>(out),
-      S, H, stride_b, stride_s, scale);
+  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, a.H, a.B);
+  attention_fwd_f32_kernel<DH><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.qkv), static_cast<const int*>(a.key_lens),
+      static_cast<float*>(a.out), a.S, a.H, a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_stream(const Args& a) {
+  const size_t smem = stream_smem_bytes<T, DH>();
+  cudaError_t err = set_smem(attention_fwd_stream_kernel<T, DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
+  attention_fwd_stream_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.qkv), static_cast<const int*>(a.key_lens), static_cast<T*>(a.out),
+      a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  return cudaGetLastError();
+}
+
+// The launch of design `design` (0 resident, 1 streaming) for dtype and Dh.
+template <int DH>
+cudaError_t launch(const Args& a, int dtype, int design) {
+  if (design == 0) {
+    if (dtype == 0) return launch_bf16<DH>(a);
+    if (dtype == 1) return launch_f32<DH>(a);
+  } else {
+    if (dtype == 0) return launch_stream<__nv_bfloat16, DH>(a);
+    if (dtype == 1) return launch_stream<float, DH>(a);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int dispatch(const Args& a, int head_dim, int dtype, int design) {
+  if (a.B < 1 || a.S < 1 || a.H < 1) return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return launch<16>(a, dtype, design);
+    case 32: return launch<32>(a, dtype, design);
+    case 64: return launch<64>(a, dtype, design);
+    case 128: return launch<128>(a, dtype, design);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores). Strides are
-// in elements; the last axis of qkv is contiguous and every row starts on a
-// 16-byte boundary. Returns a cudaError_t (0 on success).
+// dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores); head_dim
+// 16, 32, 64 or 128. Strides are in elements; the last axis of qkv is
+// contiguous and every row starts on a 16-byte boundary. Returns a
+// cudaError_t (0 on success).
 extern "C" int attention_qkv_fwd(const void* qkv, const void* key_lens, void* out, int B, int S,
                                  int H, int head_dim, long long stride_b, long long stride_s,
                                  float scale, int dtype, void* stream) {
-  if (head_dim != kHeadDim || B < 1 || S < 1 || H < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bf16(qkv, key_lens, out, B, S, H, stride_b, stride_s, scale, st);
-  if (dtype == 1) return launch_f32(qkv, key_lens, out, B, S, H, stride_b, stride_s, scale, st);
-  return cudaErrorInvalidValue;
+  const Args a{qkv, key_lens, out, B, S, H, stride_b, stride_s, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, dtype, 0);
+}
+
+// The streaming design (CUDA cores, both dtypes), same arguments: the
+// wrapper's choice above the resident designs' largest S.
+extern "C" int attention_qkv_fwd_stream(const void* qkv, const void* key_lens, void* out, int B,
+                                        int S, int H, int head_dim, long long stride_b,
+                                        long long stride_s, float scale, int dtype, void* stream) {
+  const Args a{qkv, key_lens, out, B, S, H, stride_b, stride_s, scale,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, dtype, 1);
 }
 
 extern "C" const char* attention_qkv_fwd_error_string(int code) {

@@ -3,11 +3,13 @@
 // cp.async 16-byte copies, ldmatrix, and mma.sync.m16n8k16 in bf16 with f32
 // accumulators.
 //
-// Tiles of 64-wide bf16 rows (one head: 128 bytes, eight 16-byte chunks)
-// live in shared memory XOR-swizzled: chunk c of row r sits at chunk
-// c ^ (r & 7). The eight rows that one ldmatrix phase reads (or one cp.async
-// phase writes) then fall in eight different groups of four banks, with no
-// padding.
+// Tiles of bf16 rows of one head (C 16-byte chunks a row: C = Dh / 8, so 8
+// at the head dim 64 of every path shape) live in shared memory
+// XOR-swizzled: chunk c of row r sits at chunk c ^ (r & (min(C, 8) - 1)).
+// At C = 8 (and 16) the eight rows that one ldmatrix phase reads (or one
+// cp.async phase writes) then fall in eight different groups of four banks,
+// with no padding; narrower rows (C = 2, 4) share a 128-byte line between
+// rows and keep a two-way conflict.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major):  a0 (row g, k 2t..2t+1), a1 (row g+8, k 2t..),
@@ -27,9 +29,12 @@ namespace hopper {
 
 constexpr int kRowBytes = 128;  // one 64-wide bf16 row
 
-// Byte offset of 16-byte chunk c (0-7) of row r in a swizzled tile.
+// Byte offset of 16-byte chunk c (0 to C-1) of row r in a swizzled tile of
+// rows of C chunks.
+template <int C = 8>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * kRowBytes + ((c ^ (r & 7)) << 4));
+  constexpr int kMask = (C < 8 ? C : 8) - 1;
+  return static_cast<uint32_t>(r * (16 * C) + ((c ^ (r & kMask)) << 4));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -115,25 +120,28 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 
 // ldmatrix address of lane `lane` for the A fragment of rows r0..r0+15,
 // columns 16*kk..16*kk+15 of a swizzled tile at `base`.
+template <int C = 8>
 __device__ __forceinline__ uint32_t a_addr(uint32_t base, int r0, int kk, int lane) {
   const int mi = lane >> 3;
-  return base + swz(r0 + (lane & 7) + ((mi & 1) << 3), 2 * kk + (mi >> 1));
+  return base + swz<C>(r0 + (lane & 7) + ((mi & 1) << 3), 2 * kk + (mi >> 1));
 }
 
 // ldmatrix (non-transposed) address for the B fragments of two 8-wide n
 // tiles (rows n0..n0+15 of a tile stored n-major, i.e. B^T) at k step kk:
 // registers 0-1 are n tile n0, 2-3 n tile n0+8.
+template <int C = 8>
 __device__ __forceinline__ uint32_t bt_addr(uint32_t base, int n0, int kk, int lane) {
   const int mi = lane >> 3;
-  return base + swz(n0 + (lane & 7) + ((mi >> 1) << 3), 2 * kk + (mi & 1));
+  return base + swz<C>(n0 + (lane & 7) + ((mi >> 1) << 3), 2 * kk + (mi & 1));
 }
 
 // ldmatrix.trans address for the B fragments of a tile stored k-major (rows
 // k0..k0+15 are the 16 k of the step), columns 16*jn..16*jn+15: registers
 // 0-1 are n tile 2*jn, 2-3 n tile 2*jn+1.
+template <int C = 8>
 __device__ __forceinline__ uint32_t b_addr_t(uint32_t base, int k0, int jn, int lane) {
   const int mi = lane >> 3;
-  return base + swz(k0 + (lane & 7) + ((mi & 1) << 3), 2 * jn + (mi >> 1));
+  return base + swz<C>(k0 + (lane & 7) + ((mi & 1) << 3), 2 * jn + (mi >> 1));
 }
 
 // Max and sum over the four lanes that share a row of a fragment.

@@ -7,13 +7,17 @@ Per act: one packed upload of both cameras' uint8 frames, one int32 upload
 (previous action, not-reset flag, object-in-hand), then augment ->
 normalise -> ViT -> three towers -> action, and one action fetch.
 
-Checkpoint restore (Orbax directories, reference torch files) is not ported
-yet: `build` raises NotImplementedError for a path.
+`build` detects the checkpoint as the JAX agent does: a directory is the
+port's own format (`utils/checkpoint.py::restore_policy_params`: the towers
+and, when saved, the frozen ViT and T5), a file a reference torch checkpoint
+(`models/convert.py`: the towers), None random init. JAX Orbax directories
+are converted first with `tools/torch_from_orbax.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -22,12 +26,14 @@ import torch
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.constants import rgb_norm_constants
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+from safevla_tpu_torch.models.convert import load_reference_towers
 from safevla_tpu_torch.preprocessing.augment import (
     apply_augment,
     identity_augment_params,
     sample_augment_params,
 )
 from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
+from safevla_tpu_torch.utils.checkpoint import resolve_checkpoint_path, restore_policy_params
 
 
 class InferenceAgent:
@@ -170,16 +176,21 @@ class InferenceAgent:
         require_exact_tokenizer: bool = False,
         device="cuda",
     ) -> "InferenceAgent":
-        """Random-init agent (weights from a generator seeded with `seed`) on
-        `device`; raises when device="cuda" and CUDA is absent."""
-        if ckpt_path:
-            raise NotImplementedError(
-                "checkpoint restore (Orbax or reference torch files) is not ported yet"
-            )
+        """Checkpoint auto-detection: a directory of the port's format | a
+        reference torch file (3 container formats) | None (random init, from
+        a generator seeded with `seed`, which also fills whatever the
+        checkpoint does not carry). The policy lives on `device`; raises
+        when device="cuda" and CUDA is absent."""
         policy = SafeVLAPolicy(
             cfg.model, device=device, generator=torch.Generator().manual_seed(seed)
         )
         policy.requires_grad_(False)
+        if ckpt_path:
+            ckpt_path = resolve_checkpoint_path(ckpt_path)
+            if os.path.isdir(ckpt_path):
+                restore_policy_params(ckpt_path, policy)
+            else:
+                load_reference_towers(ckpt_path, policy.towers)
         return cls(
             cfg, policy, num_streams, mode, seed, test_augmentation,
             max_episode_steps=max_episode_steps,

@@ -7,9 +7,10 @@ eps 1e-6 (torch's nn.LayerNorm default is 1e-5), output cast to `out_dtype`
 nn.LayerNorm, so reference state dicts load by name.
 
 CompatLayerNorm runs `ops.layer_norm.layer_norm`: on a CUDA tensor the row
-LayerNorm kernels (the port of the Pallas LayerNorm, which raise on a feature
-dim that is not a multiple of 128 up to 1024), on a CPU tensor their plain
-version. The JAX package takes its kernel only under `SAFEVLA_PALLAS_LN=1`,
+LayerNorm kernels (the port of the Pallas LayerNorm, which raise above D =
+1024) where D is a multiple of 128, the JAX module's own condition for its
+kernel, and the plain version at any other D, as the JAX module runs its
+plain math there; on a CPU tensor the plain version. The JAX package takes its kernel only under `SAFEVLA_PALLAS_LN=1`,
 for XLA's layout assignment around the custom call; eager PyTorch has no such
 cost, so the port has no such switch. CompatLayerNorm sits where the JAX
 package's does: the ViT's norm1, norm2 and final norm, and the fusion

@@ -6,8 +6,17 @@ first n-1 fusion layers call `attention_qkv` on the raw packed projection
 optional per-row valid-key counts `key_lens (B,)` (prefix masks: right-padded
 text, padded ViT tokens).
 
+* On a CUDA tensor the kernel runs where JAX's does, a shape rule decided
+  before any launch (`kernel_takes`): where the JAX package takes XLA
+  (`lanes % 128 != 0 or lanes % heads != 0`,
+  `safevla_tpu/ops/flash_attention.py::attention_qkv`), q/k/v are folded and
+  `dense_attention` runs on the card, with the key mask built from
+  `key_lens`.
 * On a CUDA tensor `attention_qkv` launches `csrc/flash_attention_fwd.cu`
-  (the port of the Pallas `_fwd_kernel`) or raises; it never falls back.
+  (the port of the Pallas `_fwd_kernel`) or raises; it never falls back. The
+  kernels take head dims `KERNEL_HEAD_DIMS` and S up to `MAX_S`; above the
+  largest S of a resident design (`resident_max_s`) the wrapper launches the
+  same source's streaming design.
 * On a CPU tensor it runs `attention_qkv_reference`, the plain PyTorch
   version with the kernel's rounding points: f32 logits scaled by 1/sqrt(Dh),
   -1e30 on masked columns, f32 max/exp/denominator, probabilities cast to the
@@ -33,32 +42,54 @@ import math
 import torch
 
 _NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64,)  # head dims the CUDA kernel is compiled for
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # head dims the CUDA kernels are compiled for
+MAX_S = 2048  # the longest sequence the kernels take (the streaming designs)
+SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on an H100 (227 KB)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+_FWD_ARGS = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, key_lens, out
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
+    ctypes.c_longlong, ctypes.c_longlong,  # stride_b, stride_s (elements)
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
+]
 _C_ARGTYPES = {
-    "attention_qkv_fwd": (
-        [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, key_lens, out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
-            ctypes.c_longlong, ctypes.c_longlong,  # stride_b, stride_s (elements)
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
-        ],
-        ctypes.c_int,
-    ),
+    "attention_qkv_fwd": (_FWD_ARGS, ctypes.c_int),
+    "attention_qkv_fwd_stream": (_FWD_ARGS, ctypes.c_int),
     "attention_qkv_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+_BWD_PTRS = [ctypes.c_void_p] * 4  # qkv, g, key_lens, dqkv
+_BWD_REST = [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
+    ctypes.c_longlong, ctypes.c_longlong,  # qkv / dqkv stride_b, stride_s (elements)
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
+]
 _C_ARGTYPES_BWD = {
-    "attention_qkv_bwd": (
-        [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, g, key_lens, dqkv
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
-            ctypes.c_longlong, ctypes.c_longlong,  # qkv / dqkv stride_b, stride_s (elements)
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
-        ],
-        ctypes.c_int,
-    ),
+    "attention_qkv_bwd": (_BWD_PTRS + _BWD_REST, ctypes.c_int),
+    # the streaming design takes an f32 (3, B, H, S) scratch after dqkv
+    "attention_qkv_bwd_stream": (_BWD_PTRS + [ctypes.c_void_p] + _BWD_REST, ctypes.c_int),
     "attention_qkv_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
+
+
+def kernel_takes(lanes: int, heads: int) -> bool:
+    """JAX's dispatch rule (`safevla_tpu/ops/flash_attention.py::
+    attention_qkv`, with no key_mask): the kernel's function where the
+    Pallas kernel runs, `dense_attention` (its `_xla_attention`) elsewhere."""
+    return lanes % 128 == 0 and lanes % heads == 0
+
+
+def resident_max_s(kind: str, dtype: torch.dtype, dh: int) -> int:
+    """The largest S the resident design of `kind` ("fwd" or "bwd") takes
+    at this dtype and head dim: the shared memory a block of it needs fits
+    in SMEM_PER_BLOCK (the formulas of csrc/flash_attention_{fwd,bwd}.cu).
+    Above it the wrapper launches the streaming design."""
+    if kind == "fwd":
+        if dtype == torch.bfloat16:  # (2 + ceil(S / 64)) tiles of 64 rows
+            return 64 * (SMEM_PER_BLOCK // (64 * dh * 2) - 2)
+        return SMEM_PER_BLOCK // ((dh + 1) * 4 + 16 * 4)  # K rows and 16 warps' logits
+    if dtype == torch.bfloat16:  # 4 planes and 3 f32 statistics a row, rows in 16s
+        return 16 * (SMEM_PER_BLOCK // (16 * (4 * dh * 2 + 3 * 4)))
+    return SMEM_PER_BLOCK // (3 * (dh + 1) * 4 + (2 * 16 + 3) * 4)
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -122,6 +153,8 @@ def _check_cuda_args(qkv, dh, b, key_lens, what: str) -> None:
         raise ValueError(f"the CUDA kernel takes bfloat16 or float32, not {qkv.dtype}")
     if dh not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS}, not {dh}")
+    if qkv.shape[1] > MAX_S:
+        raise ValueError(f"the CUDA kernel takes S up to {MAX_S}, not {qkv.shape[1]}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs a contiguous, 16-byte aligned qkv")
     if key_lens is not None:
@@ -152,9 +185,10 @@ def _attention_qkv_fwd(qkv, heads, key_lens):
 
     lib = load_library("flash_attention_fwd", _C_ARGTYPES)
     out = torch.empty((b, s, lanes), dtype=qkv.dtype, device=qkv.device)
+    stream = s > resident_max_s("fwd", qkv.dtype, dh)
     with torch.cuda.device(qkv.device):
         launch(
-            lib, "attention_qkv_fwd",
+            lib, "attention_qkv_fwd_stream" if stream else "attention_qkv_fwd",
             qkv.data_ptr(),
             None if key_lens is None else key_lens.data_ptr(),
             out.data_ptr(),
@@ -189,13 +223,17 @@ def attention_qkv_bwd(
 
     lib = load_library("flash_attention_bwd", _C_ARGTYPES_BWD)
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+    stream = s > resident_max_s("bwd", qkv.dtype, dh)
+    # the streaming design's scratch: m, rowsum and D of every query row
+    stats = torch.empty((3, b, heads, s), device=qkv.device) if stream else None
     with torch.cuda.device(qkv.device):
         launch(
-            lib, "attention_qkv_bwd",
+            lib, "attention_qkv_bwd_stream" if stream else "attention_qkv_bwd",
             qkv.data_ptr(),
             g.data_ptr(),
             None if key_lens is None else key_lens.data_ptr(),
             dqkv.data_ptr(),
+            *([stats.data_ptr()] if stream else []),
             b, s, heads, dh,
             qkv.stride(0), qkv.stride(1),
             1.0 / math.sqrt(dh),
@@ -235,7 +273,20 @@ def attention_qkv(
     columns >= key_lens[b] are excluded from the softmax. On a CUDA tensor the
     range is checked inside the kernel (a trap), since reading a device
     tensor here would synchronise every call. Differentiable in qkv: when a
-    gradient is taken, the backward is `attention_qkv_bwd`."""
+    gradient is taken, the backward is `attention_qkv_bwd`.
+
+    On a CUDA tensor where JAX takes XLA (`kernel_takes` is False) it runs
+    `dense_attention` on q, k and v folded to (B, S, H, Dh), differentiated
+    by autograd. (On a CPU tensor every shape runs the plain version.)"""
+    b, s, three_lanes = qkv.shape
+    lanes = three_lanes // 3
+    if qkv.is_cuda and not kernel_takes(lanes, heads):
+        fold = lambda x: x.reshape(b, s, heads, lanes // heads)
+        q, k, v = (fold(x) for x in qkv.split(lanes, dim=-1))
+        mask = None
+        if key_lens is not None:
+            mask = torch.arange(s, device=qkv.device)[None, :] < key_lens.to(qkv.device)[:, None]
+        return dense_attention(q, k, v, mask).reshape(b, s, lanes)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return _AttentionQKV.apply(qkv, key_lens, heads)
     return _attention_qkv_fwd(qkv, heads, key_lens)

@@ -12,13 +12,19 @@ normalises the last axis of x, its leading axes flattened into (R, D) rows:
   with gh = g * gamma and g cast to f32 first, rounded to x's dtype;
   dgamma = sum g * xhat and dbeta = sum g over the rows, in f32.
 
+On a CUDA tensor the kernels run where JAX's does, a shape rule decided
+before any launch (`kernel_takes_dim`): where the JAX `CompatLayerNorm` runs
+its plain math (D % 128 != 0, `safevla_tpu/models/norms.py`), `layer_norm`
+runs the plain version on the card, differentiated by autograd.
+
 On a CUDA tensor the forward launches `csrc/layer_norm.cu::layer_norm_fwd`
 and the backward `::layer_norm_bwd` (one cooperative kernel that also folds
 its per-block partial dgamma / dbeta rows, from a workspace allocated here)
 or raise; they never fall back. On a CPU tensor both run their plain
 versions, `layer_norm_fwd_reference` and `layer_norm_bwd_reference`,
 through the same autograd Function. x, the output and g are bfloat16 or
-float32; D is a multiple of 128 up to 1024.
+float32; the kernels take D a multiple of 128 up to 1024 (MAX_DIM) and raise
+above it.
 
 The call path is kept short, since a call's host time is longer than its
 kernel at every shape of the path: the library's C functions are resolved
@@ -61,6 +67,13 @@ _C_ARGTYPES = {
 BWD_WARPS = 8  # rows a backward block works on at once (csrc/layer_norm.cu kBwdWarps)
 _C = None  # the library's C functions, bound at the first launch
 _MAX_BLOCKS = {}  # (D, x dtype, g dtype, device) -> blocks of the backward that fit at once
+
+
+def kernel_takes_dim(d: int) -> bool:
+    """JAX's dispatch rule (`safevla_tpu/models/norms.py::CompatLayerNorm`,
+    the Pallas kernel's layout precondition): the kernels' function where D
+    is a multiple of 128, the plain math elsewhere."""
+    return d % 128 == 0
 
 
 def _stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -229,8 +242,11 @@ def layer_norm(
     """LayerNorm over the last axis of any-rank x, its leading axes
     flattened into rows; gamma / beta (D,) f32; output in `out_dtype`
     (x's dtype when None). Differentiable in x, gamma and beta: when a
-    gradient is taken, the backward is `layer_norm_bwd`."""
+    gradient is taken, the backward is `layer_norm_bwd`. On a CUDA tensor
+    where `kernel_takes_dim` is False: the plain version, by autograd."""
     out_dtype = out_dtype or x.dtype
+    if x.is_cuda and not kernel_takes_dim(x.shape[-1]):
+        return layer_norm_fwd_reference(x, gamma, beta, eps, out_dtype)
     if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad or beta.requires_grad):
         shape = x.shape
         x2 = x.reshape(-1, shape[-1]).contiguous()

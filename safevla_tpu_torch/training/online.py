@@ -10,9 +10,9 @@ same-window PPO).
 The JAX package's default is its async pipeline (window k-1's update woven
 between window k's acts); it is not ported yet, so asking for it (the
 config default `cfg.train.async_pipeline=True`, or `async_pipeline=True`)
-raises NotImplementedError: pass `async_pipeline=False`. Importing a
-reference checkpoint (`il_ckpt_path`) and multi-device meshes are not ported
-yet either.
+raises NotImplementedError: pass `async_pipeline=False`. Multi-device meshes
+are not ported yet either. `il_ckpt_path` imports a reference torch
+checkpoint into the towers (`models/convert.py::load_reference_checkpoint`).
 """
 
 from __future__ import annotations
@@ -29,9 +29,15 @@ import torch
 from safevla_tpu_torch.algo.learner import Learner, TrainState
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+from safevla_tpu_torch.models.convert import load_reference_checkpoint
 from safevla_tpu_torch.rollout.env_pool import EnvPool
 from safevla_tpu_torch.rollout.runner import RolloutRunner
-from safevla_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+from safevla_tpu_torch.utils.checkpoint import (
+    latest_checkpoint,
+    resolve_checkpoint_path,
+    restore_checkpoint,
+    save_checkpoint,
+)
 
 
 class MetricAccumulator:
@@ -98,16 +104,17 @@ class OnlineTrainer:
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """A fresh TrainState over the policy's weights, restored from
-        cfg.train.resume_ckpt_path when set, else from the newest checkpoint
-        in the output directory when there is one."""
+        cfg.train.resume_ckpt_path when set, else with the towers of the
+        reference checkpoint cfg.train.il_ckpt_path when set, else from the
+        newest checkpoint in the output directory when there is one."""
         state = self.learner.init()
         if self.cfg.train.resume_ckpt_path:
-            path = self.cfg.train.resume_ckpt_path
+            path = resolve_checkpoint_path(self.cfg.train.resume_ckpt_path)
             state = restore_checkpoint(path, state)
             print(f"resumed from {path}")
         elif self.cfg.train.il_ckpt_path:
-            raise NotImplementedError(
-                "importing a reference checkpoint (il_ckpt_path) is not ported yet"
+            state = load_reference_checkpoint(
+                resolve_checkpoint_path(self.cfg.train.il_ckpt_path), state, cfg=self.cfg
             )
         else:
             auto = latest_checkpoint(self.output_dir)

@@ -1,12 +1,20 @@
-"""Checkpoints of the online trainer, in the port's own torch format.
+"""Checkpoints in the port's own torch format, and policy restore from them.
 
-Counterpart of `safevla_tpu/utils/checkpoint.py::save_checkpoint`,
-`latest_checkpoint` and `restore_checkpoint`, with the same directory naming
-(`<path>/step_<n>/`); the JAX package writes Orbax directories, the port one
-`train_state.pt` file in each, holding the tower weights (by their state-dict
-names), the Adam count and moments, the Lagrange state and the step. The
-frozen ViT and T5 are not stored: they do not train. Orbax directories and
-reference torch checkpoints are not read yet.
+Counterpart of `safevla_tpu/utils/checkpoint.py`, with the same directory
+naming (`<path>/step_<n>/`); the JAX package writes Orbax directories, the
+port one torch file in each:
+  * `train_state.pt`, a trainer state (`save_checkpoint` of a TrainState):
+    the tower weights (by their state-dict names), the frozen ViT and T5
+    (`frozen_params`, so that a restored policy runs the backbone it was
+    trained with), the Adam count and moments, the Lagrange state and the
+    step. Files written before the frozen encoders were saved hold towers
+    only, and restore with the encoders the policy was built with;
+  * `params.pt`, a bare params tree (`save_checkpoint` of a mapping):
+    `{"towers": ..., "vit": ..., "t5": ...}`, each subtree optional, as
+    `tools/torch_from_orbax.py` writes from a JAX Orbax checkpoint.
+`restore_policy_params` reads either layout, or a run directory of
+`step_<n>` children (the newest), into a policy; reference torch files go
+through `models/convert.py`.
 """
 
 from __future__ import annotations
@@ -14,40 +22,61 @@ from __future__ import annotations
 import os
 import shutil
 import tempfile
-from typing import Optional
+from typing import Mapping, Optional, Union
 
 import torch
+from torch import nn
 
 from safevla_tpu_torch.algo.lagrange import LagrangeState
 from safevla_tpu_torch.algo.learner import TrainState
 from safevla_tpu_torch.algo.optim import AdamState
 
 _FILE = "train_state.pt"
+_PARAMS_FILE = "params.pt"
 
 
-def save_checkpoint(path: str, train_state: TrainState, step: int) -> str:
-    """Write `train_state` under `path/step_<step>`; returns that directory.
-    The directory appears whole or not at all (written aside, then renamed)."""
-    path = os.path.abspath(path)
-    ckpt_dir = os.path.join(path, f"step_{step}")
-    os.makedirs(path, exist_ok=True)
-    cpu = lambda t: t.detach().to("cpu", copy=True)
+def _cpu(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu", copy=True)
+
+
+def _train_state_payload(train_state: TrainState) -> dict:
     opt, lag = train_state.opt_state, train_state.lagrange
-    payload = {
+    return {
         "step": int(train_state.step),
-        "tower_params": {k: cpu(p) for k, p in train_state.tower_params.items()},
-        "adam": {"count": opt.count, "mu": [cpu(m) for m in opt.mu], "nu": [cpu(n) for n in opt.nu]},
+        "tower_params": {k: _cpu(p) for k, p in train_state.tower_params.items()},
+        "frozen_params": {
+            k: {n: _cpu(t) for n, t in sd.items()} for k, sd in train_state.frozen_params.items()
+        },
+        "adam": {"count": opt.count, "mu": [_cpu(m) for m in opt.mu], "nu": [_cpu(n) for n in opt.nu]},
         "lagrange": {
-            "multiplier": cpu(lag.multiplier),
+            "multiplier": _cpu(lag.multiplier),
             "count": lag.opt_state.count,
-            "mu": [cpu(m) for m in lag.opt_state.mu],
-            "nu": [cpu(n) for n in lag.opt_state.nu],
-            "cost_limit": cpu(lag.cost_limit),
+            "mu": [_cpu(m) for m in lag.opt_state.mu],
+            "nu": [_cpu(n) for n in lag.opt_state.nu],
+            "cost_limit": _cpu(lag.cost_limit),
             "upper_bound": lag.upper_bound,
         },
     }
+
+
+def save_checkpoint(path: str, state: Union[TrainState, Mapping], step: int) -> str:
+    """Write `state` under `path/step_<step>`; returns that directory. A
+    TrainState goes to `train_state.pt`, a params mapping (subtree name ->
+    state dict) to `params.pt`. The directory appears whole or not at all
+    (written aside, then renamed)."""
+    path = os.path.abspath(path)
+    ckpt_dir = os.path.join(path, f"step_{step}")
+    os.makedirs(path, exist_ok=True)
+    if isinstance(state, TrainState):
+        name, payload = _FILE, _train_state_payload(state)
+    else:
+        name = _PARAMS_FILE
+        payload = {
+            k: {n: _cpu(t) for n, t in v.items()} if isinstance(v, Mapping) else v
+            for k, v in state.items()
+        }
     tmp = tempfile.mkdtemp(prefix=f".step_{step}.", dir=path)
-    torch.save(payload, os.path.join(tmp, _FILE))
+    torch.save(payload, os.path.join(tmp, name))
     if os.path.isdir(ckpt_dir):
         shutil.rmtree(ckpt_dir)
     os.replace(tmp, ckpt_dir)
@@ -71,14 +100,24 @@ def latest_checkpoint(path: str) -> Optional[str]:
     return os.path.join(path, max(steps)[1])
 
 
+def _copy_frozen(saved: Mapping, live: Mapping) -> None:
+    """Copy the saved frozen encoders into the live state dicts, in place."""
+    for k, sd in saved.items():
+        if set(sd) != set(live[k]):
+            raise ValueError(f"checkpoint subtree {k!r} does not match the current model")
+        for n, t in sd.items():
+            live[k][n].copy_(t)
+
+
 @torch.no_grad()
 def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
-    """Load a checkpoint into `target` (a TrainState over the live policy,
-    e.g. `Learner.init()`): the tower weights and the Adam moments are
-    copied in place, on their devices; returns the restored TrainState."""
+    """Load a trainer checkpoint into `target` (a TrainState over the live
+    policy, e.g. `Learner.init()`): the tower weights, the frozen encoders
+    (when saved) and the Adam moments are copied in place, on their
+    devices; returns the restored TrainState."""
     file = os.path.join(os.path.abspath(ckpt_dir), _FILE)
     if not os.path.isfile(file):
-        raise FileNotFoundError(f"{file}: not a checkpoint of the port (Orbax and reference files are not read yet)")
+        raise FileNotFoundError(f"{file}: not a trainer checkpoint of the port")
     payload = torch.load(file, map_location="cpu", weights_only=True)
     params = target.tower_params
     if set(payload["tower_params"]) != set(params):
@@ -86,6 +125,7 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
         raise ValueError(f"checkpoint tower parameters differ from the model's, e.g. {missing}")
     for name, p in params.items():
         p.copy_(payload["tower_params"][name])
+    _copy_frozen(payload.get("frozen_params", {}), target.frozen_params)
     adam = payload["adam"]
     for dst, src in zip(target.opt_state.mu + target.opt_state.nu, adam["mu"] + adam["nu"]):
         dst.copy_(src)
@@ -100,7 +140,80 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
     )
     return TrainState(
         tower_params=params,
+        frozen_params=target.frozen_params,
         opt_state=AdamState(adam["count"], target.opt_state.mu, target.opt_state.nu),
         lagrange=lagrange,
         step=payload["step"],
+    )
+
+
+@torch.no_grad()
+def restore_policy_params(ckpt_dir: str, policy: nn.Module) -> nn.Module:
+    """Restore inference-ready policy weights from either of the port's
+    layouts, in place; returns the policy.
+
+    A trainer state (`tower_params`, `frozen_params`, ...) or a bare params
+    tree (`towers`, optionally `vit` and `t5`); the subtrees the checkpoint
+    carries replace the policy's, the rest keep the policy's init. The
+    frozen ViT and T5 are taken from the checkpoint when present so
+    evaluation runs the exact backbone training used. `ckpt_dir` may also be
+    a run output directory of `step_<n>` children; the newest is used.
+    """
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    if not os.path.isdir(ckpt_dir):
+        raise FileNotFoundError(ckpt_dir)
+    if not os.path.basename(ckpt_dir).startswith("step_"):
+        latest = latest_checkpoint(ckpt_dir)
+        if latest is not None:
+            ckpt_dir = latest
+    files = [os.path.join(ckpt_dir, f) for f in (_FILE, _PARAMS_FILE)]
+    found = [f for f in files if os.path.isfile(f)]
+    if not found:
+        raise FileNotFoundError(f"{ckpt_dir}: no {_FILE} or {_PARAMS_FILE}")
+    raw = torch.load(found[0], map_location="cpu", weights_only=True)
+
+    picked = {}
+    if isinstance(raw, dict) and "tower_params" in raw:  # trainer state
+        picked["towers"] = raw["tower_params"]
+        for k, sd in (raw.get("frozen_params") or {}).items():
+            picked[k] = sd
+    elif isinstance(raw, dict) and "towers" in raw:  # bare params tree
+        picked = {k: raw[k] for k in ("towers", "vit", "t5") if raw.get(k) is not None}
+    else:
+        keys = sorted(raw.keys()) if isinstance(raw, dict) else type(raw).__name__
+        raise ValueError(
+            f"{ckpt_dir} is not a recognized safevla checkpoint: expected a "
+            f"trainer state ('tower_params') or a params tree ('towers'); "
+            f"found {keys}. Torch-format reference files go through models/convert."
+        )
+    modules = {"towers": policy.towers, "vit": policy.vit, "t5": policy.t5}
+    for k, sd in picked.items():
+        want = modules[k].state_dict()
+        if set(sd) != set(want) or any(tuple(sd[n].shape) != tuple(t.shape) for n, t in want.items()):
+            raise ValueError(
+                f"checkpoint subtree {k!r} does not match the current model "
+                f"({len(sd)} vs {len(want)} tensors) — param layout drift; "
+                "re-import or migrate the checkpoint"
+            )
+        modules[k].load_state_dict(sd)
+    return policy
+
+
+def resolve_checkpoint_path(path: str) -> str:
+    """Resolve a checkpoint reference to a local path. Local paths pass
+    through. A `wandb://entity/project/artifact:alias` reference raises: the
+    JAX package fetches it over the network with the wandb package; the port
+    takes a local copy only."""
+    if not path.startswith("wandb://"):
+        return path
+    try:
+        import wandb  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(
+            f"checkpoint {path!r} is a wandb artifact but the wandb package "
+            "is not installed; download it manually or install wandb"
+        ) from e
+    raise NotImplementedError(
+        f"checkpoint {path!r} is a wandb artifact: the port does not fetch "
+        "artifacts; download it and pass the local path"
     )

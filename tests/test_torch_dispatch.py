@@ -1,0 +1,128 @@
+"""Where the port runs its kernels on the card and where the plain math: the
+same shape rules as the JAX package, decided before any launch.
+
+* Attention: JAX's `attention_qkv` takes its Pallas kernel only when
+  `lanes % 128 == 0 and lanes % heads == 0` (no key_mask), XLA elsewhere;
+  the port's `kernel_takes(lanes, heads)`, which sends a CUDA tensor to the
+  kernel or to `dense_attention`, must say the same on a grid of shapes.
+* LayerNorm: JAX's `CompatLayerNorm` (with SAFEVLA_PALLAS_LN=1) takes its
+  Pallas kernel only when D % 128 == 0; the port's `kernel_takes_dim(d)`
+  likewise.
+* The tiny config of tests/conftest.py (ViT width 32, head dim 16, fusion
+  lanes 64, LayerNorm widths 32 and 64), where no site takes a kernel on
+  the card, acts and takes one update on the port (CPU; the card's side is
+  tests/test_torch_kernels_gpu.py).
+
+The JAX dispatchers are observed with their two branches replaced by
+recorders, under `jax.eval_shape`, so nothing is computed on the JAX side.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_port_tiny as tiny
+from safevla_tpu.models import norms as jnorms
+from safevla_tpu.ops import flash_attention as jfa
+from safevla_tpu_torch.algo.learner import Learner
+from safevla_tpu_torch.config import Config, ModelConfig, TrainConfig
+from safevla_tpu_torch.evaluation.agent import InferenceAgent
+from safevla_tpu_torch.models import vit as pvit
+from safevla_tpu_torch.ops import flash_attention as fa
+from safevla_tpu_torch.ops import layer_norm as ln
+
+LANES = [16, 32, 64, 96, 128, 192, 256, 320, 384, 512, 640, 768, 1024]
+HEADS = [1, 2, 3, 4, 6, 8, 12, 16]
+DIMS = [16, 32, 64, 96, 100, 128, 192, 256, 384, 448, 512, 640, 768, 1024]
+
+
+def _jax_takes_kernel(monkeypatch, lanes, heads):
+    """Which branch JAX's attention_qkv takes (interpret mode, as on the TPU)."""
+    taken = []
+    monkeypatch.setattr(jfa, "_attention_diff_qkv", lambda qkv, kl, h, interp: taken.append(True) or qkv[..., :lanes])
+    monkeypatch.setattr(jfa, "_xla_attention", lambda q, k, v, mask: taken.append(False) or q)
+    jax.eval_shape(lambda x: jfa.attention_qkv(x, heads, interpret=True), jnp.zeros((1, 4, 3 * lanes)))
+    return taken[0]
+
+
+@pytest.mark.parametrize("lanes", LANES)
+def test_attention_rule_matches_jax(monkeypatch, lanes):
+    for heads in HEADS:
+        if lanes % heads:  # JAX folds q/k/v per head: not a valid layout for it either
+            assert not fa.kernel_takes(lanes, heads)
+            continue
+        assert fa.kernel_takes(lanes, heads) == _jax_takes_kernel(monkeypatch, lanes, heads), (lanes, heads)
+
+
+def test_layer_norm_rule_matches_jax(monkeypatch):
+    monkeypatch.setenv("SAFEVLA_PALLAS_LN", "1")
+    for d in DIMS:
+        taken = []
+        monkeypatch.setattr(jnorms, "layer_norm", lambda x, *a, **k: taken.append(True) or x)
+        params = {"params": {"scale": jnp.ones(d), "bias": jnp.zeros(d)}}
+        jax.eval_shape(lambda x: jnorms.CompatLayerNorm(interpret=True).apply(params, x), jnp.ones((2, d)))
+        assert ln.kernel_takes_dim(d) == bool(taken), d
+
+
+def test_dense_path_is_the_kernels_function_where_jax_takes_xla():
+    """The card's plain path at a shape the kernels do not take (lanes 64:
+    `dense_attention` on the folded q/k/v, with the key mask of key_lens)
+    computes what the CPU path (the kernel's plain version) does, and so do
+    their gradients; LayerNorm's plain path by autograd at D = 96 against the
+    CPU path's backward."""
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 5, 3 * 64), dtype=np.float32))
+    kl = torch.tensor([5, 2], dtype=torch.int32)
+    q, k, v = (x.detach().reshape(2, 5, 4, 16).requires_grad_(True) for x in qkv.split(64, dim=-1))
+    mask = torch.arange(5)[None, :] < kl[:, None]
+    dense = fa.dense_attention(q, k, v, mask).reshape(2, 5, 64)
+    x = qkv.clone().requires_grad_(True)
+    plain = fa.attention_qkv(x, 4, kl)
+    torch.testing.assert_close(dense, plain, rtol=0, atol=1e-6)
+    g = torch.from_numpy(rng.standard_normal((2, 5, 64), dtype=np.float32))
+    (dense * g).sum().backward()
+    (plain * g).sum().backward()
+    dense_grad = torch.cat([t.reshape(2, 5, 64) for t in (q.grad, k.grad, v.grad)], dim=-1)
+    torch.testing.assert_close(dense_grad, x.grad, rtol=0, atol=1e-5)
+    xs = torch.from_numpy(rng.standard_normal((3, 96), dtype=np.float32))
+    gamma, beta = torch.ones(96) + 0.1, torch.zeros(96)
+    a = xs.clone().requires_grad_(True)
+    ln.layer_norm_fwd_reference(a, gamma, beta).pow(3).sum().backward()
+    b = xs.clone().requires_grad_(True)
+    ln.layer_norm(b, gamma, beta).pow(3).sum().backward()
+    torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-5)
+
+
+@pytest.fixture
+def tiny_port_cfg(tiny_model_cfg, monkeypatch):
+    """The conftest tiny config on the port (its ViT registered on both sides)."""
+    monkeypatch.setitem(
+        pvit.VIT_CONFIGS, "test_tiny",
+        pvit.DinoViTConfig(embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42, patch_size=14),
+    )
+    return ModelConfig(**dataclasses.asdict(tiny_model_cfg))
+
+
+def test_tiny_conftest_config_acts_and_updates(tiny_port_cfg):
+    cfg = Config(tiny_port_cfg, TrainConfig(max_steps=tiny_port_cfg.max_steps))
+    cfg.ppo.update_repeats = 1
+    agent = InferenceAgent.build(cfg, None, num_streams=2, test_augmentation=False, device="cpu")
+    agent.set_instructions(["find a mug", "go to the bed"])
+    h, w = tiny_port_cfg.image_size
+    rng = np.random.default_rng(0)
+    for t in range(2):
+        frames = rng.integers(0, 256, (2, 2, h, w, 3), dtype=np.uint8)
+        actions = agent.act(frames[0], frames[1], np.full(2, int(t > 0)), np.zeros(2, np.int32))
+        assert actions.shape == (2,) and np.isfinite(agent.last_probs).all()
+
+    learner = Learner(agent.policy, cfg)
+    ts = learner.init()
+    before = [p.detach().clone() for p in ts.tower_params.values()]
+    batch = {k: torch.as_tensor(v) for k, v in tiny.rollout_batch(tiny_port_cfg, seed=1).items()}
+    ts, metrics = learner.update(ts, batch, 3.0, 1)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert any(not torch.equal(a, p.detach()) for a, p in zip(before, ts.tower_params.values()))

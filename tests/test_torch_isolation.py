@@ -70,11 +70,19 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
 
 
 def test_checkpoint_restore_is_not_ported_yet():
+    """Restore is ported now (tests/test_torch_evaluation.py): a checkpoint
+    that is not there raises, and a wandb artifact is never fetched (the
+    port reads local paths only; without the wandb package it raises the JAX
+    package's RuntimeError)."""
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.utils.checkpoint import resolve_checkpoint_path
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):
         InferenceAgent.build(Config(), "some/checkpoint", num_streams=2, device="cpu")
+    assert resolve_checkpoint_path("some/dir") == "some/dir"
+    with pytest.raises((RuntimeError, NotImplementedError), match="wandb artifact"):
+        resolve_checkpoint_path("wandb://entity/project/run:latest")
 
 
 def test_trainer_refuses_missing_cuda(monkeypatch):

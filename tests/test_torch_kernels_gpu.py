@@ -97,13 +97,56 @@ def test_attention_kernels_at_tile_edges(cuda, b, s, h, key_lens, dtype, tol, bw
 
 @pytest.mark.gpu
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    qkv = torch.zeros((2, 16, 3 * 2 * 32), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.attention_qkv(qkv, 2)  # head dim 32
+    """Inside JAX's kernel domain (lanes a multiple of 128) the kernels
+    raise on a head dim outside KERNEL_HEAD_DIMS, naming the set, and on S
+    above MAX_S; outside it (lanes 64) the plain dense path runs instead."""
+    qkv = torch.zeros((2, 16, 3 * 8 * 48), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
+        fa.attention_qkv(qkv, 8)  # head dim 48
+    with pytest.raises(ValueError, match="S up to 2048"):
+        fa.attention_qkv(torch.zeros((1, 2049, 3 * 128), device="cuda", dtype=torch.bfloat16), 2)
+    before = fa.attention_qkv.launches
+    assert fa.attention_qkv(torch.zeros((2, 16, 3 * 2 * 32), device="cuda"), 2).shape == (2, 16, 64)
+    assert fa.attention_qkv.launches == before  # head dim 32 at 64 lanes: JAX's XLA path
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.attention_qkv(torch.zeros((2, 16, 384), device="cuda", dtype=torch.float16), 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.attention_qkv(torch.zeros((2, 384, 16), device="cuda").transpose(1, 2), 2)
+
+
+# the new head dims and the long sequences: at 128 lanes every head dim of
+# the set (8, 4, 2 and 1 heads), S across the resident designs' limits (the
+# bf16 backward's is 432 at head dim 64, 224 at 128) up to MAX_S, where every
+# design streams; key counts of all S and of two thirds of it
+LONG_S = [433, 512, 1024, 2048]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", LONG_S)
+@pytest.mark.parametrize("dtype,tol,bwd_tol", EDGE_DTYPES)
+def test_attention_kernels_at_every_head_dim_and_long_s(cuda, dh, s, dtype, tol, bwd_tol):
+    """Forward and backward (resident or streaming, as the shape rule picks)
+    against their plain versions; the backward twice gives the same bits and
+    exactly zero dk and dv on the masked key rows."""
+    b, h = 2, 128 // dh
+    lanes = h * dh
+    rng = np.random.default_rng(dh * 10000 + s)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal((b, s, lanes), dtype=np.float32)).to("cuda", dtype)
+    key_lens = [s, 2 * s // 3]
+    kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
+    before = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches)
+    got = fa.attention_qkv(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    again = fa.attention_qkv_bwd(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches) == (before[0] + 1, before[1] + 2)
+    assert (got.float() - fa.attention_qkv_reference(qkv, h, kl).float()).abs().max().item() <= tol
+    want = fa.attention_qkv_bwd_reference(qkv, h, kl, g)
+    assert (d.float() - want.float()).abs().max().item() <= bwd_tol
+    assert torch.equal(d, again)
+    assert torch.all(d[1, key_lens[1] :, lanes:] == 0)
 
 
 UPDATE_KEY_LENS = [169 + n for n in (7, 12, 5, 9)] * 32  # 128 fusion rows of the update
@@ -250,18 +293,25 @@ def test_layer_norm_autograd_on_the_card_launches_both_kernels(cuda):
 def test_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
     from safevla_tpu_torch.ops import layer_norm as ln
 
-    gamma, beta = torch.ones(192, device="cuda"), torch.zeros(192, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 128"):
-        ln.layer_norm(torch.zeros((4, 192), device="cuda"), gamma, beta)
+    gamma, beta = torch.ones(1152, device="cuda"), torch.zeros(1152, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 128 up to 1024"):
+        ln.layer_norm(torch.zeros((4, 1152), device="cuda"), gamma, beta)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         ln.layer_norm(torch.zeros((4, 128), device="cuda", dtype=torch.float16), gamma[:128], beta[:128])
+    # D = 192 is not a multiple of 128: JAX's plain math, no launch
+    before = ln.layer_norm.launches
+    x = torch.randn((4, 192), device="cuda")
+    got = ln.layer_norm(x, gamma[:192], beta[:192])
+    assert ln.layer_norm.launches == before
+    assert torch.equal(got, ln.layer_norm_fwd_reference(x, gamma[:192], beta[:192]))
 
 
 @pytest.mark.gpu
 def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
-    """On the card CompatLayerNorm always launches the kernel (and agrees with
-    its plain code) and raises on a width the kernel does not take; the
-    adapter norms (PlainLayerNorm) never launch it."""
+    """On the card CompatLayerNorm launches the kernel at a width that is a
+    multiple of 128 (and agrees with its plain code), runs its plain code
+    without a launch at any other width, and raises at a multiple of 128 the
+    kernel does not take; the adapter norms (PlainLayerNorm) never launch it."""
     from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
     from safevla_tpu_torch.ops import layer_norm as ln
 
@@ -273,8 +323,11 @@ def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
     PlainLayerNorm(384).cuda()(x)
     assert ln.layer_norm.launches == before + 1
     assert _ln_close(got.view(16, 384), mod.plain(x))
+    narrow = CompatLayerNorm(192).cuda()
+    assert torch.equal(narrow(x[:, :192]), narrow.plain(x[:, :192]))
+    assert ln.layer_norm.launches == before + 1
     with pytest.raises(ValueError, match="multiple of 128"):
-        CompatLayerNorm(192).cuda()(x[:, :192].contiguous())
+        CompatLayerNorm(1152).cuda()(torch.zeros((2, 1152), device="cuda"))
 
 
 def _device_activity_names(fn, calls):
@@ -332,3 +385,83 @@ def test_layer_norm_bwd_on_two_streams_at_once_gives_the_same_bits(cuda):
     for calls in outs:
         for got in calls:
             assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_tiny_test_config_acts_and_updates_on_the_card(cuda, monkeypatch):
+    """The tiny config of tests/conftest.py (ViT width 32, head dim 16, fusion
+    lanes 64, LayerNorm widths 32 and 64) takes JAX's plain paths at every
+    site, so it runs on the card (it raised ValueError before the kernels
+    dispatched by JAX's rules) and launches no kernel; with f32 encoders its
+    acts match the CPU at the serving test's 1e-4 and one update at the
+    learner test's tolerances (metrics 1e-4; weights 1e-4, their change 1e-5)."""
+    import functools
+
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.models import actor_critic, t5, vit
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    monkeypatch.setitem(vit.VIT_CONFIGS, "gpu_test_tiny", vit.DinoViTConfig(
+        embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42, patch_size=14, dtype=torch.float32))
+    monkeypatch.setattr(actor_critic, "T5Config", functools.partial(t5.T5Config, dtype=torch.float32))
+    m = ModelConfig(
+        hidden_size=64, num_tx_layers=2, num_tx_heads=4, goal_dims=64, text_embed_size=64,
+        combiner_layers=1, combiner_heads=4, combiner_ffn_dim=128, dino_compressor_hidden_out_dims=(64, 64),
+        vision_backbone="gpu_test_tiny", vision_feature_dim=32, image_size=(28, 42), max_steps=16,
+        text_max_tokens=8, compute_dtype="float32",
+    )
+    cfg = Config(m, TrainConfig(max_steps=16))
+    cfg.ppo.update_repeats = 2
+    before = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches, ln.layer_norm.launches,
+              ln.layer_norm_bwd.launches)
+    agents = {d: InferenceAgent.build(cfg, None, num_streams=2, test_augmentation=False, device=d)
+              for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(3)
+    for a in agents.values():
+        a.set_instructions(["find a mug", "go to the bed"])
+    for t in range(3):
+        nav, manip = rng.integers(0, 256, (2, 2, 28, 42, 3), dtype=np.uint8)
+        out = {}
+        for d, a in agents.items():
+            a.act(nav, manip, np.full(2, int(t > 0)), np.zeros(2, np.int32))
+            out[d] = np.concatenate([np.log(a.last_probs).ravel(), *a.last_values])
+        np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4)
+
+    b, steps, length = 2, 6, 8
+    batch = {
+        "dino_nav": rng.standard_normal((b, steps, 7, 12, 32)).astype(np.float32),
+        "dino_manip": rng.standard_normal((b, steps, 7, 12, 32)).astype(np.float32),
+        "text_hidden": rng.standard_normal((b, length, 64)).astype(np.float32),
+        "text_mask": np.arange(length)[None, :] < np.array([[3], [8]]),
+        "prev_actions": rng.integers(0, m.num_actions, (b, steps)).astype(np.int32),
+        "not_reset": np.concatenate([np.zeros((b, 1)), np.ones((b, steps - 1))], 1).astype(np.int32),
+        "object_in_hand": np.zeros((b, steps), np.int32),
+        "time_step": np.tile(np.arange(steps, dtype=np.int32), (b, 1)),
+        "traj_idx": np.zeros((b, steps), np.int32),
+        "actions": rng.integers(0, m.num_actions, (b, steps)).astype(np.int32),
+        "old_log_probs": np.full((b, steps), -3.0, np.float32),
+        "rewards": rng.standard_normal((b, steps)).astype(np.float32),
+        "costs": rng.integers(0, 3, (b, steps)).astype(np.float32),
+        "values": rng.standard_normal((b, steps + 1)).astype(np.float32),
+        "c_values": rng.standard_normal((b, steps + 1)).astype(np.float32),
+        "masks": np.ones((b, steps + 1), np.float32),
+    }
+    result = {}
+    for d, a in agents.items():
+        learner = Learner(a.policy, cfg)
+        ts = learner.init()
+        start = [p.detach().cpu().clone() for p in ts.tower_params.values()]
+        ts, metrics = learner.update(ts, {k: torch.as_tensor(v, device=d) for k, v in batch.items()}, 3.0, 1)
+        result[d] = ({k: float(v) for k, v in metrics.items()},
+                     [p.detach().cpu() for p in ts.tower_params.values()], start)
+    torch.cuda.synchronize()
+    (m_cpu, w_cpu, s_cpu), (m_gpu, w_gpu, _) = result["cpu"], result["cuda"]
+    for k in m_cpu:
+        np.testing.assert_allclose(m_gpu[k], m_cpu[k], atol=1e-4, err_msg=k)
+    for g, w, s in zip(w_gpu, w_cpu, s_cpu):
+        assert (g - w).abs().max().item() <= 1e-4 and ((g - s) - (w - s)).abs().max().item() <= 1e-5
+    after = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches, ln.layer_norm.launches,
+             ln.layer_norm_bwd.launches)
+    assert after == before  # every site takes the plain path at these widths

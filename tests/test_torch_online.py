@@ -1,9 +1,9 @@
 """The port's sync OnlineTrainer on the CPU: a two-window run of a tiny
 policy on FakeController streams (the step count, the logged keys, the
 forced final checkpoint), the checkpoint's round trip into an equal train
-state (auto-resume), the weights the second window acts with, and the
-pieces that are not ported yet (the async pipeline, reference checkpoints)
-refusing to run."""
+state (auto-resume), the weights the second window acts with, the
+async pipeline (not ported yet) refusing to run, and a reference IL
+checkpoint filling the towers."""
 
 import dataclasses
 import random
@@ -143,9 +143,19 @@ def test_the_async_pipeline_is_not_ported(cfg):
         OnlineTrainer(cfg, make_sampler_factory(), num_workers=0, async_pipeline=True, device="cpu")
 
 
-def test_reference_checkpoint_import_is_not_ported(cfg):
-    cfg.train.il_ckpt_path = "some/reference.pt"
+def test_reference_checkpoint_import_is_not_ported(cfg, tmp_path):
+    """il_ckpt_path is ported now (its parity with the JAX importer is
+    tests/test_torch_il_import.py): a path that is not there raises, and an
+    IL file (the actor tower alone, Lightning's container) fills every tower
+    with the actor's weights."""
+    cfg.train.il_ckpt_path = str(tmp_path / "missing.pt")
     trainer = _trainer(cfg, [])
-    with pytest.raises(NotImplementedError, match="il_ckpt_path"):
+    with pytest.raises(FileNotFoundError):
         trainer.init_state()
+    actor = {k: v + 0.5 for k, v in trainer.policy.towers[0].state_dict().items()}
+    torch.save({"state_dict": {f"model.{k}": v for k, v in actor.items()}}, tmp_path / "il.ckpt")
+    cfg.train.il_ckpt_path = str(tmp_path / "il.ckpt")
+    ts = trainer.init_state()
+    for name, p in ts.tower_params.items():
+        assert torch.equal(p.detach(), actor[name.split(".", 1)[1]])
     trainer.close()
