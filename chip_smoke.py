@@ -11,7 +11,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      card, at the shapes the serving path, the rollout and the update give
      it, the attention kernels at two edges of their tiles, at head dims 16,
      32 and 128 and past their resident designs' S limits (the streaming
-     designs, to S = 2048); times of the
+     designs), at head dims the resident designs do not take (8, 24, 48,
+     96, 256) and at S 4096, the LayerNorm kernels at D 1152, 2048 and 4096
+     (the wide designs), and at the async update's chunk shapes; times of the
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA-event ms, host µs to enqueue a call, profiler device
      ms); the LayerNorm backward's kernels per call, and its two designs
@@ -23,7 +25,10 @@ Phases (none catches its own failure; any failure exits non-zero):
      CompatLayerNorm sites patched to their plain version) against on; the
      tiny config of the tests (head dim 16, widths 32 and 64: no kernel
      runs, JAX's plain paths) on the card against the CPU, acts and an
-     update;
+     update; the async trainer of the small policy against a stale-by-one
+     loop written out by hand, and bit for bit against the same run with a
+     synchronise after every update program (the race detector for the
+     streams);
   4. serving: InferenceAgent.build(Config()) at the full default width
      (DINOv2-S, 3 towers, bf16), 8 streams, instructions, 128 greedy acts
      with a mid-run reset, with the LayerNorm kernels off and then on; the
@@ -31,16 +36,20 @@ Phases (none catches its own failure; any failure exits non-zero):
      (device time, idle share) and each stage alone;
   5. training: Learner.update at the full default width (3 towers, bf16
      compute, f32 weights) on a synthetic 32 streams x 128 steps batch, stage
-     1: one warm-up, then timed updates with the LayerNorm kernels off and on
-     in turns, one profiled update (kernels on), the launch counts of every update
-     against the count the config implies;
+     1: one warm-up (LayerNorm kernels on), then timed updates with the
+     kernels off and on in turns, one profiled update (kernels on), the launch counts of every update
+     against the count the config implies; Learner.chunked_update (the async
+     pipeline's update) against the warm-up update, from the same weights;
   6. trainer: OnlineTrainer(cfg, sampler_factory, num_workers=0,
      async_pipeline=False).train() at the full default width on 32
      FakeController streams at 224x384 (episodes of 100 steps), 128 steps per
      window in 2 overlap groups, stage 1, LayerNorm kernels on: one warm-up,
-     two timed and one profiled window, each window's launches of every
-     kernel against the count the config implies; its final checkpoint kept
-     for:
+     one timed and one profiled window, each window's launches of every
+     kernel against the count the config implies; then the same at the
+     config's default, the async pipeline (`[trainer_async]`: 5 windows,
+     one fill, one warm-up, two timed, one profiled, then the drain; the
+     update's programs on a CUDA stream of their own); the sync trainer's
+     final checkpoint kept for:
   7. evaluate: InferenceAgent.build from that checkpoint and from a
      reference-container torch file of its towers, each acting bit-equal to
      the in-memory policy (greedy); BatchedEvaluator over 16 FakeController
@@ -97,7 +106,9 @@ REF_TOL = 2e-2  # the T5 runs in bf16: its roundings may fall differently per de
 # weight by at most 4 Adam steps of 2e-5)
 REF_UPDATE_METRIC_TOL = 1e-4
 REF_UPDATE_WEIGHT_TOL = 1e-5
-TRAIN_FLAGS = ("0", "1", "1", "0")  # LayerNorm kernels off / on in the timed updates, in turns
+# LayerNorm kernels off / on in the timed updates (one each: the smoke keeps within half its time
+# limit now that it also drives the async trainer)
+TRAIN_FLAGS = ("0", "1")
 MEAN_EPISODE_COST = 3.0  # above the cost limit (2.31): lambda climbs
 # LayerNorm kernels against their plain versions: bf16 outputs (up to ~6)
 # within one bf16 ulp of the reference, 2^-7 |want| + 1e-3, since one rounding
@@ -113,7 +124,15 @@ ROTATION_BYTES = 128 * 2**20
 # off: f32 LayerNorms that differ in summation order only (1e-4; the DINO
 # features are stored in bf16, so within one bf16 rounding of them)
 REF_LN_TOL = 1e-4
-TRAINER_WINDOWS = 4  # one warm-up, two timed, one profiled
+TRAINER_WINDOWS = 3  # one warm-up, one timed, one profiled
+ASYNC_WINDOWS = 5  # one fill (no update yet), one warm-up, two timed, one profiled; then the drain
+# the async trainer of the small f32 policy against the hand loop on the
+# default stream (f32 sums in other orders; an update moves a weight by
+# ~1e-4 at most)
+ASYNC_REF_TOL = 1e-5
+# chunked_update vs update at full width in bf16: the fusion runs over other
+# batch sizes (64 / 32 samples against 128), so bf16 roundings fall elsewhere
+CHUNKED_METRIC_RTOL = 2e-2
 TRAINER_STREAMS, TRAINER_STEPS, TRAINER_GROUPS = 32, 128, 2
 TRAINER_EPISODE_STEPS = 100
 # the tiny config on the card vs the CPU, f32 everywhere: the tests' 1e-4
@@ -255,8 +274,7 @@ def attention_bound(b, s, heads, dh, key_lens, itemsize):
 def attention_design(fa, kind, s, dh):
     """Which design of the attention kernel `kind` ("fwd" or "bwd") a bf16
     and an f32 call at (S, Dh) launch: resident or streaming."""
-    return {str(dt).split(".")[1]: ("streaming" if s > fa.resident_max_s(kind, dt, dh) else "resident")
-            for dt in (torch.bfloat16, torch.float32)}
+    return {str(dt).split(".")[1]: fa.attention_design(kind, dt, dh, s) for dt in (torch.bfloat16, torch.float32)}
 
 
 def resident_limits(fa):
@@ -435,12 +453,24 @@ def ln_shapes():
         ("fusion_serving", STREAMS * 208, 512, bf16, bf16),
         ("fusion_serving_cls", STREAMS, 512, bf16, bf16),
         ("fusion_update_f32", 128 * 208, 512, f32, f32),
+        # the async update's chunks: the fusion forward of 64 samples (2 steps
+        # of 32 streams) and the backward's recompute of 32 (1 step)
+        ("fusion_embed_chunk", 64 * 208, 512, bf16, bf16),
+        ("fusion_embed_chunk_cls", 64, 512, bf16, bf16),
+        ("fusion_bwd_chunk", 32 * 208, 512, bf16, bf16),
+        ("fusion_bwd_chunk_cls", 32, 512, bf16, bf16),
     ]
+
+
+# (name, rows, D) of the wide LayerNorm designs (D above 1024; on no path at
+# Config()): the ViT serving shape's rows at ViT-g-like widths
+LN_WIDE_SHAPES = [(f"wide_d{d}", 2 * STREAMS * 448, d) for d in (1152, 2048, 4096)]
 
 
 # (name, rows, D) of the LayerNorm backward on the path: the update's fusion
 # chunk and its CLS rows
-LN_BWD_SHAPES = [("fusion_update", 128 * 208, 512), ("fusion_update_cls", 128, 512)]
+LN_BWD_SHAPES = [("fusion_update", 128 * 208, 512), ("fusion_update_cls", 128, 512),
+                 ("fusion_bwd_chunk", 32 * 208, 512), ("fusion_bwd_chunk_cls", 32, 512)]
 
 
 def _ln_inputs(r, d, dtype, gen):
@@ -1159,8 +1189,11 @@ def reset_kernel_counts(fa, ln):
 
 def train(fa):
     """Learner.update at the full default width on a synthetic rollout
-    window of the sync trainer's shape, with the LayerNorm kernels off and
-    on in turns (TRAIN_FLAGS); returns its numbers."""
+    window of the sync trainer's shape: a warm-up with the LayerNorm kernels
+    on, then timed updates with them off and on in turns (TRAIN_FLAGS);
+    returns its numbers and the warm-up's (metrics, new tower weights), the
+    update from the seed's weights that `chunked_check` holds the chunked
+    update to."""
     from safevla_tpu_torch.algo.learner import Learner
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
@@ -1190,7 +1223,7 @@ def train(fa):
 
     reset_kernel_counts(fa, ln)
     times, metrics = {"0": [], "1": []}, None
-    for i, flag in enumerate(("0",) + TRAIN_FLAGS):  # one warm-up, then the timed ones
+    for i, flag in enumerate(("1",) + TRAIN_FLAGS):  # one warm-up, then the timed ones
         ln_kernels(flag == "1")
         before = kernel_counts(fa, ln)
         torch.cuda.synchronize()
@@ -1200,6 +1233,8 @@ def train(fa):
         dt = time.perf_counter() - t0
         if i == 0:
             first_ms = dt * 1e3
+            first = ({k: float(v) for k, v in metrics.items()},
+                     [p.detach().float().clone() for p in ts.tower_params.values()])
         else:
             times[flag].append(dt * 1e3)
         got = {k: v - before[k] for k, v in kernel_counts(fa, ln).items()}
@@ -1216,7 +1251,7 @@ def train(fa):
     ts = prof.pop("train_state")
     launches = kernel_counts(fa, ln)
     n_updates = 2 + len(TRAIN_FLAGS)
-    n_on = TRAIN_FLAGS.count("1") + 1  # and the profiled update, on the port's path
+    n_on = TRAIN_FLAGS.count("1") + 2  # and the warm-up and the profiled update, on the port's path
     assert launches == {
         "attention_fwd": n_updates * fwd_per_update, "attention_bwd": n_updates * bwd_per_update,
         "layer_norm_fwd": n_on * ln_fwd_per_update, "layer_norm_bwd": n_on * ln_bwd_per_update,
@@ -1263,7 +1298,7 @@ def train(fa):
         "layer_norm_kernels": prof["layer_norm"],
     }
     log(f"[train] {json.dumps(res)}")
-    return res
+    return res, first
 
 
 def trainer_config():
@@ -1398,6 +1433,273 @@ def trainer(fa, cfg=None, device="cuda", windows=TRAINER_WINDOWS, keep=None):
     return res
 
 
+def serial_programs(learner):
+    """learner.iter_chunked_update with `torch.cuda.synchronize()` after
+    every program it enqueues: the async pipeline made serial, the race
+    detector for its streams (a run of this script's own; the package has
+    no such switch)."""
+    pipelined = learner.iter_chunked_update
+
+    def serial(*args, **kw):
+        it = pipelined(*args, **kw)
+        while True:
+            try:
+                next(it)
+            except StopIteration as stop:
+                torch.cuda.synchronize()
+                return stop.value
+            torch.cuda.synchronize()
+            yield
+
+    return serial
+
+
+def state_tensors(ts):
+    """Every tensor of a TrainState that an update changes, copied to the CPU."""
+    lag = ts.lagrange
+    return ([p.detach().float().cpu() for p in ts.tower_params.values()]
+            + [t.cpu() for t in ts.opt_state.mu + ts.opt_state.nu]
+            + [lag.multiplier.cpu()] + [t.cpu() for t in lag.opt_state.mu + lag.opt_state.nu])
+
+
+def reference_async(fa, ln):
+    """The async pipeline of the small f32 policy on the card (4
+    FakeController streams x 8 steps, 3 windows, 2 epochs an update, stage 0
+    then 1): its final TrainState against a stale-by-one loop written out by
+    hand (collect, then the previous window's chunked_update on the default
+    stream, then the tower copy) at ASYNC_REF_TOL, and bit for bit against
+    the same run with a synchronise after every update program
+    (`serial_programs`); every kernel launched in the streamed run."""
+    from safevla_tpu_torch.config import Config, TrainConfig
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    m = dataclasses.replace(small_model_config(), fusion_chunk=8, async_fusion_chunk=8)
+    b, t = 4, 8
+    out_dir = os.path.join("output", "chip_smoke", "async_reference")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    states, counts = {}, {}
+    for run in ("streamed", "serial", "hand"):
+        cfg = Config(m, TrainConfig(num_train_processes=b, max_steps=8, output_dir=out_dir, tag=run))
+        cfg.ppo.num_steps = t
+        cfg.ppo.update_repeats = 2  # 29 programs an update, woven over 8 steps
+        cfg.train.stages[0].max_stage_steps = b * t  # update 0 and 1 in stage 0, 2 in stage 1
+        reseed_hosts(5)
+        tr = OnlineTrainer(cfg, make_sampler_factory(max_steps=5, image_hw=m.image_size), num_workers=0,
+                           log_fn=lambda metrics, step: None, device="cuda")
+        assert tr.async_pipeline  # the config's default
+        reset_kernel_counts(fa, ln)
+        if run == "hand":
+            learner, runner = tr.learner, tr.runner
+            ts = tr.init_state()
+            tr.act_policy.load_towers(tr.policy)
+            prev = None
+            for _ in range(3):
+                stage = learner.stage_for_step(ts.step)
+                batch, stats = runner.collect(t)
+                if prev is not None:
+                    ts, _ = learner.chunked_update(*prev)
+                    tr.act_policy.load_towers(tr.policy)
+                prev = (ts, batch, stats["mean_episode_cost"], stage)
+            ts, _ = learner.chunked_update(*prev)
+        else:
+            if run == "serial":
+                tr.learner.iter_chunked_update = serial_programs(tr.learner)
+            ts = tr.train(2 * b * t)  # 3 windows; the drain applies the third update
+        torch.cuda.synchronize()
+        tr.close()
+        assert ts.step == 3 * b * t, ts.step
+        states[run], counts[run] = state_tensors(ts), kernel_counts(fa, ln)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    serial_equal = all(torch.equal(a, c) for a, c in zip(states["streamed"], states["serial"]))
+    serial_diff = max((a - c).abs().max().item() for a, c in zip(states["streamed"], states["serial"]))
+    hand_diff = max((a - c).abs().max().item() for a, c in zip(states["streamed"], states["hand"]))
+    res = {"hand_loop_max_abs_diff": hand_diff, "tol": ASYNC_REF_TOL, "serial_bit_equal": serial_equal,
+           "serial_max_abs_diff": serial_diff, "launches_streamed": counts["streamed"],
+           "launches_hand": counts["hand"]}
+    log(f"[reference] async pipeline, small f32 policy: {json.dumps(res)}")
+    assert all(n > 0 for n in counts["streamed"].values()), counts["streamed"]
+    assert counts["streamed"] == counts["serial"] == counts["hand"], counts
+    assert serial_equal, f"the streamed run differs from the serial one by {serial_diff}"
+    assert hand_diff <= ASYNC_REF_TOL, f"the async trainer differs from the hand loop by {hand_diff}"
+    return res
+
+
+def chunked_update_launches(cfg, learner, b, t):
+    """Kernel launches of one chunked update, from the config: per epoch and
+    tower, one attention forward per packed-attention layer and two
+    LayerNorm forwards per fusion layer in every forward chunk and in every
+    backward chunk's recompute, and one backward each in the backward chunk."""
+    chunk_t, bwd_chunk_t = learner.chunk_sizes(b, t)
+    chunks = (t // chunk_t + t // bwd_chunk_t) * cfg.model.num_towers * cfg.ppo.update_repeats
+    bwd = t // bwd_chunk_t * cfg.model.num_towers * cfg.ppo.update_repeats
+    attn, norms = cfg.model.combiner_layers - 1, 2 * cfg.model.combiner_layers
+    return {"attention_fwd": chunks * attn, "attention_bwd": bwd * attn,
+            "layer_norm_fwd": chunks * norms, "layer_norm_bwd": bwd * norms}
+
+
+def chunked_check(fa, reference):
+    """Learner.chunked_update at the full default width in bf16, on `train`'s
+    synthetic 32 x 128 window at stage 1 from the seed's weights, against
+    `reference`, `train`'s first Learner.update from the same weights and
+    batch (its metrics and new tower weights): the largest weight difference
+    and the metrics' relative differences (held to CHUNKED_METRIC_RTOL), the
+    chunked update's wall, and its launches against the count its chunks
+    imply."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.ops import layer_norm as ln
+    from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
+
+    cfg = Config()
+    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+    policy = SafeVLAPolicy(cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed))
+    learner = Learner(policy, cfg)
+    ts = learner.init()
+    tokenizer = InstructionTokenizer(cfg.model.text_backbone, cfg.model.text_max_tokens)
+    tokens, mask = (torch.from_numpy(a).cuda() for a in tokenizer.encode_batch(INSTRUCTIONS))
+    with torch.no_grad():
+        text = policy.encode_text(tokens, mask)
+    batch = synthetic_batch(cfg.model, b, t, text, mask, seed=cfg.train.seed)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    torch.cuda.synchronize()
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    ts, metrics = learner.chunked_update(ts, batch, MEAN_EPISODE_COST, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, ln)
+    want = chunked_update_launches(cfg, learner, b, t)
+    assert launches == want, f"chunked update launches {launches}, expected {want}"
+    (m_u, w_u), m_c = reference, {k: float(v) for k, v in metrics.items()}
+    weight_diff = max((a - p.detach().float()).abs().max().item() for a, p in zip(w_u, ts.tower_params.values()))
+    metric_rel = {k: abs(m_c[k] - m_u[k]) / max(abs(m_u[k]), 1e-12) for k in m_u}
+    res = {"max_weight_abs_diff": weight_diff, "metric_rel_diff": metric_rel, "metric_rtol": CHUNKED_METRIC_RTOL,
+           "chunked_update_wall_ms": wall * 1e3, "programs": learner.chunked_program_count(b, t),
+           "chunked_launches": launches, "metrics_update": m_u, "metrics_chunked": m_c}
+    log(f"[train] chunked_update vs update, full width bf16: {json.dumps(res)}")
+    bad = {k: v for k, v in metric_rel.items() if v > CHUNKED_METRIC_RTOL and k != "lagrange_multiplier"}
+    assert not bad and metric_rel["lagrange_multiplier"] <= 1e-6, f"chunked vs update metrics: {bad}"
+    return res
+
+
+def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
+    """OnlineTrainer(Config()) with its default async pipeline at full width
+    (the sync trainer phase's 32 streams x 128 steps, stage 1), LayerNorm
+    kernels on, over `windows` windows: 1 fill (no update yet), 1 warm-up,
+    the timed ones, 1 profiled, then the drain of the last update. A window
+    runs from one collect to the next: its acts and the previous window's
+    update (pumped during its collect, the rest enqueued after it). Per
+    window: wall, env frames/s, rollout s, StageTimer sections and the
+    launches of every kernel, asserted against the count the config implies
+    (the acts, plus one chunked update from the second window on); the
+    profiled window's device time (it ends in a synchronise) against the
+    timed windows' median wall gives the idle share."""
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.ops import layer_norm as ln
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    cfg = cfg or trainer_config()
+    cfg.train.async_pipeline = True  # Config()'s default, which trainer_config turns off
+    cfg.train.tag = "trainer_async"
+    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+    shutil.rmtree(os.path.join(cfg.train.output_dir, cfg.train.tag), ignore_errors=True)
+    ln_kernels(True)
+    reseed_hosts(cfg.train.seed)
+    cuda = torch.device(device).type == "cuda"
+    logs = []
+    t0 = time.perf_counter()
+    tr = OnlineTrainer(
+        cfg, make_sampler_factory(max_steps=TRAINER_EPISODE_STEPS, image_hw=cfg.model.image_size),
+        num_workers=0, log_fn=lambda metrics, step: logs.append((step, metrics)), device=device,
+    )
+    assert tr.async_pipeline and tr.runner.policy is tr.act_policy is not tr.policy
+    model, vit_depth, groups = cfg.model, tr.policy.vit.cfg.depth, tr.runner.n_groups
+    setup_s = time.perf_counter() - t0
+    per_act = {"attention_fwd": vit_depth + model.num_towers * (model.combiner_layers - 1),
+               "attention_bwd": 0, "layer_norm_fwd": ln_launches_per_act(vit_depth, model), "layer_norm_bwd": 0}
+    per_update = chunked_update_launches(cfg, tr.learner, b, t)
+    marks, windows_out, prof_box = [], [], {}
+    collect = tr.runner.collect
+
+    def mark():
+        marks.append((time.perf_counter(), kernel_counts(fa, ln), dict(tr.runner.timer.totals)))
+        reset_kernel_counts(fa, ln)
+
+    def timed_collect(*args, **kw):
+        mark()
+        i = len(marks) - 1
+        if cuda and i == windows - 1:  # profile the last window
+            prof_box["p"] = device_profiler()
+            prof_box["p"].__enter__()
+        out = collect(*args, **kw)
+        if "p" in prof_box and i == windows - 1:
+            torch.cuda.synchronize()
+            prof_box["end"] = time.perf_counter()
+            prof_box["p"].__exit__(None, None, None)
+        return out
+
+    tr.runner.collect = timed_collect
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln)
+    ts = tr.train((windows - 1) * b * t)  # `windows` windows, as the JAX loop counts
+    if cuda:
+        torch.cuda.synchronize()
+    mark()
+    tr.close()
+    assert len(marks) == windows + 1 and ts.step == windows * b * t, (len(marks), ts.step)
+    assert [s for s, _ in logs] == [(k + 1) * b * t for k in range(windows)]
+    ckpt = os.path.join(tr.output_dir, f"step_{ts.step}")
+    assert os.path.isfile(os.path.join(ckpt, "train_state.pt")), "no final checkpoint"
+    shutil.rmtree(tr.output_dir, ignore_errors=True)
+    for i in range(windows):
+        (t_a, _, tot_a), (t_b, counts, tot_b) = marks[i], marks[i + 1]
+        acts = groups * t + (groups if i == 0 else 0)  # the first window also primes
+        updates = (i > 0) + (i == windows - 1)  # the previous window's; the drain's after the last
+        want = {k: acts * per_act[k] + updates * per_update[k] for k in per_act}
+        if cuda:
+            assert counts == want, f"async window {i}: launches {counts}, expected {want}"
+        step, metrics = logs[i]  # update i's log, written one window late
+        assert all(np.isfinite([v for v in metrics.values() if isinstance(v, float)])), metrics
+        # the log of update i-1 carries this window's rollout and the host's
+        # time in update i-1's programs, pumped during this window
+        pumped = logs[i - 1][1] if i > 0 else None
+        windows_out.append({
+            "window": i, "wall_s": t_b - t_a, "env_frames_per_s": b * t / (t_b - t_a),
+            "rollout_s": pumped["rollout_seconds"] if pumped else None,
+            "update_host_s": pumped["update_seconds"] if pumped else None,
+            "stage_s": {k: v - tot_a.get(k, 0.0) for k, v in tot_b.items()}, "launches": counts,
+            "update_step": step, "total": metrics["total"], "lagrange_multiplier": metrics["lagrange_multiplier"],
+        })
+        log(f"[trainer_async] {json.dumps(windows_out[-1])}")
+    timed = windows_out[2:-1]
+    wall = float(np.median([w["wall_s"] for w in timed]))
+    res = {
+        "streams": b, "steps": t, "overlap_groups": groups, "episode_steps": TRAINER_EPISODE_STEPS,
+        "image_hw": list(cfg.model.image_size), "ln_kernels": True, "stage": 1, "setup_s": setup_s,
+        "chunk_sizes": list(tr.learner.chunk_sizes(b, t)), "programs_per_update": tr.learner.chunked_program_count(b, t),
+        "programs_per_env_step": -(-tr.learner.chunked_program_count(b, t) // t),
+        "launches_per_steady_window": {k: groups * t * per_act[k] + per_update[k] for k in per_act},
+        "timed_windows": len(timed),
+        "window_wall_s_median": wall,
+        "env_frames_per_s_median": b * t / wall,
+        "rollout_s_median": float(np.median([w["rollout_s"] for w in timed])),
+        "update_host_s_median": float(np.median([w["update_host_s"] for w in timed])),
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None,
+        "windows": windows_out,
+    }
+    if "p" in prof_box:
+        device_ms, rows = device_rows(prof_box["p"])
+        res["device_ms_per_window"] = device_ms or None  # 0: the profiler saw no device time
+        res["device_idle_share"] = (1.0 - device_ms / (wall * 1e3)) if device_ms else None
+        res["profiled_window_wall_s"] = prof_box["end"] - marks[windows - 1][0]
+        res["top"] = [{"name": k[:80], "ms_per_window": ms, "calls_per_window": n} for k, ms, n in rows[:15]]
+    log(f"[trainer_async] {json.dumps({k: v for k, v in res.items() if k != 'windows'})}")
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -1481,8 +1783,29 @@ def main() -> int:
         check_attention_bwd(fa, "stream_vit_s448", 2 * STREAMS, 448, 6, vit_kl, gen, iters=10, plain_iters=3),
         check_attention_bwd(fa, "stream_s2048", 2, 2048, 6, [2048, 1500], gen, iters=5, plain_iters=2),
     ]
+    # the async update's chunks: the fusion forward of 64 samples (2 steps of
+    # 32 streams; no gradient) and of 32 (1 step: the backward chunk's
+    # recompute), and the backward of 32
+    embed_kl = [fusion_kl[i % len(fusion_kl)] for i in range(64)]
+    bwd_chunk_kl = [fusion_kl[i % len(fusion_kl)] for i in range(32)]
+    shapes += [check_attention(fa, "fusion_embed_chunk", 64, 208, 8, embed_kl, gen),
+               check_attention(fa, "fusion_bwd_chunk", 32, 208, 8, bwd_chunk_kl, gen)]
+    bwd_shapes.append(check_attention_bwd(fa, "fusion_bwd_chunk", 32, 208, 8, bwd_chunk_kl, gen))
+    # the rest of JAX's domain, on no path at Config(): the head dims the
+    # resident designs do not take (the streaming design at its padded head
+    # dim; head dim 8 at the ViT's 384 lanes is 16 bytes a row in bf16, 24 is
+    # 48 bytes) at the ViT serving shape, head dim 256 at 512 lanes, and S
+    # 4096, twice the old limit
+    for name, b, s, heads, kl, dh in (
+        [(f"vit_dh{dh}", 2 * STREAMS, 448, 384 // dh, vit_kl, dh) for dh in (8, 24, 48, 96)]
+        + [("vit_dh256_lanes512", 2 * STREAMS, 448, 2, vit_kl, 256), ("stream_s4096", 1, 4096, 6, [3000], 64)]
+    ):
+        shapes.append(check_attention(fa, name, b, s, heads, kl, gen, dh=dh, iters=5, plain_iters=2))
+        bwd_shapes.append(check_attention_bwd(fa, name, b, s, heads, kl, gen, dh=dh, iters=3, plain_iters=1))
     ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
-    ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES]
+    ln_fwd += [check_layer_norm(ln, name, r, d, torch.bfloat16, torch.bfloat16, gen) for name, r, d in LN_WIDE_SHAPES]
+    ln_fwd.append(check_layer_norm(ln, "wide_d4096_f32", 2 * STREAMS * 448, 4096, torch.float32, torch.float32, gen))
+    ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES + LN_WIDE_SHAPES]
     for res in ln_bwd:  # one cooperative kernel a call, dgamma / dbeta included
         assert res["kernels_per_call"] == 1, f"layer_norm_bwd {res['shape']}: {res['kernels_per_call']} kernels"
 
@@ -1495,15 +1818,19 @@ def main() -> int:
     ref_update = reference_update()
     ref_trainer = reference_trainer()
     ref_tiny = reference_tiny(fa, ln)
+    ref_async = reference_async(fa, ln)
     phase_done("reference")
     serving = serve(fa, ln_on=False)
     serving_ln = serve(fa, ln_on=True)
     phase_done("serving")
-    training = train(fa)
+    training, first_update = train(fa)
+    chunked = chunked_check(fa, first_update)
     phase_done("training")
     kept = {}
     online = trainer(fa, keep=kept)
     phase_done("trainer")
+    online_async = trainer_async(fa)
+    phase_done("trainer_async")
     evaluation = evaluate(fa, ln, kept)
     shutil.rmtree(kept["dir"], ignore_errors=True)
     phase_done("evaluate")
@@ -1511,6 +1838,9 @@ def main() -> int:
     # 7. results
     window_launches = {
         k: sum(w["launches"][k] for w in online["windows"]) for k in online["windows"][0]["launches"]
+    }
+    async_launches = {
+        k: sum(w["launches"][k] for w in online_async["windows"]) for k in online_async["windows"][0]["launches"]
     }
 
     def row(name, source, replaces, counterpart, launches, headline, all_shapes, tol, **extra):
@@ -1540,13 +1870,15 @@ def main() -> int:
             {"serving": serving["attention_launches"] + serving_ln["attention_launches"],
              "training": training["launches"]["attention_fwd"],
              "trainer": window_launches["attention_fwd"],
+             "trainer_async": async_launches["attention_fwd"],
              "evaluate": evaluation["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
         row("flash_attention_bwd", "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
             "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
-            {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"]},
+            {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"],
+             "trainer_async": async_launches["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -1556,6 +1888,7 @@ def main() -> int:
             {"serving": serving_ln["layer_norm_launches"],
              "training": training["launches"]["layer_norm_fwd"],
              "trainer": window_launches["layer_norm_fwd"],
+             "trainer_async": async_launches["layer_norm_fwd"],
              "evaluate": evaluation["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
@@ -1563,14 +1896,15 @@ def main() -> int:
         row("layer_norm_bwd", "safevla_tpu_torch/csrc/layer_norm.cu",
             "safevla_tpu/ops/layer_norm.py:60", "safevla_tpu/ops/layer_norm.py::_ln_bwd_kernel",
             {"training": training["launches"]["layer_norm_bwd"],
-             "trainer": window_launches["layer_norm_bwd"]},
+             "trainer": window_launches["layer_norm_bwd"],
+             "trainer_async": async_launches["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
             kernels_per_call=1),
     ]
-    for k in kernels:  # every kernel of the trainer's path ran in it
-        assert k["launches_trainer"] > 0, k["name"]
+    for k in kernels:  # every kernel of the trainers' paths ran in each
+        assert k["launches_trainer"] > 0 and k["launches_trainer_async"] > 0, k["name"]
     for k in kernels[0], kernels[2]:  # and the forward kernels in the evaluate phase
         assert k["launches_evaluate"] > 0, k["name"]
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -1580,6 +1914,9 @@ def main() -> int:
         f"training {training['ms_per_update_median_plain_ln']:.1f} / {training['ms_per_update_median']:.1f} "
         f"ms/update (off / on), trainer {online['env_frames_per_s_median']:.1f} env frames/s, "
         f"{online['rollout_s_median']:.2f} s rollout + {online['update_ms_median']:.1f} ms update per window, "
+        f"async trainer {online_async['env_frames_per_s_median']:.1f} env frames/s "
+        f"({online_async['window_wall_s_median']:.2f} s a window), async reference {ref_async}, "
+        f"chunked vs update weights {chunked['max_weight_abs_diff']}, "
         f"evaluate {evaluation['episodes_per_s']:.3f} episodes/s, {evaluation['act_ms_mean']:.1f} ms/act, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

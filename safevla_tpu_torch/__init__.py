@@ -9,11 +9,14 @@ environment stack).
 Ported so far: the serving path, `evaluation.agent.InferenceAgent.act`
 (augment -> normalise -> DINOv2 ViT -> 3 policy towers -> action); the
 learner update, `algo.learner.Learner.update` (GAE -> Lagrange ascent ->
-PPO epochs over `SafeVLAPolicy.forward_seq` -> optax's clip + Adam); and the
-sync online trainer, `training.online.OnlineTrainer.train` (`rollout.env_pool`
+PPO epochs over `SafeVLAPolicy.forward_seq` -> optax's clip + Adam); the
+online trainer, `training.online.OnlineTrainer.train` (`rollout.env_pool`
 -> `rollout.runner.RolloutRunner.collect` -> the update, with checkpoints),
-on a copy of the FakeController / ObjectNav environment stack (`envs`,
-`tasks`). The packed-qkv flash-attention forward and backward and the row
+sync and in the default async pipeline (the update as chunk programs,
+`Learner.iter_chunked_update`, on a CUDA stream of its own while the next
+window is collected), on a copy of the FakeController / ObjectNav
+environment stack (`envs`, `tasks`); and evaluation with checkpoint restore
+(`evaluation.evaluator.BatchedEvaluator`, `cli.evaluate`). The packed-qkv flash-attention forward and backward and the row
 LayerNorm forward and backward are hand-written CUDA kernels (`csrc/{flash_attention_fwd,flash_attention_bwd,
 layer_norm}.cu`, built at first use by `ops/_build.py`).
 

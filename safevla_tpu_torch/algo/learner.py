@@ -16,14 +16,21 @@ TrainState carries their weights for checkpoints, as the JAX one does). Where th
 JAX update returns new arrays, this one updates the policy's tower
 parameters and the Adam moments IN PLACE (no second copy of either): the
 returned `TrainState` is the one to keep, and the one passed in must not be
-updated again. The split and chunked decompositions of the JAX learner (the
-async pipeline) are not ported yet.
+updated again.
+
+The chunk-granular decomposition of the JAX learner (the async pipeline's
+`iter_chunked_update`) is ported too: the same update as many small programs
+(a fusion forward per chunk of time steps -> one decoder forward and backward
+-> the fusion backward per smaller chunk -> clip + Adam), as a generator
+that yields after each one. The JAX package's split (one-epoch) programs have
+no counterpart here: its chunked path uses only their prepare step, which is
+`_prepare`, shared with `update`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Tuple
 
 import torch
 
@@ -184,17 +191,11 @@ class Learner:
         )
         return total, metrics
 
-    def update(
-        self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int
-    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One rollout's worth of learning. `batch` holds (B, T, ...) arrays
-        or tensors (values, c_values, masks (B, T+1)); they are moved to the
-        policy's device. Metrics (0-d tensors on that device) are the last
-        epoch's."""
-        stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
+    def _prepare(self, train_state: TrainState, batch: Dict, mean_episode_cost, stage: StageSpec):
+        """GAE -> advantages -> lambda ascent (JAX `_prepare_body`), shared by
+        `update` and the chunked path: -> (the minibatch with advantages and
+        returns, the new Lagrange state, the multiplier)."""
         ppo = self.cfg.ppo
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-
         # 1. fused reward + cost GAE over the (T, B) layout
         rewards = torch.stack([batch["rewards"].T.float(), batch["costs"].T.float()])
         values = torch.stack([batch["values"].T.float(), batch["c_values"].T.float()])
@@ -215,26 +216,15 @@ class Learner:
         lagrange = train_state.lagrange
         if stage.use_lagrange:
             lagrange = update_lagrange(lagrange, mean_episode_cost, self.cfg.lagrange.multiplier_lr)
-        lam = multiplier_value(lagrange)
+        return mb, lagrange, multiplier_value(lagrange)
 
-        # 3. PPO epochs
-        params = list(train_state.tower_params.values())
-        opt_state = train_state.opt_state
-        for _ in range(ppo.update_repeats):
-            total, metrics = self._loss_fn(mb, lam, stage)
-            grads = torch.autograd.grad(total, params, allow_unused=True)
-            # optax steps every leaf: a parameter the loss did not reach gets 0
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-            with torch.no_grad():
-                clipped, metrics["grad_norm"] = clip_by_global_norm(grads, ppo.max_grad_norm)
-                metrics["weight_norm"] = global_norm(params)
-            opt_state = adam_step(params, clipped, opt_state, ppo.lr)
+    def _finish(self, train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t):
+        """The returned state and the last epoch's metrics (0-d tensors)."""
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["lagrange_multiplier"] = lam
         metrics["mean_episode_cost"] = torch.as_tensor(
             mean_episode_cost, dtype=torch.float32, device=self.device
         )
-        b, t = batch["rewards"].shape
         new_state = TrainState(
             tower_params=train_state.tower_params,
             frozen_params=train_state.frozen_params,
@@ -243,6 +233,148 @@ class Learner:
             step=train_state.step + b * t,
         )
         return new_state, metrics
+
+    def _apply(self, params, grads, opt_state, metrics) -> AdamState:
+        """Global-norm clip and one Adam step of `params` in place; the norms
+        go into `metrics`."""
+        with torch.no_grad():
+            clipped, metrics["grad_norm"] = clip_by_global_norm(grads, self.cfg.ppo.max_grad_norm)
+            metrics["weight_norm"] = global_norm(params)
+        return adam_step(params, clipped, opt_state, self.cfg.ppo.lr)
+
+    def update(
+        self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int
+    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """One rollout's worth of learning. `batch` holds (B, T, ...) arrays
+        or tensors (values, c_values, masks (B, T+1)); they are moved to the
+        policy's device. Metrics (0-d tensors on that device) are the last
+        epoch's."""
+        stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        mb, lagrange, lam = self._prepare(train_state, batch, mean_episode_cost, stage)
+
+        # 3. PPO epochs
+        params = list(train_state.tower_params.values())
+        opt_state = train_state.opt_state
+        for _ in range(self.cfg.ppo.update_repeats):
+            total, metrics = self._loss_fn(mb, lam, stage)
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            # optax steps every leaf: a parameter the loss did not reach gets 0
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+            opt_state = self._apply(params, grads, opt_state, metrics)
+        b, t = batch["rewards"].shape
+        return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
+
+    # ------------------------------------------------------------------
+    # chunk-granular update: the async pipeline pumps these programs one at
+    # a time between the rollout's acts
+    # ------------------------------------------------------------------
+    def chunk_sizes(self, b: int, t: int) -> Tuple[int, int]:
+        """(fwd_chunk_t, bwd_chunk_t): time steps per chunk program for a
+        (b, t) window. cfg.model.async_fusion_chunk (None: fusion_chunk; 0:
+        the whole window) counts flat samples; a chunk takes all b streams x
+        chunk_t steps, chunk_t the next divisor of t upward of knob / b; the
+        backward's is the largest divisor of t not above half of it."""
+        cfg_chunk = self.cfg.model.async_fusion_chunk
+        if cfg_chunk is None:
+            cfg_chunk = self.cfg.model.fusion_chunk
+        n = b * t
+        chunk_flat = min(cfg_chunk or n, n)
+        chunk_t = max(1, min(-(-chunk_flat // b), t))
+        while t % chunk_t:
+            chunk_t += 1
+        bwd_chunk_t = max(chunk_t // 2, 1)
+        while t % bwd_chunk_t:
+            bwd_chunk_t -= 1
+        return chunk_t, bwd_chunk_t
+
+    def chunked_program_count(self, b: int, t: int) -> int:
+        """Programs `iter_chunked_update` yields for a (b, t) window; the async
+        trainer pumps ceil(count / T) of them per env step."""
+        chunk_t, bwd_chunk_t = self.chunk_sizes(b, t)
+        return 1 + self.cfg.ppo.update_repeats * (t // chunk_t + t // bwd_chunk_t + 2)
+
+    def _embed(self, mb, start_t: int, chunk_t: int) -> torch.Tensor:
+        return self.policy.embed_time_range(
+            mb["dino_nav"], mb.get("dino_manip"), mb["text_hidden"], mb["text_mask"],
+            mb.get("text_idx"), start_t, chunk_t,
+        )
+
+    def iter_chunked_update(
+        self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int
+    ) -> Iterator[None]:
+        """Generator form of `update` (JAX `iter_chunked_update`): yields once
+        after each program, `chunked_program_count(B, T)` times, and returns
+        (new TrainState, metrics) through StopIteration.value. Its programs
+        (JAX `_make_chunked_fns`):
+          prepare     GAE, advantages, the lambda ascent (`_prepare`);
+          per epoch:
+          embed_chunk      the fusion forward (no gradient) of chunk_t steps
+                           of every stream into the (towers, B, T, D) f32
+                           embedding buffer;
+          decoder_grad     decoder and heads over the buffer, a leaf: the
+                           loss, its gradients in the decoder and head weights
+                           and in the buffer (d_obs);
+          fusion_bwd_chunk the fusion forward of bwd_chunk_t steps again, with
+                           a gradient, back-propagated against d_obs's slice;
+                           the weights' gradients added into g_acc in order;
+          apply            g_acc + the decoder's gradients, clip, Adam (in
+                           place, as `update`).
+        The tower weights change in place at each apply: the caller acts
+        with another copy of them while this runs (`acting_copy`)."""
+        stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        b, t = batch["prev_actions"].shape
+        chunk_t, bwd_chunk_t = self.chunk_sizes(b, t)
+        mb, lagrange, lam = self._prepare(train_state, batch, mean_episode_cost, stage)
+        yield
+        params = list(train_state.tower_params.values())
+        opt_state = train_state.opt_state
+        shape = (self.policy.num_towers, b, t, self.cfg.model.hidden_size)
+        metrics = None
+        for _ in range(self.cfg.ppo.update_repeats):
+            obs_buf = torch.zeros(shape, dtype=torch.float32, device=self.device)
+            for c in range(0, t, chunk_t):
+                with torch.no_grad():
+                    obs_buf[:, :, c : c + chunk_t] = self._embed(mb, c, chunk_t)
+                yield
+            obs_buf.requires_grad_(True)
+            out = self.policy.decode_from_embeds(
+                obs_buf, mb["prev_actions"], mb["not_reset"], mb.get("object_in_hand"),
+                mb["time_step"], mb["traj_idx"],
+            )
+            total, metrics = self._loss_from_outputs(out, mb, lam, stage)
+            *g_dec, d_obs = torch.autograd.grad(total, params + [obs_buf], allow_unused=True)
+            g_dec = [torch.zeros_like(p) if g is None else g for p, g in zip(params, g_dec)]
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            del out, total  # the generator's frame would hold the graph across the yield
+            yield
+            g_acc = [torch.zeros_like(p) for p in params]
+            for c in range(0, t, bwd_chunk_t):
+                emb = self._embed(mb, c, bwd_chunk_t)
+                grads = torch.autograd.grad(emb, params, d_obs[:, :, c : c + bwd_chunk_t], allow_unused=True)
+                with torch.no_grad():
+                    for acc, g in zip(g_acc, grads):
+                        if g is not None:
+                            acc.add_(g)
+                del emb, grads
+                yield
+            with torch.no_grad():
+                grads = [f + d for f, d in zip(g_acc, g_dec)]
+            opt_state = self._apply(params, grads, opt_state, metrics)
+            del obs_buf, d_obs, g_dec, g_acc, grads
+            yield
+        return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
+
+    def chunked_update(self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int):
+        """`iter_chunked_update` drained at once: the synchronous entry point
+        (the tests hold it to `update` and to JAX's chunked_update)."""
+        it = self.iter_chunked_update(train_state, batch, mean_episode_cost, stage_id)
+        while True:
+            try:
+                next(it)
+            except StopIteration as stop:
+                return stop.value
 
     def stage_for_step(self, step: int) -> int:
         acc = 0

@@ -18,10 +18,9 @@
 //   (j >= key_lens[b]) get exactly zero dk and dv. key_lens[b] must lie in
 //   [1, S]: the kernel traps otherwise.
 //
-// Head dims: Dh in {16, 32, 64, 128} (each design is a template over Dh,
-// instantiated for those four; another Dh is refused). Every path shape has
-// Dh = 64.
-//
+// Streaming (both dtypes, S above the resident limit and the head dims the
+// resident designs do not take; never at a path shape): CUDA-core f32 FMAs,
+// no plane of S rows resident.//
 // What bounds it on an H100: ~10*S*kl*Dh flops per (b, h) for the five
 // products (s, dp, dv, dq, dk) against 7*B*S*H*Dh IO elements (qkv and g
 // read once, dqkv written once). At the update's shape (S=208, Dh=64, ~190
@@ -38,7 +37,8 @@
 //         row <= 227 KB: Dh 16: 1648, 32: 864, 64: 432, 128: 224
 //   f32:  S x (3 x (Dh + 1) x 4 + 35 x 4) bytes <= 227 KB:
 //         Dh 16: 675, 32: 433, 64: 252, 128: 137
-// The wrapper takes S up to 2048 at every Dh. No design uses atomics: every
+// Above them, and at any S (offsets are 64-bit), the streaming design runs.
+// No design uses atomics: every
 // gradient row is summed by one warp in a fixed order, so two runs give the
 // same bits.
 //
@@ -88,8 +88,9 @@
 // ds recomputed with the same FMA order, so the same bits; dk and dv), f32
 // FMAs throughout.
 //
-// Streaming (both dtypes, S above the resident limit; never at a path
-// shape): CUDA-core f32 FMAs, no plane of S rows resident, three kernels in
+// Streaming (both dtypes, S above the resident limit and the head dims the
+// resident designs do not take; never at a path shape): CUDA-core f32 FMAs,
+// no plane of S rows resident, three kernels in
 // one call, no atomics (attention_stream.cuh: blocks of 8 warps owning 64
 // rows, 8 a warp, the other side streamed in two-slot rings of 32-row
 // tiles):
@@ -632,17 +633,22 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ----------------------------------------------------------- streaming ---
 
-// The three kernels' shared memory: 64 owned rows of two planes (Q and G, or
-// K and V), then two rings of two 32-row tiles each.
-template <typename T, int DH>
-size_t stream_smem_bytes() {
-  return static_cast<size_t>(2 * stream::kBlockRows + 4 * stream::kTileRows) *
-         stream::Rows<T, DH>::kStride;
+// Slots of each ring of streamed tiles: two (the next tile's copies in
+// flight while the current one is used) where the kernels' shared memory
+// then fits a block, else one (the next tile is copied after the current
+// one is used). One slot only at f32 and padded head dim 256: 2 x 64 owned
+// rows and 2 rings of 2 x 32 rows of 1040 bytes are 266,240 bytes, above the
+// 232,448 a block may use; with one slot a ring, 199,680.
+template <typename T, int DP>
+__host__ __device__ constexpr int stream_smem_bytes(int slots) {
+  return (2 * stream::kBlockRows + 2 * slots * stream::kTileRows) * stream::Rows<T, DP>::kStride;
 }
+template <typename T, int DP>
+constexpr int kSlots = stream_smem_bytes<T, DP>(2) <= stream::kMaxSmem ? 2 : 1;
 
 // Where a streaming kernel's operands live: qkv and g of one (head, batch
 // row), the statistics scratch (3, B, H, S) and dqkv.
-template <typename T, int DH>
+template <typename T>
 struct StreamView {
   const T* q;  // head column 0 of row 0 of q; k and v are lanes and 2 * lanes further
   const T* g;  // head column 0 of row 0 of g (rows `lanes` apart)
@@ -652,29 +658,30 @@ struct StreamView {
   size_t bhs;
 
   __device__ StreamView(const T* qkv, const T* g_all, T* dqkv, float* stats, const int* key_lens,
-                        int S, int H, long long stride_b) {
+                        int S, int H, int dh, long long stride_b) {
     const int h = static_cast<int>(blockIdx.y);
     const int b = static_cast<int>(blockIdx.z);
     kl = key_lens ? key_lens[b] : S;
     if (kl < 1 || kl > S) __trap();
-    lanes = H * DH;
-    q = qkv + b * stride_b + h * DH;
-    g = g_all + static_cast<size_t>(b) * S * lanes + h * DH;
-    dq = dqkv ? dqkv + b * stride_b + h * DH : nullptr;
+    lanes = H * dh;
+    q = qkv + b * stride_b + h * dh;
+    g = g_all + static_cast<size_t>(b) * S * lanes + h * dh;
+    dq = dqkv ? dqkv + b * stride_b + h * dh : nullptr;
     bhs = static_cast<size_t>(gridDim.z) * H * S;
     m = stats + (static_cast<size_t>(b) * H + h) * S;
   }
 };
 
-// Runs body(t, slot offset) over n tiles of 32 rows, the next tile's copies
-// (issued by load(t, slot offset), one commit group) in flight while the
-// current one is used.
-template <typename Load, typename Body>
+// Runs body(t, slot offset) over n tiles of 32 rows through rings of kS
+// slots: with two, the next tile's copies (issued by load(t, slot offset),
+// one commit group) are in flight while the current one is used; with one,
+// they are issued once every warp is done with it.
+template <int kS, typename Load, typename Body>
 __device__ __forceinline__ void over_tiles(int n, int tile_bytes, Load&& load, Body&& body) {
   load(0, 0);
   hopper::cp_async_commit();
   for (int t = 0; t < n; ++t) {
-    if (t + 1 < n) {
+    if (kS == 2 && t + 1 < n) {
       load(t + 1, ((t + 1) & 1) * tile_bytes);
       hopper::cp_async_commit();
       hopper::cp_async_wait<1>();
@@ -682,42 +689,60 @@ __device__ __forceinline__ void over_tiles(int n, int tile_bytes, Load&& load, B
       hopper::cp_async_wait<0>();
     }
     __syncthreads();
-    body(t, (t & 1) * tile_bytes);
+    body(t, kS == 2 ? (t & 1) * tile_bytes : 0);
     __syncthreads();  // every warp is done with this slot before it is refilled
+    if (kS == 1 && t + 1 < n) {
+      load(t + 1, 0);
+      hopper::cp_async_commit();
+    }
+  }
+}
+
+// The pad columns dh..DP-1 of every staged row: zeros, never copied over.
+template <typename T, int DP>
+__device__ __forceinline__ void zero_pad(unsigned char* smem, int dh) {
+  if (dh < DP) {
+    stream::zero_smem(smem, stream_smem_bytes<T, DP>(kSlots<T, DP>));
+    __syncthreads();
   }
 }
 
 // 1. m, rowsum and D of 64 query rows.
-template <typename T, int DH>
+template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                                const int* __restrict__ key_lens, float* __restrict__ stats, int S,
-                               int H, long long stride_b, long long stride_s, float scale) {
-  using R = stream::Rows<T, DH>;
+                               int H, int dh, long long stride_b, long long stride_s, float scale,
+                               int width) {
+  using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
+  constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T, DH> v(qkv, g_all, nullptr, stats, key_lens, S, H, stride_b);
+  const StreamView<T> v(qkv, g_all, nullptr, stats, key_lens, S, H, dh, stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  zero_pad<T, DP>(smem_raw, dh);
   unsigned char* q_s = smem_raw;
   unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
   unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
-  unsigned char* v_s = k_s + 2 * R::kTileBytes;
-  stream::load_rows<T, DH>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S);
-  stream::load_rows<T, DH>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S);
+  unsigned char* v_s = k_s + kS * R::kTileBytes;
+  stream::load_rows<T, DP>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S, dh,
+                           width);
+  stream::load_rows<T, DP>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S, dh,
+                           width);
   hopper::cp_async_commit();
   const unsigned char* my_q = q_s + warp * kRows * R::kStride;
   const unsigned char* my_g = g_s + warp * kRows * R::kStride;
   const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
   auto load_k = [&](int t, int slot) {
-    stream::load_rows<T, DH>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s,
-                             t * stream::kTileRows, stream::kTileRows, v.kl);
+    stream::load_rows<T, DP>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s,
+                             t * stream::kTileRows, stream::kTileRows, v.kl, dh, width);
   };
   auto load_kv = [&](int t, int slot) {
     load_k(t, slot);
-    stream::load_rows<T, DH>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s,
-                             t * stream::kTileRows, stream::kTileRows, v.kl);
+    stream::load_rows<T, DP>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s,
+                             t * stream::kTileRows, stream::kTileRows, v.kl, dh, width);
   };
 
   // K: the row max and rowsum, each lane over its own keys
@@ -727,12 +752,12 @@ __global__ void __launch_bounds__(stream::kThreads)
     m[r] = __int_as_float(0xff800000);
     l[r] = 0.f;
   }
-  over_tiles(n_tiles, R::kTileBytes, load_k, [&](int t, int slot) {
+  over_tiles<kS>(n_tiles, R::kTileBytes, load_k, [&](int t, int slot) {
     const unsigned char* k_row = k_s + slot + lane * R::kStride;
     if (t * stream::kTileRows + lane >= v.kl) return;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float s = stream::dot_rows<T, DP>(my_q + r * R::kStride, k_row) * scale;
       if (s > m[r]) {
         l[r] = l[r] * expf(m[r] - s) + 1.f;
         m[r] = s;
@@ -752,15 +777,15 @@ __global__ void __launch_bounds__(stream::kThreads)
   float dsum[kRows];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) dsum[r] = 0.f;
-  over_tiles(n_tiles, R::kTileBytes, load_kv, [&](int t, int slot) {
+  over_tiles<kS>(n_tiles, R::kTileBytes, load_kv, [&](int t, int slot) {
     const unsigned char* k_row = k_s + slot + lane * R::kStride;
     const unsigned char* v_row = v_s + slot + lane * R::kStride;
     if (t * stream::kTileRows + lane >= v.kl) return;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float s = stream::dot_rows<T, DP>(my_q + r * R::kStride, k_row) * scale;
       const float p = stream::round_io<T>(expf(s - m[r]) / l[r]);
-      const float dp = stream::dot_rows<T, DH>(my_g + r * R::kStride, v_row);
+      const float dp = stream::dot_rows<T, DP>(my_g + r * R::kStride, v_row);
       dsum[r] = fmaf(dp, p, dsum[r]);
     }
   });
@@ -777,48 +802,51 @@ __global__ void __launch_bounds__(stream::kThreads)
 }
 
 // 2. dk and dv of 64 key rows.
-template <typename T, int DH>
+template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                               const int* __restrict__ key_lens, const float* __restrict__ stats,
-                              T* __restrict__ dqkv, int S, int H, long long stride_b,
-                              long long stride_s, float scale) {
-  using R = stream::Rows<T, DH>;
+                              T* __restrict__ dqkv, int S, int H, int dh, long long stride_b,
+                              long long stride_s, float scale, int width) {
+  using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
+  constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T, DH> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, stride_b);
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, dh, stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int j0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
   const int d0 = R::kPer * lane;
-  const bool has_dims = d0 < DH;
+  const bool has_dims = d0 < DP;
   if (j0 >= v.kl) {  // every key row of the tile is masked: dk = dv = 0
     for (int r = warp; r < stream::kBlockRows && j0 + r < S; r += stream::kWarps) {
       if (!has_dims) continue;
       T* row = v.dq + (j0 + r) * stride_s + d0;
 #pragma unroll
-      for (int u = 0; u < R::kPer; ++u) row[v.lanes + u] = row[2 * v.lanes + u] = stream::from_f32<T>(0.f);
+      for (int u = 0; u < R::kPer; ++u)
+        if (d0 + u < dh) row[v.lanes + u] = row[2 * v.lanes + u] = stream::from_f32<T>(0.f);
     }
     return;
   }
+  zero_pad<T, DP>(smem_raw, dh);
   unsigned char* k_s = smem_raw;
   unsigned char* vv_s = k_s + stream::kBlockRows * R::kStride;
   unsigned char* q_s = vv_s + stream::kBlockRows * R::kStride;
-  unsigned char* g_s = q_s + 2 * R::kTileBytes;
-  stream::load_rows<T, DH>(hopper::smem_addr(k_s), v.q + v.lanes, stride_s, j0,
-                           stream::kBlockRows, v.kl);
-  stream::load_rows<T, DH>(hopper::smem_addr(vv_s), v.q + 2 * v.lanes, stride_s, j0,
-                           stream::kBlockRows, v.kl);
+  unsigned char* g_s = q_s + kS * R::kTileBytes;
+  stream::load_rows<T, DP>(hopper::smem_addr(k_s), v.q + v.lanes, stride_s, j0,
+                           stream::kBlockRows, v.kl, dh, width);
+  stream::load_rows<T, DP>(hopper::smem_addr(vv_s), v.q + 2 * v.lanes, stride_s, j0,
+                           stream::kBlockRows, v.kl, dh, width);
   hopper::cp_async_commit();
   const unsigned char* my_k = k_s + warp * kRows * R::kStride;
   const unsigned char* my_v = vv_s + warp * kRows * R::kStride;
   const int n_tiles = (S + stream::kTileRows - 1) / stream::kTileRows;
   auto load = [&](int t, int slot) {
     const int row0 = t * stream::kTileRows;
-    stream::load_rows<T, DH>(hopper::smem_addr(q_s) + slot, v.q, stride_s, row0,
-                             stream::kTileRows, S);
-    stream::load_rows<T, DH>(hopper::smem_addr(g_s) + slot, v.g, v.lanes, row0,
-                             stream::kTileRows, S);
+    stream::load_rows<T, DP>(hopper::smem_addr(q_s) + slot, v.q, stride_s, row0,
+                             stream::kTileRows, S, dh, width);
+    stream::load_rows<T, DP>(hopper::smem_addr(g_s) + slot, v.g, v.lanes, row0,
+                             stream::kTileRows, S, dh, width);
   };
 
   float dk[kRows][R::kPer], dv[kRows][R::kPer];
@@ -827,7 +855,7 @@ __global__ void __launch_bounds__(stream::kThreads)
 #pragma unroll
     for (int u = 0; u < R::kPer; ++u) dk[r][u] = dv[r][u] = 0.f;
   }
-  over_tiles(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
+  over_tiles<kS>(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
     const int i = t * stream::kTileRows + lane;  // this lane's query row
     const bool q_ok = i < S;
     const float mi = q_ok ? v.m[i] : 0.f;
@@ -839,16 +867,16 @@ __global__ void __launch_bounds__(stream::kThreads)
     const unsigned char* g_tile = g_s + slot;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(q_row, my_k + r * R::kStride) * scale;
+      const float s = stream::dot_rows<T, DP>(q_row, my_k + r * R::kStride) * scale;
       const float p = q_ok ? stream::round_io<T>(expf(s - mi) / li) : 0.f;
-      const float dp = stream::dot_rows<T, DH>(g_row, my_v + r * R::kStride);
+      const float dp = stream::dot_rows<T, DP>(g_row, my_v + r * R::kStride);
       const float dsb = stream::round_io<T>(p * (dp - di));
       for (int jq = 0; jq < stream::kTileRows; ++jq) {
         const float pj = __shfl_sync(0xffffffffu, p, jq);
         const float dj = __shfl_sync(0xffffffffu, dsb, jq);
         if (has_dims) {
-          stream::axpy_row<T, DH>(dv[r], pj, g_tile + jq * R::kStride, d0);
-          stream::axpy_row<T, DH>(dk[r], dj, q_tile + jq * R::kStride, d0);
+          stream::axpy_row<T, DP>(dv[r], pj, g_tile + jq * R::kStride, d0);
+          stream::axpy_row<T, DP>(dk[r], dj, q_tile + jq * R::kStride, d0);
         }
       }
     }
@@ -862,6 +890,7 @@ __global__ void __launch_bounds__(stream::kThreads)
     T* row = v.dq + j * stride_s + d0;
 #pragma unroll
     for (int u = 0; u < R::kPer; ++u) {
+      if (d0 + u >= dh) continue;
       row[v.lanes + u] = stream::from_f32<T>(key ? dk[r][u] * scale : 0.f);
       row[2 * v.lanes + u] = stream::from_f32<T>(key ? dv[r][u] : 0.f);
     }
@@ -869,27 +898,31 @@ __global__ void __launch_bounds__(stream::kThreads)
 }
 
 // 3. dq of 64 query rows.
-template <typename T, int DH>
+template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                             const int* __restrict__ key_lens, const float* __restrict__ stats,
-                            T* __restrict__ dqkv, int S, int H, long long stride_b,
-                            long long stride_s, float scale) {
-  using R = stream::Rows<T, DH>;
+                            T* __restrict__ dqkv, int S, int H, int dh, long long stride_b,
+                            long long stride_s, float scale, int width) {
+  using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
+  constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T, DH> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, stride_b);
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, dh, stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
   const int d0 = R::kPer * lane;
-  const bool has_dims = d0 < DH;
+  const bool has_dims = d0 < DP;
+  zero_pad<T, DP>(smem_raw, dh);
   unsigned char* q_s = smem_raw;
   unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
   unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
-  unsigned char* v_s = k_s + 2 * R::kTileBytes;
-  stream::load_rows<T, DH>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S);
-  stream::load_rows<T, DH>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S);
+  unsigned char* v_s = k_s + kS * R::kTileBytes;
+  stream::load_rows<T, DP>(hopper::smem_addr(q_s), v.q, stride_s, q0, stream::kBlockRows, S, dh,
+                           width);
+  stream::load_rows<T, DP>(hopper::smem_addr(g_s), v.g, v.lanes, q0, stream::kBlockRows, S, dh,
+                           width);
   hopper::cp_async_commit();
   const unsigned char* my_q = q_s + warp * kRows * R::kStride;
   const unsigned char* my_g = g_s + warp * kRows * R::kStride;
@@ -904,10 +937,10 @@ __global__ void __launch_bounds__(stream::kThreads)
   const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
   auto load = [&](int t, int slot) {
     const int row0 = t * stream::kTileRows;
-    stream::load_rows<T, DH>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s, row0,
-                             stream::kTileRows, v.kl);
-    stream::load_rows<T, DH>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s, row0,
-                             stream::kTileRows, v.kl);
+    stream::load_rows<T, DP>(hopper::smem_addr(k_s) + slot, v.q + v.lanes, stride_s, row0,
+                             stream::kTileRows, v.kl, dh, width);
+    stream::load_rows<T, DP>(hopper::smem_addr(v_s) + slot, v.q + 2 * v.lanes, stride_s, row0,
+                             stream::kTileRows, v.kl, dh, width);
   };
 
   float dq[kRows][R::kPer];
@@ -916,20 +949,20 @@ __global__ void __launch_bounds__(stream::kThreads)
 #pragma unroll
     for (int u = 0; u < R::kPer; ++u) dq[r][u] = 0.f;
   }
-  over_tiles(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
+  over_tiles<kS>(n_tiles, R::kTileBytes, load, [&](int t, int slot) {
     const bool valid = t * stream::kTileRows + lane < v.kl;
     const unsigned char* k_row = k_s + slot + lane * R::kStride;
     const unsigned char* v_row = v_s + slot + lane * R::kStride;
     const unsigned char* k_tile = k_s + slot;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float s = stream::dot_rows<T, DP>(my_q + r * R::kStride, k_row) * scale;
       const float p = valid ? stream::round_io<T>(expf(s - m[r]) / l[r]) : 0.f;
-      const float dp = stream::dot_rows<T, DH>(my_g + r * R::kStride, v_row);
+      const float dp = stream::dot_rows<T, DP>(my_g + r * R::kStride, v_row);
       const float dsb = stream::round_io<T>(p * (dp - d[r]));
       for (int j = 0; j < stream::kTileRows; ++j) {
         const float dj = __shfl_sync(0xffffffffu, dsb, j);
-        if (has_dims) stream::axpy_row<T, DH>(dq[r], dj, k_tile + j * R::kStride, d0);
+        if (has_dims) stream::axpy_row<T, DP>(dq[r], dj, k_tile + j * R::kStride, d0);
       }
     }
   });
@@ -940,7 +973,8 @@ __global__ void __launch_bounds__(stream::kThreads)
     if (row >= S) continue;
     T* out = v.dq + row * stride_s + d0;
 #pragma unroll
-    for (int u = 0; u < R::kPer; ++u) out[u] = stream::from_f32<T>(dq[r][u] * scale);
+    for (int u = 0; u < R::kPer; ++u)
+      if (d0 + u < dh) out[u] = stream::from_f32<T>(dq[r][u] * scale);
   }
 }
 
@@ -958,9 +992,10 @@ struct Args {
   const void* key_lens;
   void* dqkv;
   float* stats;
-  int B, S, H;
+  int B, S, H, dh;
   long long stride_b, stride_s;
   float scale;
+  int width;  // bytes a copy of the streaming design: 16, 8, 4 or 2
   cudaStream_t stream;
 };
 
@@ -988,51 +1023,49 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DP>
 cudaError_t launch_stream(const Args& a) {
-  const size_t smem = stream_smem_bytes<T, DH>();
-  cudaError_t err = set_smem(attention_bwd_stats_kernel<T, DH>, smem);
-  if (err == cudaSuccess) err = set_smem(attention_bwd_dkdv_kernel<T, DH>, smem);
-  if (err == cudaSuccess) err = set_smem(attention_bwd_dq_kernel<T, DH>, smem);
+  constexpr int smem = stream_smem_bytes<T, DP>(kSlots<T, DP>);
+  static_assert(smem <= stream::kMaxSmem, "the streaming backward's tiles must fit one block");
+  cudaError_t err = set_smem(attention_bwd_stats_kernel<T, DP>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_dkdv_kernel<T, DP>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_dq_kernel<T, DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
   const T* qkv = static_cast<const T*>(a.qkv);
   const T* g = static_cast<const T*>(a.g);
   const int* kl = static_cast<const int*>(a.key_lens);
   T* dqkv = static_cast<T*>(a.dqkv);
-  attention_bwd_stats_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  attention_bwd_stats_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  attention_bwd_dkdv_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  attention_bwd_dq_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.stride_b, a.stride_s, a.scale);
+  attention_bwd_dq_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   return cudaGetLastError();
 }
 
-// The launch of design `design` (0 resident, 1 streaming) for dtype and Dh.
+// The resident design for dtype at Dh (16, 32, 64 or 128).
 template <int DH>
-cudaError_t launch(const Args& a, int dtype, int design) {
-  if (design == 0) {
-    if (dtype == 0) return launch_bf16<DH>(a);
-    if (dtype == 1) return launch_f32<DH>(a);
-  } else {
-    if (dtype == 0) return launch_stream<__nv_bfloat16, DH>(a);
-    if (dtype == 1) return launch_stream<float, DH>(a);
-  }
+cudaError_t launch_resident(const Args& a, int dtype) {
+  if (dtype == 0) return launch_bf16<DH>(a);
+  if (dtype == 1) return launch_f32<DH>(a);
   return cudaErrorInvalidValue;
 }
 
-int dispatch(const Args& a, int head_dim, int dtype, int design) {
-  if (a.B < 1 || a.S < 1 || a.H < 1) return cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return launch<16>(a, dtype, design);
-    case 32: return launch<32>(a, dtype, design);
-    case 64: return launch<64>(a, dtype, design);
-    case 128: return launch<128>(a, dtype, design);
-    default: return cudaErrorInvalidValue;
-  }
+// The streaming design for dtype at the padded head dim DP >= dh.
+template <int DP>
+cudaError_t launch_streaming(const Args& a, int dtype) {
+  if (dtype == 0) return launch_stream<__nv_bfloat16, DP>(a);
+  if (dtype == 1) return launch_stream<float, DP>(a);
+  return cudaErrorInvalidValue;
+}
+
+bool valid_args(const Args& a) {
+  // grid.y and grid.z take at most 65535 blocks
+  return a.B >= 1 && a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535 && a.dh >= 1;
 }
 
 }  // namespace
@@ -1044,21 +1077,39 @@ int dispatch(const Args& a, int head_dim, int dtype, int design) {
 extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key_lens, void* dqkv,
                                  int B, int S, int H, int head_dim, long long stride_b,
                                  long long stride_s, float scale, int dtype, void* stream) {
-  const Args a{qkv, g, key_lens, dqkv, nullptr, B, S, H, stride_b, stride_s, scale,
+  const Args a{qkv, g, key_lens, dqkv, nullptr, B, S, H, head_dim, stride_b, stride_s, scale, 16,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, 0);
+  if (!valid_args(a)) return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return launch_resident<16>(a, dtype);
+    case 32: return launch_resident<32>(a, dtype);
+    case 64: return launch_resident<64>(a, dtype);
+    case 128: return launch_resident<128>(a, dtype);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The streaming design (CUDA cores, both dtypes; three kernels), same
-// arguments and `stats`, an f32 (3, B, H, S) scratch for m, rowsum and D:
-// the wrapper's choice above the resident designs' largest S.
+// arguments, `stats`, an f32 (3, B, H, S) scratch for m, rowsum and D, and
+// copy_bytes, the width of its row copies (16, 8, 4, or 2 for bf16; a
+// divisor of head_dim * the dtype's size): the wrapper's choice above the
+// resident designs' largest S and at every head dim from 1 to 256 that they
+// do not take, on the template of the padded head dim (the least of 16, 32,
+// 64, 128, 256 not below head_dim).
 extern "C" int attention_qkv_bwd_stream(const void* qkv, const void* g, const void* key_lens,
                                         void* dqkv, void* stats, int B, int S, int H, int head_dim,
                                         long long stride_b, long long stride_s, float scale,
-                                        int dtype, void* stream) {
-  const Args a{qkv, g, key_lens, dqkv, static_cast<float*>(stats), B, S, H, stride_b, stride_s,
-               scale, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, 1);
+                                        int dtype, int copy_bytes, void* stream) {
+  const Args a{qkv, g, key_lens, dqkv, static_cast<float*>(stats), B, S, H, head_dim, stride_b,
+               stride_s, scale, copy_bytes, static_cast<cudaStream_t>(stream)};
+  const int size = dtype == 0 ? 2 : 4;
+  if (!valid_args(a) || copy_bytes < size || (head_dim * size) % copy_bytes) return cudaErrorInvalidValue;
+  if (head_dim <= 16) return launch_streaming<16>(a, dtype);
+  if (head_dim <= 32) return launch_streaming<32>(a, dtype);
+  if (head_dim <= 64) return launch_streaming<64>(a, dtype);
+  if (head_dim <= 128) return launch_streaming<128>(a, dtype);
+  if (head_dim <= stream::kMaxHeadDim) return launch_streaming<256>(a, dtype);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* attention_qkv_bwd_error_string(int code) {

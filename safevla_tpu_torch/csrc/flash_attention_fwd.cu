@@ -13,9 +13,12 @@
 //   any other row. key_lens[b] must lie in [1, S]: the kernel traps
 //   otherwise (a host-side check would synchronise every call).
 //
-// Head dims: Dh in {16, 32, 64, 128} (each design is a template over Dh,
-// instantiated for those four; another Dh is refused). Every path shape has
-// Dh = 64.
+// Head dims: the resident designs are templates over Dh in {16, 32, 64,
+// 128}; every other head dim from 1 to 256 (the JAX kernel's domain:
+// lanes % 128 == 0 and lanes % heads == 0, any Dh) runs the streaming design,
+// on the template of its padded head dim (16, 32, 64, 128 or 256) with the
+// runtime Dh (attention_stream.cuh). Above 256 the wrapper refuses. Every
+// path shape has Dh = 64.
 //
 // What bounds it on an H100: 4*S*kl*Dh flops per (b, h) for q.k and p.v
 // against 2*B*S*4*H*Dh bytes (qkv read once, out written once) in bf16. At
@@ -34,7 +37,8 @@
 //         Dh 16: 7104, 32: 3456, 64: 1664, 128: 768
 //   f32:  S x ((Dh + 1) x 4 + 64) bytes <= 227 KB:
 //         Dh 16: 1760, 32: 1185, 64: 717, 128: 400
-// The wrapper takes S up to 2048 at every Dh.
+// Above them, and at any S (offsets into qkv and out are 64-bit), the
+// streaming design runs.
 //
 // bf16 (the policy's compute dtype: every launch on the main path) runs on
 // the tensor cores, mma.sync.m16n8k16 with f32 accumulators (helpers in
@@ -72,8 +76,9 @@
 // 8 rows each): lanes split the keys for q.k, shuffles reduce max and sum,
 // then lanes split the head dims for p.v, f32 FMAs throughout.
 //
-// Streaming (both dtypes, S above the resident limit; never at a path
-// shape): CUDA-core f32 FMAs, no plane of S rows resident. One block of 8
+// Streaming (both dtypes, S above the resident limit and the head dims the
+// resident designs do not take; never at a path shape): CUDA-core f32 FMAs,
+// no plane of S rows resident. One block of 8
 // warps per (64-query tile, head, batch row), the Q tile staged in shared
 // memory, 8 rows a warp; K (pass 1) and then K and V (pass 2) stream through
 // two-slot rings of 32-key tiles (attention_stream.cuh), the next tile's
@@ -388,19 +393,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ----------------------------------------------------------- streaming ---
 
-template <typename T, int DH>
-size_t stream_smem_bytes() {
+template <typename T, int DP>
+__host__ __device__ constexpr int stream_smem_bytes() {
   // the Q tile, then the K and V rings of two 32-row tiles each
-  return static_cast<size_t>(stream::kBlockRows + 4 * stream::kTileRows) *
-         stream::Rows<T, DH>::kStride;
+  return (stream::kBlockRows + 4 * stream::kTileRows) * stream::Rows<T, DP>::kStride;
 }
 
-template <typename T, int DH>
+template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_fwd_stream_kernel(const T* __restrict__ qkv, const int* __restrict__ key_lens,
-                                T* __restrict__ out, int S, int H, long long stride_b,
-                                long long stride_s, float scale) {
-  using R = stream::Rows<T, DH>;
+                                T* __restrict__ out, int S, int H, int dh, long long stride_b,
+                                long long stride_s, float scale, int width) {
+  using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
@@ -410,9 +414,13 @@ __global__ void __launch_bounds__(stream::kThreads)
   const int b = static_cast<int>(blockIdx.z);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
-  const int lanes = H * DH;
-  const T* base = qkv + b * stride_b + h * DH;
+  const int lanes = H * dh;
+  const T* base = qkv + b * stride_b + h * dh;
   const int n_tiles = (kl + stream::kTileRows - 1) / stream::kTileRows;
+  if (dh < DP) {  // the pad columns dh..DP-1 of every row: zeros, never copied over
+    stream::zero_smem(smem_raw, stream_smem_bytes<T, DP>());
+    __syncthreads();
+  }
 
   unsigned char* q_s = smem_raw;
   unsigned char* k_s = q_s + stream::kBlockRows * R::kStride;
@@ -420,17 +428,17 @@ __global__ void __launch_bounds__(stream::kThreads)
   const uint32_t q_a = hopper::smem_addr(q_s), k_a = hopper::smem_addr(k_s),
                  v_a = hopper::smem_addr(v_s);
   const unsigned char* my_q = q_s + warp * kRows * R::kStride;  // this warp's 8 query rows
-  stream::load_rows<T, DH>(q_a, base, stride_s, q0, stream::kBlockRows, S);
+  stream::load_rows<T, DP>(q_a, base, stride_s, q0, stream::kBlockRows, S, dh, width);
   hopper::cp_async_commit();
 
   // Tile t of K (and, when with_v, of V) into ring slot t & 1.
   auto load = [&](int t, bool with_v) {
     const int slot = (t & 1) * R::kTileBytes;
-    stream::load_rows<T, DH>(k_a + slot, base + lanes, stride_s, t * stream::kTileRows,
-                             stream::kTileRows, kl);
+    stream::load_rows<T, DP>(k_a + slot, base + lanes, stride_s, t * stream::kTileRows,
+                             stream::kTileRows, kl, dh, width);
     if (with_v)
-      stream::load_rows<T, DH>(v_a + slot, base + 2 * lanes, stride_s, t * stream::kTileRows,
-                               stream::kTileRows, kl);
+      stream::load_rows<T, DP>(v_a + slot, base + 2 * lanes, stride_s, t * stream::kTileRows,
+                               stream::kTileRows, kl, dh, width);
     hopper::cp_async_commit();
   };
   // Runs body(t, slot offset) over every key tile, the next tile's copy in
@@ -459,7 +467,7 @@ __global__ void __launch_bounds__(stream::kThreads)
     const bool valid = t * stream::kTileRows + lane < kl;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float s = stream::dot_rows<T, DP, true>(my_q + r * R::kStride, k_row) * scale;
       if (valid) m[r] = fmaxf(m[r], s);
     }
   });
@@ -468,7 +476,7 @@ __global__ void __launch_bounds__(stream::kThreads)
 
   // pass 2: e, the f32 denominator, p = io(e), and o = p . v
   const int d0 = R::kPer * lane;
-  const bool has_dims = d0 < DH;
+  const bool has_dims = d0 < DP;
   float o[kRows][R::kPer];
   float denom[kRows];
 #pragma unroll
@@ -483,13 +491,13 @@ __global__ void __launch_bounds__(stream::kThreads)
     const bool valid = t * stream::kTileRows + lane < kl;
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const float s = stream::dot_rows<T, DH>(my_q + r * R::kStride, k_row) * scale;
+      const float s = stream::dot_rows<T, DP, true>(my_q + r * R::kStride, k_row) * scale;
       const float e = valid ? expf(s - m[r]) : 0.f;
       denom[r] += e;
       const float p = stream::round_io<T>(e);
       for (int j = 0; j < stream::kTileRows; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
-        if (has_dims) stream::axpy_row<T, DH>(o[r], pj, v_tile + j * R::kStride, d0);
+        if (has_dims) stream::axpy_row<T, DP>(o[r], pj, v_tile + j * R::kStride, d0);
       }
     }
   });
@@ -499,9 +507,10 @@ __global__ void __launch_bounds__(stream::kThreads)
     const float den = stream::warp_sum(denom[r]);
     const int row = q0 + warp * kRows + r;
     if (row >= S || !has_dims) continue;
-    T* o_row = out + (static_cast<size_t>(b) * S + row) * lanes + h * DH + d0;
+    T* o_row = out + (static_cast<size_t>(b) * S + row) * lanes + h * dh + d0;
 #pragma unroll
-    for (int u = 0; u < R::kPer; ++u) o_row[u] = stream::from_f32<T>(o[r][u] / den);
+    for (int u = 0; u < R::kPer; ++u)
+      if (d0 + u < dh) o_row[u] = stream::from_f32<T>(o[r][u] / den);
   }
 }
 
@@ -517,9 +526,10 @@ struct Args {
   const void* qkv;
   const void* key_lens;
   void* out;
-  int B, S, H;
+  int B, S, H, dh;
   long long stride_b, stride_s;
   float scale;
+  int width;  // bytes a copy of the streaming design: 16, 8, 4 or 2
   cudaStream_t stream;
 };
 
@@ -547,40 +557,38 @@ cudaError_t launch_f32(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DP>
 cudaError_t launch_stream(const Args& a) {
-  const size_t smem = stream_smem_bytes<T, DH>();
-  cudaError_t err = set_smem(attention_fwd_stream_kernel<T, DH>, smem);
+  constexpr int smem = stream_smem_bytes<T, DP>();
+  static_assert(smem <= stream::kMaxSmem, "the streaming forward's tiles must fit one block");
+  cudaError_t err = set_smem(attention_fwd_stream_kernel<T, DP>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
-  attention_fwd_stream_kernel<T, DH><<<grid, stream::kThreads, smem, a.stream>>>(
+  attention_fwd_stream_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const int*>(a.key_lens), static_cast<T*>(a.out),
-      a.S, a.H, a.stride_b, a.stride_s, a.scale);
+      a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   return cudaGetLastError();
 }
 
-// The launch of design `design` (0 resident, 1 streaming) for dtype and Dh.
+// The resident design for dtype at Dh (16, 32, 64 or 128).
 template <int DH>
-cudaError_t launch(const Args& a, int dtype, int design) {
-  if (design == 0) {
-    if (dtype == 0) return launch_bf16<DH>(a);
-    if (dtype == 1) return launch_f32<DH>(a);
-  } else {
-    if (dtype == 0) return launch_stream<__nv_bfloat16, DH>(a);
-    if (dtype == 1) return launch_stream<float, DH>(a);
-  }
+cudaError_t launch_resident(const Args& a, int dtype) {
+  if (dtype == 0) return launch_bf16<DH>(a);
+  if (dtype == 1) return launch_f32<DH>(a);
   return cudaErrorInvalidValue;
 }
 
-int dispatch(const Args& a, int head_dim, int dtype, int design) {
-  if (a.B < 1 || a.S < 1 || a.H < 1) return cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 16: return launch<16>(a, dtype, design);
-    case 32: return launch<32>(a, dtype, design);
-    case 64: return launch<64>(a, dtype, design);
-    case 128: return launch<128>(a, dtype, design);
-    default: return cudaErrorInvalidValue;
-  }
+// The streaming design for dtype at the padded head dim DP >= dh.
+template <int DP>
+cudaError_t launch_streaming(const Args& a, int dtype) {
+  if (dtype == 0) return launch_stream<__nv_bfloat16, DP>(a);
+  if (dtype == 1) return launch_stream<float, DP>(a);
+  return cudaErrorInvalidValue;
+}
+
+bool valid_args(const Args& a) {
+  // grid.y and grid.z take at most 65535 blocks
+  return a.B >= 1 && a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535 && a.dh >= 1;
 }
 
 }  // namespace
@@ -592,19 +600,38 @@ int dispatch(const Args& a, int head_dim, int dtype, int design) {
 extern "C" int attention_qkv_fwd(const void* qkv, const void* key_lens, void* out, int B, int S,
                                  int H, int head_dim, long long stride_b, long long stride_s,
                                  float scale, int dtype, void* stream) {
-  const Args a{qkv, key_lens, out, B, S, H, stride_b, stride_s, scale,
+  const Args a{qkv, key_lens, out, B, S, H, head_dim, stride_b, stride_s, scale, 16,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, 0);
+  if (!valid_args(a)) return cudaErrorInvalidValue;
+  switch (head_dim) {
+    case 16: return launch_resident<16>(a, dtype);
+    case 32: return launch_resident<32>(a, dtype);
+    case 64: return launch_resident<64>(a, dtype);
+    case 128: return launch_resident<128>(a, dtype);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-// The streaming design (CUDA cores, both dtypes), same arguments: the
-// wrapper's choice above the resident designs' largest S.
+// The streaming design (CUDA cores, both dtypes), same arguments and
+// copy_bytes, the width of its row copies (16, 8, 4, or 2 for bf16; a
+// divisor of head_dim * the dtype's size): the wrapper's choice above the
+// resident designs' largest S and at every head dim from 1 to 256 that they
+// do not take. It runs the template of the padded head dim (the least of 16,
+// 32, 64, 128, 256 not below head_dim).
 extern "C" int attention_qkv_fwd_stream(const void* qkv, const void* key_lens, void* out, int B,
                                         int S, int H, int head_dim, long long stride_b,
-                                        long long stride_s, float scale, int dtype, void* stream) {
-  const Args a{qkv, key_lens, out, B, S, H, stride_b, stride_s, scale,
+                                        long long stride_s, float scale, int dtype, int copy_bytes,
+                                        void* stream) {
+  const Args a{qkv, key_lens, out, B, S, H, head_dim, stride_b, stride_s, scale, copy_bytes,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, head_dim, dtype, 1);
+  const int size = dtype == 0 ? 2 : 4;
+  if (!valid_args(a) || copy_bytes < size || (head_dim * size) % copy_bytes) return cudaErrorInvalidValue;
+  if (head_dim <= 16) return launch_streaming<16>(a, dtype);
+  if (head_dim <= 32) return launch_streaming<32>(a, dtype);
+  if (head_dim <= 64) return launch_streaming<64>(a, dtype);
+  if (head_dim <= 128) return launch_streaming<128>(a, dtype);
+  if (head_dim <= stream::kMaxHeadDim) return launch_streaming<256>(a, dtype);
+  return cudaErrorInvalidValue;
 }
 
 extern "C" const char* attention_qkv_fwd_error_string(int code) {

@@ -11,8 +11,9 @@
 //   backward (g cast to f32 first): xhat = (x - mu) * rs, gh = g * gamma,
 //   dx = rs * (gh - mean(gh) - xhat * mean(gh * xhat)) rounded to x's dtype;
 //   dgamma = sum_rows g * xhat and dbeta = sum_rows g in f32.
-// gamma and beta are f32. x, the output and g are bfloat16 or float32; D is a
-// multiple of 128 up to 1024 (ViT-S 384, the fusion 512).
+// gamma and beta are f32. x, the output and g are bfloat16 or float32; D is
+// any multiple of 128 (the JAX kernel's layout rule): up to 1024 (ViT-S 384,
+// the fusion 512) the register designs below, above it the wide designs.
 //
 // What bounds it on an H100: bytes. The forward reads x and writes y once
 // for ~8 flops per element, the backward reads x and g and writes dx for ~20:
@@ -38,6 +39,17 @@
 // order into one partial row of a workspace; after a grid-wide barrier each
 // block sums a slice of the columns over all partial rows, in block order,
 // and writes dgamma and dbeta. No atomics: the same bits on every run.
+//
+// Wide designs (D above 1024, where a row no longer fits the registers of the
+// lanes that hold it; on no path of the repo's configs): a block of 8 warps
+// a row, rows in a grid-stride loop, and each row read again from global
+// memory (L1 / L2) instead of held. The forward reads x once for the sums,
+// then again for y. The backward reads x for mu and rs, x and g for mean(gh)
+// and mean(gh * xhat), then x and g once more for dx; its per-block partial
+// dgamma / dbeta row lives in the workspace itself (the thread that owns a
+// column adds to it, rows in order), and the grid barrier and the fold are
+// the register design's, so the result is as deterministic. The block sums
+// go through shared memory in warp order.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -48,7 +60,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxVecs = 8;  // D <= 1024
+constexpr int kMaxVecs = 8;  // D <= 1024: the register designs; wider rows take the wide ones
 constexpr int kFwdWarps = 8;
 constexpr int kFwdThreads = kFwdWarps * 32;
 // lanes a bf16 row: a half-warp in the looping forward (two rows a warp, in
@@ -415,6 +427,126 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   fold_partials(part, gridDim.x, 2 * D, dparams, &red[0][0]);
 }
 
+// ---- the wide designs (D > 1024): a block a row, each row read again ----------
+
+// four consecutive elements from global memory, in f32 (an ordinary load:
+// the row is read again, from L1 / L2)
+__device__ __forceinline__ float4 ld4f(const float* p) { return load4(p); }
+__device__ __forceinline__ float4 ld4f(const __nv_bfloat16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// (a, b) summed over the block, the same on every thread: warp sums, then
+// the warps' in warp order. `sm` holds 2 * kWideWarps floats; the leading
+// barrier keeps its last use apart from this one.
+constexpr int kWideWarps = 8;
+constexpr int kWideThreads = kWideWarps * 32;
+__device__ __forceinline__ float2 block_sum2(float a, float b, float* sm) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    sm[threadIdx.x >> 5] = a;
+    sm[kWideWarps + (threadIdx.x >> 5)] = b;
+  }
+  __syncthreads();
+  float2 r = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) {
+    r.x += sm[w];
+    r.y += sm[kWideWarps + w];
+  }
+  return r;
+}
+
+template <typename TX, typename TO>
+__global__ void __launch_bounds__(kWideThreads)
+    layer_norm_fwd_wide_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
+                               const float* __restrict__ beta, TO* __restrict__ out, int R, int D,
+                               float eps) {
+  __shared__ float sm[2 * kWideWarps];
+  const float inv_d = 1.f / static_cast<float>(D);
+  for (int row = blockIdx.x; row < R; row += gridDim.x) {  // the same trip count for the block
+    const TX* xr = x + static_cast<size_t>(row) * D;
+    float s = 0.f, s2 = 0.f;
+    for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+      const float4 v = ld4f(xr + c);
+      s += (v.x + v.y) + (v.z + v.w);
+      s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+    }
+    const float2 t = block_sum2(s, s2, sm);
+    const float mu = t.x * inv_d;
+    const float rs = rsqrtf(fmaxf(0.f, t.y * inv_d - mu * mu) + eps);
+    TO* orow = out + static_cast<size_t>(row) * D;
+    for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+      const float4 v = ld4f(xr + c), g4 = load4(gamma + c), b4 = load4(beta + c);
+      store4(orow + c, make_float4((v.x - mu) * (rs * g4.x) + b4.x, (v.y - mu) * (rs * g4.y) + b4.y,
+                                   (v.z - mu) * (rs * g4.z) + b4.z, (v.w - mu) * (rs * g4.w) + b4.w));
+    }
+  }
+}
+
+// part: (gridDim.x, 2D) f32 workspace, one row [dgamma | dbeta] a block,
+// accumulated in place; dparams: (2, D) f32, written after the grid barrier
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(kWideThreads)
+    layer_norm_bwd_wide_kernel(const TX* __restrict__ x, const float* __restrict__ gamma,
+                               const TG* __restrict__ g, TX* __restrict__ dx, float* part,
+                               float* dparams, int R, int D, float eps) {
+  __shared__ float sm[2 * kWideWarps];
+  __shared__ float scratch[kBwdThreads];
+  const float inv_d = 1.f / static_cast<float>(D);
+  float* prow = part + static_cast<size_t>(blockIdx.x) * 2 * D;
+  for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+    store4(prow + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    store4(prow + D + c, make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+  // this block's rows: a fixed, contiguous share of R
+  const int start = static_cast<int>(static_cast<long long>(blockIdx.x) * R / gridDim.x);
+  const int end = static_cast<int>(static_cast<long long>(blockIdx.x + 1) * R / gridDim.x);
+  for (int row = start; row < end; ++row) {
+    const size_t off = static_cast<size_t>(row) * D;
+    float s = 0.f, s2 = 0.f;
+    for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+      const float4 v = ld4f(x + off + c);
+      s += (v.x + v.y) + (v.z + v.w);
+      s2 += (v.x * v.x + v.y * v.y) + (v.z * v.z + v.w * v.w);
+    }
+    const float2 t = block_sum2(s, s2, sm);
+    const float mu = t.x * inv_d;
+    const float rs = rsqrtf(fmaxf(0.f, t.y * inv_d - mu * mu) + eps);
+    float s1 = 0.f, sx = 0.f;
+    for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+      const float4 v = ld4f(x + off + c), gv = ld4f(g + off + c), gm = load4(gamma + c);
+      const float4 xh = make_float4((v.x - mu) * rs, (v.y - mu) * rs, (v.z - mu) * rs, (v.w - mu) * rs);
+      const float4 gh = make_float4(gv.x * gm.x, gv.y * gm.y, gv.z * gm.z, gv.w * gm.w);
+      s1 += (gh.x + gh.y) + (gh.z + gh.w);
+      sx += (gh.x * xh.x + gh.y * xh.y) + (gh.z * xh.z + gh.w * xh.w);
+    }
+    const float2 u = block_sum2(s1, sx, sm);
+    const float m1 = u.x * inv_d, m2 = u.y * inv_d;
+    for (int c = 4 * threadIdx.x; c < D; c += 4 * kWideThreads) {
+      const float4 v = ld4f(x + off + c), gv = ld4f(g + off + c), gm = load4(gamma + c);
+      const float4 xh = make_float4((v.x - mu) * rs, (v.y - mu) * rs, (v.z - mu) * rs, (v.w - mu) * rs);
+      store4(dx + off + c, make_float4(rs * (gv.x * gm.x - m1 - xh.x * m2),
+                                       rs * (gv.y * gm.y - m1 - xh.y * m2),
+                                       rs * (gv.z * gm.z - m1 - xh.z * m2),
+                                       rs * (gv.w * gm.w - m1 - xh.w * m2)));
+      float4 dg = load4(prow + c), db = load4(prow + D + c);
+      dg.x += gv.x * xh.x, dg.y += gv.y * xh.y, dg.z += gv.z * xh.z, dg.w += gv.w * xh.w;
+      db.x += gv.x, db.y += gv.y, db.z += gv.z, db.w += gv.w;
+      store4(prow + c, dg);
+      store4(prow + D + c, db);
+    }
+  }
+  __threadfence();
+  cg::this_grid().sync();  // every partial row written and visible
+  fold_partials(part, gridDim.x, 2 * D, dparams, scratch);
+}
+
 // ---- launches ----------------------------------------------------------------
 
 // switches to `device` for the launch when it is not current, and back after
@@ -514,6 +646,47 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* g, void* dx
                                      dim3(blocks), dim3(kBwdThreads), args, 0, stream);
 }
 
+template <typename TX, typename TO>
+cudaError_t launch_fwd_wide(const void* x, const void* gamma, const void* beta, void* out, int R,
+                            int D, float eps, int device, cudaStream_t stream) {
+  static int per_sm_cache = 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t err =
+      blocks_per_sm(layer_norm_fwd_wide_kernel<TX, TO>, kWideThreads, &per_sm_cache, &per_sm);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err != cudaSuccess) return err;
+  const int blocks = R < per_sm * sms ? R : per_sm * sms;  // at most one wave, a row a block
+  layer_norm_fwd_wide_kernel<TX, TO><<<blocks, kWideThreads, 0, stream>>>(
+      static_cast<const TX*>(x), static_cast<const float*>(gamma), static_cast<const float*>(beta),
+      static_cast<TO*>(out), R, D, eps);
+  return cudaGetLastError();
+}
+
+template <typename TX, typename TG>
+cudaError_t bwd_wide_max_blocks(int device, int* n) {
+  static int per_sm_cache = 0;
+  int per_sm = 0, sms = 0;
+  cudaError_t err =
+      blocks_per_sm(layer_norm_bwd_wide_kernel<TX, TG>, kWideThreads, &per_sm_cache, &per_sm);
+  if (err == cudaSuccess) err = sm_count(device, &sms);
+  if (err == cudaSuccess) *n = per_sm * sms;
+  return err;
+}
+
+template <typename TX, typename TG>
+cudaError_t launch_bwd_wide(const void* x, const void* gamma, const void* g, void* dx, void* part,
+                            void* dparams, int R, int D, int blocks, float eps, cudaStream_t stream) {
+  const TX* xp = static_cast<const TX*>(x);
+  const float* gp = static_cast<const float*>(gamma);
+  const TG* gg = static_cast<const TG*>(g);
+  TX* dxp = static_cast<TX*>(dx);
+  float* pp = static_cast<float*>(part);
+  float* op = static_cast<float*>(dparams);
+  void* args[] = {&xp, &gp, &gg, &dxp, &pp, &op, &R, &D, &eps};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(layer_norm_bwd_wide_kernel<TX, TG>),
+                                     dim3(blocks), dim3(kWideThreads), args, 0, stream);
+}
+
 // dispatch on NV = D / 128 (1..8)
 #define LN_DISPATCH_NV(NVAR, CALL) \
   switch (NVAR) {                  \
@@ -537,23 +710,27 @@ cudaError_t launch_bwd(const void* x, const void* gamma, const void* g, void* dx
   return cudaErrorInvalidValue;
 
 template <typename TX, typename TO>
-cudaError_t fwd_nv(int nv, const void* x, const void* gamma, const void* beta, void* out, int R,
+cudaError_t fwd_nv(int D, const void* x, const void* gamma, const void* beta, void* out, int R,
                    float eps, int device, cudaStream_t st) {
-  LN_DISPATCH_NV(nv, (launch_fwd<TX, TO, NV>(x, gamma, beta, out, R, eps, device, st)))
+  if (D / 128 > kMaxVecs) return launch_fwd_wide<TX, TO>(x, gamma, beta, out, R, D, eps, device, st);
+  LN_DISPATCH_NV(D / 128, (launch_fwd<TX, TO, NV>(x, gamma, beta, out, R, eps, device, st)))
 }
 
 template <typename TX, typename TG>
-cudaError_t bwd_nv(int nv, const void* x, const void* gamma, const void* g, void* dx, void* part,
+cudaError_t bwd_nv(int D, const void* x, const void* gamma, const void* g, void* dx, void* part,
                    void* dparams, int R, int blocks, float eps, cudaStream_t st) {
-  LN_DISPATCH_NV(nv, (launch_bwd<TX, TG, NV>(x, gamma, g, dx, part, dparams, R, blocks, eps, st)))
+  if (D / 128 > kMaxVecs)
+    return launch_bwd_wide<TX, TG>(x, gamma, g, dx, part, dparams, R, D, blocks, eps, st);
+  LN_DISPATCH_NV(D / 128, (launch_bwd<TX, TG, NV>(x, gamma, g, dx, part, dparams, R, blocks, eps, st)))
 }
 
 template <typename TX, typename TG>
-cudaError_t max_blocks_nv(int nv, int device, int* n) {
-  LN_DISPATCH_NV(nv, (bwd_max_blocks<TX, TG, NV>(device, n)))
+cudaError_t max_blocks_nv(int D, int device, int* n) {
+  if (D / 128 > kMaxVecs) return bwd_wide_max_blocks<TX, TG>(device, n);
+  LN_DISPATCH_NV(D / 128, (bwd_max_blocks<TX, TG, NV>(device, n)))
 }
 
-bool valid_shape(int R, int D) { return R >= 1 && D >= 128 && D % 128 == 0 && D / 128 <= kMaxVecs; }
+bool valid_shape(int R, int D) { return R >= 1 && D >= 128 && D % 128 == 0; }
 
 }  // namespace
 
@@ -570,7 +747,7 @@ extern "C" int layer_norm_fwd(const void* x, const void* gamma, const void* beta
   if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LN_DISPATCH_DTYPES(x_dtype, out_dtype, fwd_nv,
-                     (D / 128, x, gamma, beta, out, R, eps, device, st))
+                     (D, x, gamma, beta, out, R, eps, device, st))
 }
 
 // part: f32 (blocks, 2D) workspace; dparams: f32 (2, D), [dgamma; dbeta].
@@ -584,7 +761,7 @@ extern "C" int layer_norm_bwd(const void* x, const void* gamma, const void* g, v
   if (guard.err != cudaSuccess) return guard.err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   LN_DISPATCH_DTYPES(x_dtype, g_dtype, bwd_nv,
-                     (D / 128, x, gamma, g, dx, part, dparams, R, blocks, eps, st))
+                     (D, x, gamma, g, dx, part, dparams, R, blocks, eps, st))
 }
 
 // *n = the most blocks of the backward's cooperative kernel for this D and
@@ -593,7 +770,7 @@ extern "C" int layer_norm_bwd_max_blocks(int D, int x_dtype, int g_dtype, int de
   if (!valid_shape(1, D)) return cudaErrorInvalidValue;
   DeviceGuard guard(device);
   if (guard.err != cudaSuccess) return guard.err;
-  LN_DISPATCH_DTYPES(x_dtype, g_dtype, max_blocks_nv, (D / 128, device, static_cast<int*>(n)))
+  LN_DISPATCH_DTYPES(x_dtype, g_dtype, max_blocks_nv, (D, device, static_cast<int*>(n)))
 }
 
 extern "C" const char* layer_norm_error_string(int code) {

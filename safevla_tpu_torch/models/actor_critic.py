@@ -2,11 +2,14 @@
 -> actor / reward-critic / cost-critic.
 
 Counterpart of `safevla_tpu/models/actor_critic.py`: the serving path
-(`act_step`, `init_state`, `update_text`) and the update's full-sequence
+(`act_step`, `init_state`, `update_text`), the update's full-sequence
 forward (`forward_seq`: fusion over the packed B*T samples in checkpointed
-chunks, then the decoder over the packed block-causal mask, then the heads).
-The async pipeline's `embed_time_range` / `decode_from_embeds` are not
-ported yet. Three `PolicyTower` modules run one after another
+chunks, then the decoder over the packed block-causal mask, then the heads)
+and its chunk-granular pieces for the async pipeline (`embed_time_range`:
+the fusion over a range of time steps of every stream; `decode_from_embeds`:
+decoder and heads over a buffer of those embeddings), and `acting_copy`, the
+policy the async pipeline's rollout acts with (towers of its own, the frozen
+encoders shared). Three `PolicyTower` modules run one after another
 (the JAX package vmaps one tower over stacked parameters); logits come from
 tower 0, values from tower 1, cost values from tower 2. Trainable tower
 parameters are f32 and cast to the compute dtype at use, as flax's Dense
@@ -19,6 +22,7 @@ the reference prefixes its critic towers with `critic_tsfm.` and
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -434,6 +438,80 @@ class SafeVLAPolicy(nn.Module):
             )
         logits, values, value_logits, sg = zip(*outs)
         return self._package_outputs(logits, values, value_logits, sg)
+
+    # -------------- chunk-granular update decomposition --------------
+    # The async pipeline runs the PPO epoch as many small programs woven
+    # between the rollout's acts (algo/learner.py iter_chunked_update): the
+    # same math as forward_seq, the fusion over a range of time steps of all
+    # B streams, and the decoder and heads over the gathered embeddings.
+
+    def _chunk_text(self, text_hidden, text_mask, text_idx, b: int, start_t: int, chunk_t: int):
+        """Per-step instruction encodings of the time steps [start_t,
+        start_t + chunk_t) of every stream, flattened b-major to
+        (B*chunk_t, L, D), from forward_seq's three layouts; only the range
+        is gathered."""
+        n = b * chunk_t
+        if text_idx is not None:
+            rows = torch.arange(b, device=text_idx.device)[:, None]
+            idx = text_idx[:, start_t : start_t + chunk_t].long()
+            return (
+                text_hidden[rows, idx].reshape((n,) + text_hidden.shape[2:]),
+                text_mask[rows, idx].reshape(n, -1),
+            )
+        if text_hidden.dim() == 4:
+            sl = lambda x: x[:, start_t : start_t + chunk_t]
+            return sl(text_hidden).reshape((n,) + text_hidden.shape[2:]), sl(text_mask).reshape(n, -1)
+        # per-stream (B, L, D): each stream's encoding serves its chunk_t rows
+        return text_hidden.repeat_interleave(chunk_t, dim=0), text_mask.repeat_interleave(chunk_t, dim=0)
+
+    def embed_time_range(
+        self, dino_nav, dino_manip, text_hidden, text_mask, text_idx, start_t: int, chunk_t: int
+    ) -> torch.Tensor:
+        """Fusion embeddings of the time steps [start_t, start_t + chunk_t)
+        of every stream -> (towers, B, chunk_t, D) f32 (the towers one after
+        another; JAX vmaps them). `start_t` is a host int. Chunking along T,
+        not the flat B*T index, keeps the batch axis whole in every chunk."""
+        b = dino_nav.shape[0]
+        n = b * chunk_t
+        sl = lambda x: None if x is None else x[:, start_t : start_t + chunk_t].reshape((n,) + x.shape[2:])
+        dn, dm = sl(dino_nav), sl(dino_manip)
+        th, tm = self._chunk_text(text_hidden, text_mask, text_idx, b, start_t, chunk_t)
+        return torch.stack([tower.embed_obs(dn, dm, th, tm).reshape(b, chunk_t, -1) for tower in self.towers])
+
+    def decode_from_embeds(
+        self, obs_embeds, prev_actions, not_reset, object_in_hand, time_step, traj_idx
+    ) -> PolicyOutputs:
+        """Decoder + heads over a buffer of fusion embeddings, obs_embeds
+        (towers, B, T, D) f32 (the output of embed_time_range calls), with
+        the packed block-causal mask of traj_idx."""
+        attn_mask = packed_block_causal_mask(traj_idx)
+        outs = [
+            tower.decode_heads(emb, prev_actions, not_reset, object_in_hand, time_step, attn_mask)
+            for tower, emb in zip(self.towers, obs_embeds)
+        ]
+        logits, values, value_logits, sg = zip(*outs)
+        return self._package_outputs(logits, values, value_logits, sg)
+
+    def acting_copy(self) -> "SafeVLAPolicy":
+        """A policy for the async pipeline's rollout: a deep copy of the
+        towers (their own tensors, no gradient), the frozen ViT and T5
+        modules shared with this one. JAX acts with an immutable pytree of
+        parameters; here the learner steps its towers in place while the
+        rollout acts, so the rollout needs its own. `load_towers` refreshes
+        them."""
+        clone = copy.copy(self)
+        clone._modules = type(self._modules)(self._modules)
+        clone._parameters = type(self._parameters)(self._parameters)
+        clone._buffers = type(self._buffers)(self._buffers)
+        clone.towers = copy.deepcopy(self.towers).requires_grad_(False)
+        return clone
+
+    @torch.no_grad()
+    def load_towers(self, source: "SafeVLAPolicy") -> None:
+        """Copy source's tower weights into this policy's towers, in place,
+        on the current stream."""
+        for dst, src in zip(self.towers.parameters(), source.towers.parameters()):
+            dst.copy_(src)
 
     def _package_outputs(self, logits, values, value_logits, sg) -> PolicyOutputs:
         """Per-tower head outputs -> PolicyOutputs (actor from tower 0; with

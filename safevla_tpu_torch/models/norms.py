@@ -7,8 +7,8 @@ eps 1e-6 (torch's nn.LayerNorm default is 1e-5), output cast to `out_dtype`
 nn.LayerNorm, so reference state dicts load by name.
 
 CompatLayerNorm runs `ops.layer_norm.layer_norm`: on a CUDA tensor the row
-LayerNorm kernels (the port of the Pallas LayerNorm, which raise above D =
-1024) where D is a multiple of 128, the JAX module's own condition for its
+LayerNorm kernels (the port of the Pallas LayerNorm; rows wider than 1024
+take their wide designs) where D is a multiple of 128, the JAX module's own condition for its
 kernel, and the plain version at any other D, as the JAX module runs its
 plain math there; on a CPU tensor the plain version. The JAX package takes its kernel only under `SAFEVLA_PALLAS_LN=1`,
 for XLA's layout assignment around the custom call; eager PyTorch has no such

@@ -13,10 +13,12 @@ text, padded ViT tokens).
   `dense_attention` runs on the card, with the key mask built from
   `key_lens`.
 * On a CUDA tensor `attention_qkv` launches `csrc/flash_attention_fwd.cu`
-  (the port of the Pallas `_fwd_kernel`) or raises; it never falls back. The
-  kernels take head dims `KERNEL_HEAD_DIMS` and S up to `MAX_S`; above the
-  largest S of a resident design (`resident_max_s`) the wrapper launches the
-  same source's streaming design.
+  (the port of the Pallas `_fwd_kernel`) or raises; it never falls back.
+  `attention_design` picks the design before any launch: the resident
+  designs at head dims `KERNEL_HEAD_DIMS` up to their largest S
+  (`resident_max_s`), the same source's streaming design at any other S and
+  at every other head dim up to `MAX_HEAD_DIM` (JAX's kernel takes any head
+  dim; above 256 the wrapper raises, naming the shared memory it would need).
 * On a CPU tensor it runs `attention_qkv_reference`, the plain PyTorch
   version with the kernel's rounding points: f32 logits scaled by 1/sqrt(Dh),
   -1e30 on masked columns, f32 max/exp/denominator, probabilities cast to the
@@ -42,31 +44,38 @@ import math
 import torch
 
 _NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # head dims the CUDA kernels are compiled for
-MAX_S = 2048  # the longest sequence the kernels take (the streaming designs)
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # head dims the resident designs are compiled for
+STREAM_HEAD_DIMS = (16, 32, 64, 128, 256)  # padded head dims of the streaming designs
+MAX_HEAD_DIM = STREAM_HEAD_DIMS[-1]  # the widest head dim the kernels take
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on an H100 (227 KB)
+MAX_GRID_YZ = 65535  # blocks a launch may have along grid.y (heads) and grid.z (batch rows)
+STREAM_BLOCK_ROWS, STREAM_TILE_ROWS = 64, 32  # csrc/attention_stream.cuh kBlockRows, kTileRows
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _FWD_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, key_lens, out
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
     ctypes.c_longlong, ctypes.c_longlong,  # stride_b, stride_s (elements)
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
+    ctypes.c_float, ctypes.c_int,  # scale, dtype
 ]
 _C_ARGTYPES = {
-    "attention_qkv_fwd": (_FWD_ARGS, ctypes.c_int),
-    "attention_qkv_fwd_stream": (_FWD_ARGS, ctypes.c_int),
+    "attention_qkv_fwd": (_FWD_ARGS + [ctypes.c_void_p], ctypes.c_int),  # stream
+    # the streaming design takes the bytes of its row copies before the stream
+    "attention_qkv_fwd_stream": (_FWD_ARGS + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "attention_qkv_fwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 _BWD_PTRS = [ctypes.c_void_p] * 4  # qkv, g, key_lens, dqkv
 _BWD_REST = [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
     ctypes.c_longlong, ctypes.c_longlong,  # qkv / dqkv stride_b, stride_s (elements)
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,  # scale, dtype, stream
+    ctypes.c_float, ctypes.c_int,  # scale, dtype
 ]
 _C_ARGTYPES_BWD = {
-    "attention_qkv_bwd": (_BWD_PTRS + _BWD_REST, ctypes.c_int),
-    # the streaming design takes an f32 (3, B, H, S) scratch after dqkv
-    "attention_qkv_bwd_stream": (_BWD_PTRS + [ctypes.c_void_p] + _BWD_REST, ctypes.c_int),
+    "attention_qkv_bwd": (_BWD_PTRS + _BWD_REST + [ctypes.c_void_p], ctypes.c_int),
+    # the streaming design takes an f32 (3, B, H, S) scratch after dqkv, and
+    # the bytes of its row copies before the stream
+    "attention_qkv_bwd_stream": (
+        _BWD_PTRS + [ctypes.c_void_p] + _BWD_REST + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
+    ),
     "attention_qkv_bwd_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 
@@ -90,6 +99,59 @@ def resident_max_s(kind: str, dtype: torch.dtype, dh: int) -> int:
     if dtype == torch.bfloat16:  # 4 planes and 3 f32 statistics a row, rows in 16s
         return 16 * (SMEM_PER_BLOCK // (16 * (4 * dh * 2 + 3 * 4)))
     return SMEM_PER_BLOCK // (3 * (dh + 1) * 4 + (2 * 16 + 3) * 4)
+
+
+def padded_head_dim(dh: int) -> int:
+    """The streaming designs' template for head dim `dh`: the least of
+    STREAM_HEAD_DIMS not below it (the pad columns are zeros)."""
+    for dp in STREAM_HEAD_DIMS:
+        if dh <= dp:
+            return dp
+    raise ValueError(f"no streaming template takes head dim {dh}")
+
+
+def copy_width(dh: int, itemsize: int) -> int:
+    """Bytes a copy of the streaming designs' row loads: the widest of 16,
+    8, 4 and 2 that divides a head slice (dh * itemsize bytes). With a
+    contiguous qkv every row start and head offset is a multiple of the
+    slice, so one width serves every copy: 16 (cp.async.cg) where the slice
+    is whole 16-byte chunks, 8 or 4 (cp.async.ca) at e.g. bf16 head dim 12
+    (24 bytes), 2 (a plain load and store) at an odd bf16 head dim."""
+    return next(w for w in (16, 8, 4, 2) if (dh * itemsize) % w == 0)
+
+
+def stream_smem_bytes(kind: str, dtype: torch.dtype, dp: int) -> int:
+    """Shared memory a block of the streaming design of `kind` takes at the
+    padded head dim dp (csrc/flash_attention_{fwd,bwd}.cu): rows of dp
+    elements plus a 16-byte pad; the forward's 64 owned query rows and two
+    rings (K, V) of two 32-row tiles; the backward's 128 owned rows and two
+    rings of two tiles, or of one where two do not fit."""
+    stride = dp * torch.tensor([], dtype=dtype).element_size() + 16
+    if kind == "fwd":
+        return (STREAM_BLOCK_ROWS + 4 * STREAM_TILE_ROWS) * stride
+    for slots in (2, 1):
+        nbytes = (2 * STREAM_BLOCK_ROWS + 2 * slots * STREAM_TILE_ROWS) * stride
+        if nbytes <= SMEM_PER_BLOCK:
+            return nbytes
+    return nbytes
+
+
+def attention_design(kind: str, dtype: torch.dtype, dh: int, s: int) -> str:
+    """"resident" or "streaming": the design of `kind` ("fwd" or "bwd") that
+    a CUDA call at (dtype, head dim, S) launches, decided before any launch.
+    Raises for a head dim above MAX_HEAD_DIM, with the reason."""
+    if dh in KERNEL_HEAD_DIMS and s <= resident_max_s(kind, dtype, dh):
+        return "resident"
+    if dh > MAX_HEAD_DIM:
+        wide = {dt: stream_smem_bytes("fwd", dt, 2 * MAX_HEAD_DIM) for dt in _DTYPE_CODES}
+        raise ValueError(
+            f"the CUDA kernels take head dims up to {MAX_HEAD_DIM}, not {dh}: the streaming "
+            f"design's next template (padded head dim {2 * MAX_HEAD_DIM}) would need "
+            f"{wide[torch.float32]} bytes of shared memory a block in f32 (the limit is "
+            f"{SMEM_PER_BLOCK}), and in bf16 ({wide[torch.bfloat16]} bytes) 2 x 8 x 16 f32 "
+            f"accumulators a lane in its backward, past the 255 registers a thread may hold"
+        )
+    return "streaming"
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -151,10 +213,11 @@ def _check_cuda_args(qkv, dh, b, key_lens, what: str) -> None:
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA kernel takes bfloat16 or float32, not {qkv.dtype}")
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim in {KERNEL_HEAD_DIMS}, not {dh}")
-    if qkv.shape[1] > MAX_S:
-        raise ValueError(f"the CUDA kernel takes S up to {MAX_S}, not {qkv.shape[1]}")
+    if b > MAX_GRID_YZ or qkv.shape[2] // (3 * dh) > MAX_GRID_YZ or qkv.shape[1] >= 2**31:
+        raise ValueError(
+            f"the CUDA kernel takes B and heads up to {MAX_GRID_YZ} (a launch's grid.z and "
+            f"grid.y) and S below 2**31, not {tuple(qkv.shape)} at head dim {dh}"
+        )
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs a contiguous, 16-byte aligned qkv")
     if key_lens is not None:
@@ -184,8 +247,8 @@ def _attention_qkv_fwd(qkv, heads, key_lens):
     from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_fwd", _C_ARGTYPES)
+    stream = attention_design("fwd", qkv.dtype, dh, s) == "streaming"
     out = torch.empty((b, s, lanes), dtype=qkv.dtype, device=qkv.device)
-    stream = s > resident_max_s("fwd", qkv.dtype, dh)
     with torch.cuda.device(qkv.device):
         launch(
             lib, "attention_qkv_fwd_stream" if stream else "attention_qkv_fwd",
@@ -196,6 +259,7 @@ def _attention_qkv_fwd(qkv, heads, key_lens):
             qkv.stride(0), qkv.stride(1),
             1.0 / math.sqrt(dh),
             _DTYPE_CODES[qkv.dtype],
+            *([copy_width(dh, qkv.element_size())] if stream else []),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     attention_qkv.launches += 1
@@ -222,8 +286,8 @@ def attention_qkv_bwd(
     from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_bwd", _C_ARGTYPES_BWD)
+    stream = attention_design("bwd", qkv.dtype, dh, s) == "streaming"
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-    stream = s > resident_max_s("bwd", qkv.dtype, dh)
     # the streaming design's scratch: m, rowsum and D of every query row
     stats = torch.empty((3, b, heads, s), device=qkv.device) if stream else None
     with torch.cuda.device(qkv.device):
@@ -238,6 +302,7 @@ def attention_qkv_bwd(
             qkv.stride(0), qkv.stride(1),
             1.0 / math.sqrt(dh),
             _DTYPE_CODES[qkv.dtype],
+            *([copy_width(dh, qkv.element_size())] if stream else []),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     attention_qkv_bwd.launches += 1

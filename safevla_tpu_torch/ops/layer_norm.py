@@ -23,8 +23,10 @@ its per-block partial dgamma / dbeta rows, from a workspace allocated here)
 or raise; they never fall back. On a CPU tensor both run their plain
 versions, `layer_norm_fwd_reference` and `layer_norm_bwd_reference`,
 through the same autograd Function. x, the output and g are bfloat16 or
-float32; the kernels take D a multiple of 128 up to 1024 (MAX_DIM) and raise
-above it.
+float32; the kernels take every D that is a multiple of 128, as the Pallas
+kernels do: up to REGISTER_MAX_DIM the register designs (a row held in the
+registers of the lanes that take it), above it the wide designs (a block a
+row, the row read again from L1 / L2), `ln_design` deciding before the launch.
 
 The call path is kept short, since a call's host time is longer than its
 kernel at every shape of the path: the library's C functions are resolved
@@ -41,7 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-MAX_DIM = 1024
+REGISTER_MAX_DIM = 1024  # the widest row of the register designs (csrc/layer_norm.cu kMaxVecs)
 _VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _C_ARGTYPES = {
     "layer_norm_fwd": (
@@ -74,6 +76,13 @@ def kernel_takes_dim(d: int) -> bool:
     the Pallas kernel's layout precondition): the kernels' function where D
     is a multiple of 128, the plain math elsewhere."""
     return d % 128 == 0
+
+
+def ln_design(d: int) -> str:
+    """The design of csrc/layer_norm.cu that a CUDA call at width D (a
+    multiple of 128) launches: "register" up to REGISTER_MAX_DIM, "wide"
+    above it."""
+    return "register" if d <= REGISTER_MAX_DIM else "wide"
 
 
 def _stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,8 +138,8 @@ def _check_cuda(x2, xc, d, gamma, dev, what) -> None:
     alignment; gamma f32 (D,), aligned, on x's card."""
     if xc is None:
         raise ValueError(f"{what}: the CUDA kernel takes bfloat16 or float32, not {x2.dtype}")
-    if d % 128 or not 0 < d <= MAX_DIM:
-        raise ValueError(f"{what}: the CUDA kernel takes D a multiple of 128 up to {MAX_DIM}, not {d}")
+    if d % 128 or d <= 0:
+        raise ValueError(f"{what}: the CUDA kernel takes D a multiple of 128, not {d}")
     if not x2.is_contiguous() or x2.data_ptr() % 16:
         raise ValueError(f"{what}: the CUDA kernel needs contiguous, 16-byte aligned rows")
     if gamma.shape != (d,) or gamma.get_device() != dev or gamma.data_ptr() % 16:

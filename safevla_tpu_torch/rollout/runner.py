@@ -34,9 +34,12 @@ Differences from the JAX runner:
   * the time step, global step and row offset of a group step are host
     integers, not part of the upload; the per-stream int32 columns are
     stored as one (T, B, 9) block and split when the batch is assembled.
-Not ported yet: the multi-device mesh, the merged action fetch
-(`SAFEVLA_MERGED_FETCH=1` raises NotImplementedError) and the async
-pipeline's interleave hook.
+  * the async pipeline (training/online.py) builds the runner on an
+    acting copy of the policy (`SafeVLAPolicy.acting_copy`: towers of its
+    own, the frozen encoders shared), since the learner steps its towers in
+    place while the rollout acts; JAX acts with an immutable pytree.
+Not ported yet: the multi-device mesh and the merged action fetch
+(`SAFEVLA_MERGED_FETCH=1` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import dataclasses
 import os
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -439,14 +442,18 @@ class RolloutRunner:
             self._cur[g] = self._ingest(env_steps, g)
 
     # ------------------------------------------------------------------
-    def collect(self, num_steps: int):
+    def collect(self, num_steps: int, interleave_fn: Optional[Callable[[int], None]] = None):
         """Collect a rollout window with the policy's current weights;
         returns (learner batch of (B, T) device tensors, stats).
 
         Software-pipelined over stream groups: at the top of each time step
         every group has a device step in flight; fetching group g's actions
         and stepping its simulators overlaps the other groups' device work,
-        and g's next dispatch overlaps the remaining groups' env stepping."""
+        and g's next dispatch overlaps the remaining groups' env stepping.
+
+        `interleave_fn(t)`, when given, is called after each completed time
+        step t: the async trainer enqueues programs of the previous window's
+        update there, after this step's acts."""
         T = num_steps
         if not self._text_initialized:
             for g in range(self.n_groups):
@@ -485,6 +492,8 @@ class RolloutRunner:
                     inflight[g] = self._dispatch(g, t + 1, storage)
                 else:
                     inflight[g] = None
+            if interleave_fn is not None:
+                interleave_fn(t)
 
         # bootstrap act on the T-th observation of each group, written as
         # step 0 of the next window's storage

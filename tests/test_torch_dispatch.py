@@ -13,6 +13,16 @@ same shape rules as the JAX package, decided before any launch.
   the card, acts and takes one update on the port (CPU; the card's side is
   tests/test_torch_kernels_gpu.py).
 
+* Inside that domain the port's design choice (`attention_design`, a pure
+  function decided before any launch): the resident designs at their head
+  dims up to their largest S, the streaming design at every other S and
+  every other head dim up to 256 (including ones JAX admits at lanes 384 and
+  640: 1, 3, 12, 24, 40, 48, 96, 192), with tiles that fit a block's shared
+  memory and a copy width that divides the head slice; above 256 it raises.
+  The plain attention at head dims 8, 12 and 48 and the plain LayerNorm at
+  D 1152 and 2048 (the wide designs' widths) against the Pallas kernels in
+  interpret mode.
+
 The JAX dispatchers are observed with their two branches replaced by
 recorders, under `jax.eval_shape`, so nothing is computed on the JAX side.
 """
@@ -28,6 +38,7 @@ import torch
 import torch_port_tiny as tiny
 from safevla_tpu.models import norms as jnorms
 from safevla_tpu.ops import flash_attention as jfa
+from safevla_tpu.ops.layer_norm import layer_norm_rows
 from safevla_tpu_torch.algo.learner import Learner
 from safevla_tpu_torch.config import Config, ModelConfig, TrainConfig
 from safevla_tpu_torch.evaluation.agent import InferenceAgent
@@ -126,3 +137,92 @@ def test_tiny_conftest_config_acts_and_updates(tiny_port_cfg):
     ts, metrics = learner.update(ts, batch, 3.0, 1)
     assert all(np.isfinite(float(v)) for v in metrics.values())
     assert any(not torch.equal(a, p.detach()) for a, p in zip(before, ts.tower_params.values()))
+
+
+DESIGN_HEAD_DIMS = [1, 3, 8, 12, 16, 24, 32, 40, 48, 64, 96, 128, 192, 256, 384]
+DESIGN_S = [1, 65, 208, 432, 433, 448, 1664, 1665, 2048, 2049, 4096]
+
+
+@pytest.mark.parametrize("dh", DESIGN_HEAD_DIMS)
+def test_attention_design_on_a_grid(dh):
+    """attention_design at (kind, dtype, S) for one head dim: resident
+    exactly where the head dim is a resident template and S is within that
+    design's limit, streaming at every other (head dim <= 256) shape, with
+    the streaming tiles inside a block's shared memory and a copy width of
+    the widest of 16 / 8 / 4 / 2 bytes that divides the head slice; above
+    256 it raises, naming the shared memory and the limit."""
+    for kind in ("fwd", "bwd"):
+        for dtype in (torch.bfloat16, torch.float32):
+            size = torch.tensor([], dtype=dtype).element_size()
+            for s in DESIGN_S:
+                if dh > fa.MAX_HEAD_DIM:
+                    with pytest.raises(ValueError, match=f"up to {fa.MAX_HEAD_DIM}, not {dh}.*232448"):
+                        fa.attention_design(kind, dtype, dh, s)
+                    continue
+                resident = dh in fa.KERNEL_HEAD_DIMS and s <= fa.resident_max_s(kind, dtype, dh)
+                assert fa.attention_design(kind, dtype, dh, s) == ("resident" if resident else "streaming")
+            if dh > fa.MAX_HEAD_DIM:
+                continue
+            dp = fa.padded_head_dim(dh)
+            assert dp in fa.STREAM_HEAD_DIMS and dh <= dp and (dp == 16 or dp // 2 < dh)
+            assert fa.stream_smem_bytes(kind, dtype, dp) <= fa.SMEM_PER_BLOCK
+            w = fa.copy_width(dh, size)
+            assert (dh * size) % w == 0 and all((dh * size) % (2 * w) for _ in [0] if w < 16)
+            assert w >= size
+    # the designs' choice at the two old refusals: S 2049 and 4096 stream
+    assert fa.attention_design("fwd", torch.bfloat16, 64, 4096) == "streaming"
+    # the f32 backward at padded head dim 256 takes one ring slot: two do not fit
+    assert fa.stream_smem_bytes("bwd", torch.float32, 256) == (128 + 64) * 1040
+
+
+def test_every_head_dim_jax_admits_up_to_256_has_a_design():
+    """Every (lanes, heads) of JAX's kernel rule on the grid, at a head dim
+    up to 256, gets a design at every S of the grid; none raises."""
+    for lanes in LANES:
+        for heads in HEADS + [lanes // d for d in (1, 3, 12, 24, 48) if lanes % d == 0]:
+            if heads < 1 or not fa.kernel_takes(lanes, heads) or lanes // heads > fa.MAX_HEAD_DIM:
+                continue
+            for s in DESIGN_S:
+                for dtype in (torch.bfloat16, torch.float32):
+                    assert fa.attention_design("fwd", dtype, lanes // heads, s) in ("resident", "streaming")
+                    assert fa.attention_design("bwd", dtype, lanes // heads, s) in ("resident", "streaming")
+
+
+@pytest.mark.parametrize("dh,lanes", [(8, 128), (12, 384), (48, 384)])
+def test_plain_attention_at_new_head_dims_matches_pallas(dh, lanes):
+    """The plain version the streaming kernels are held to, at head dims the
+    resident designs do not take, against the Pallas kernel (interpret
+    mode) in f32 at 2e-5 (tests/test_torch_flash_attention.py's tolerance),
+    with ragged key counts."""
+    rng = np.random.default_rng(dh)
+    b, s, heads = 2, 40, lanes // dh
+    qkv = rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)
+    kl = np.asarray([s, 17], np.int32)
+    want = jfa.flash_attention_qkv(jnp.asarray(qkv), heads, interpret=True, key_lens=jnp.asarray(kl))
+    got = fa.attention_qkv(torch.from_numpy(qkv), heads, torch.from_numpy(kl))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("d", [1152, 2048])
+def test_plain_layer_norm_at_wide_rows_matches_pallas(d):
+    """The plain forward and backward the wide designs are held to, at D
+    above the register designs' 1024, against the Pallas LayerNorm
+    (interpret mode) and its jax.vjp, in f32 (tests/test_torch_layer_norm.py's
+    tolerances: forward 2e-6, dx 1e-5, dgamma / dbeta 1e-4)."""
+    assert ln.ln_design(d) == "wide" and ln.ln_design(1024) == "register"
+    rng = np.random.default_rng(d)
+    x = (3 * rng.standard_normal((5, d)) + 1).astype(np.float32)
+    gamma = (1 + 0.2 * rng.standard_normal(d)).astype(np.float32)
+    beta = (0.2 * rng.standard_normal(d)).astype(np.float32)
+    g = rng.standard_normal((5, d)).astype(np.float32)
+    y, vjp = jax.vjp(
+        lambda a, gm, bt: layer_norm_rows(a, gm, bt, 1e-6, None, True),
+        jnp.asarray(x), jnp.asarray(gamma), jnp.asarray(beta),
+    )
+    jdx, jdg, jdb = vjp(jnp.asarray(g))
+    tx, tg, tb = (torch.from_numpy(a) for a in (x, gamma, beta))
+    np.testing.assert_allclose(ln.layer_norm(tx, tg, tb).numpy(), np.asarray(y), atol=2e-6)
+    dx, dg, db = ln.layer_norm_bwd(tx, tg, torch.from_numpy(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=1e-5)
+    np.testing.assert_allclose(dg.numpy(), np.asarray(jdg), atol=1e-4)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), atol=1e-4)

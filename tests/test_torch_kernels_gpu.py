@@ -97,14 +97,21 @@ def test_attention_kernels_at_tile_edges(cuda, b, s, h, key_lens, dtype, tol, bw
 
 @pytest.mark.gpu
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
-    """Inside JAX's kernel domain (lanes a multiple of 128) the kernels
-    raise on a head dim outside KERNEL_HEAD_DIMS, naming the set, and on S
-    above MAX_S; outside it (lanes 64) the plain dense path runs instead."""
-    qkv = torch.zeros((2, 16, 3 * 8 * 48), device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=r"head_dim in \(16, 32, 64, 128\)"):
-        fa.attention_qkv(qkv, 8)  # head dim 48
-    with pytest.raises(ValueError, match="S up to 2048"):
-        fa.attention_qkv(torch.zeros((1, 2049, 3 * 128), device="cuda", dtype=torch.bfloat16), 2)
+    """Inside JAX's kernel domain (lanes a multiple of 128) the kernels take
+    head dim 48 and S 2049 (the streaming design: it agrees with the plain
+    version) and raise on a head dim above MAX_HEAD_DIM, naming the limit;
+    outside it (lanes 64) the plain dense path runs instead."""
+    rng = np.random.default_rng(48)
+    qkv = torch.from_numpy(rng.standard_normal((2, 16, 3 * 8 * 48), dtype=np.float32)).to("cuda", torch.bfloat16)
+    before = fa.attention_qkv.launches
+    got = fa.attention_qkv(qkv, 8)  # head dim 48
+    assert fa.attention_qkv.launches == before + 1
+    assert (got.float() - fa.attention_qkv_reference(qkv, 8).float()).abs().max().item() <= 2e-2
+    long = torch.from_numpy(rng.standard_normal((1, 2049, 3 * 128), dtype=np.float32)).to("cuda", torch.bfloat16)
+    got = fa.attention_qkv(long, 2)  # S 2049, head dim 64
+    assert (got.float() - fa.attention_qkv_reference(long, 2).float()).abs().max().item() <= 2e-2
+    with pytest.raises(ValueError, match="head dims up to 256, not 384"):
+        fa.attention_qkv(torch.zeros((2, 16, 3 * 384), device="cuda", dtype=torch.bfloat16), 1)
     before = fa.attention_qkv.launches
     assert fa.attention_qkv(torch.zeros((2, 16, 3 * 2 * 32), device="cuda"), 2).shape == (2, 16, 64)
     assert fa.attention_qkv.launches == before  # head dim 32 at 64 lanes: JAX's XLA path
@@ -114,10 +121,62 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
         fa.attention_qkv(torch.zeros((2, 384, 16), device="cuda").transpose(1, 2), 2)
 
 
-# the new head dims and the long sequences: at 128 lanes every head dim of
-# the set (8, 4, 2 and 1 heads), S across the resident designs' limits (the
-# bf16 backward's is 432 at head dim 64, 224 at 128) up to MAX_S, where every
-# design streams; key counts of all S and of two thirds of it
+# every head dim of JAX's domain that the resident designs do not take, up to
+# 256: odd ones (2-byte copies in bf16), 12 (8-byte bf16 copies), the
+# streaming templates' edges; at lanes 384 where the head dim divides it, else
+# 256 or 768 lanes; S 100 (two 64-row query tiles, ragged key tiles)
+NEW_HEAD_DIMS = [(1, 384), (3, 384), (8, 384), (12, 384), (24, 384), (48, 384), (96, 384),
+                 (192, 384), (256, 256), (40, 640), (80, 640), (160, 640)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,lanes", NEW_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol,bwd_tol", EDGE_DTYPES)
+def test_attention_kernels_at_head_dims_the_resident_designs_do_not_take(cuda, dh, lanes, dtype, tol,
+                                                                         bwd_tol):
+    """The streaming designs (padded head dims, narrow copies) against their
+    plain versions, forward and backward; the backward twice gives the same
+    bits and exactly zero dk and dv on the masked key rows."""
+    b, s, h = 2, 100, lanes // dh
+    rng = np.random.default_rng(dh * 7 + lanes)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal((b, s, lanes), dtype=np.float32)).to("cuda", dtype)
+    key_lens = [s, 37]
+    kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
+    assert fa.attention_design("fwd", dtype, dh, s) == fa.attention_design("bwd", dtype, dh, s) == "streaming"
+    got = fa.attention_qkv(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    again = fa.attention_qkv_bwd(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert (got.float() - fa.attention_qkv_reference(qkv, h, kl).float()).abs().max().item() <= tol
+    want = fa.attention_qkv_bwd_reference(qkv, h, kl, g)
+    assert (d.float() - want.float()).abs().max().item() <= bwd_tol
+    assert torch.equal(d, again)
+    assert torch.all(d[1, key_lens[1] :, lanes:] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,bwd_tol", EDGE_DTYPES)
+def test_attention_kernels_at_s_4096(cuda, dtype, tol, bwd_tol):
+    """Past the old limit of 2048: S 4096 at head dim 64 (the streaming
+    designs), forward and backward against their plain versions."""
+    b, s, h = 1, 4096, 2
+    rng = np.random.default_rng(4096)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * h * 64), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal((b, s, h * 64), dtype=np.float32)).to("cuda", dtype)
+    kl = torch.tensor([3000], dtype=torch.int32, device="cuda")
+    got = fa.attention_qkv(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert (got.float() - fa.attention_qkv_reference(qkv, h, kl).float()).abs().max().item() <= tol
+    assert (d.float() - fa.attention_qkv_bwd_reference(qkv, h, kl, g).float()).abs().max().item() <= bwd_tol
+    assert torch.all(d[0, 3000:, h * 64 :] == 0)
+
+
+# the resident head dims and the long sequences: at 128 lanes every head dim
+# of the set (8, 4, 2 and 1 heads), S across the resident designs' limits
+# (the bf16 backward's is 432 at head dim 64, 224 at 128) up to 2048, where
+# every design streams; key counts of all S and of two thirds of it
 LONG_S = [433, 512, 1024, 2048]
 
 
@@ -226,6 +285,14 @@ LN_CASES += [
     for d, rows in ((384, LN_EDGE_ROWS), (512, LN_EDGE_ROWS), (128, [17, 133, 2113]), (1024, [17, 133, 2113]))
     for r in rows
 ]
+# the wide designs (D above 1024): one row, a ragged share of the grid, more
+# rows than one wave, and a bf16 row to an f32 output
+LN_CASES += [
+    (r, d, dtype, dtype)
+    for dtype in (torch.bfloat16, torch.float32)
+    for d in (1152, 2048, 4096)
+    for r in (1, 133, 2113)
+] + [(257, 2048, torch.bfloat16, torch.float32)]
 
 
 def _ln_inputs(r, d, dtype, seed):
@@ -294,8 +361,13 @@ def test_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
     from safevla_tpu_torch.ops import layer_norm as ln
 
     gamma, beta = torch.ones(1152, device="cuda"), torch.zeros(1152, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 128 up to 1024"):
-        ln.layer_norm(torch.zeros((4, 1152), device="cuda"), gamma, beta)
+    x = torch.randn((4, 1152), device="cuda")
+    before = ln.layer_norm.launches
+    got = ln.layer_norm(x, gamma, beta)  # D 1152: the wide design
+    assert ln.layer_norm.launches == before + 1 and ln.ln_design(1152) == "wide"
+    assert _ln_close(got, ln.layer_norm_fwd_reference(x, gamma, beta))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        ln.layer_norm_bwd(torch.zeros((4, 192), device="cuda"), gamma[:192], torch.zeros((4, 192), device="cuda"))
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         ln.layer_norm(torch.zeros((4, 128), device="cuda", dtype=torch.float16), gamma[:128], beta[:128])
     # D = 192 is not a multiple of 128: JAX's plain math, no launch
@@ -309,9 +381,9 @@ def test_layer_norm_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
     """On the card CompatLayerNorm launches the kernel at a width that is a
-    multiple of 128 (and agrees with its plain code), runs its plain code
-    without a launch at any other width, and raises at a multiple of 128 the
-    kernel does not take; the adapter norms (PlainLayerNorm) never launch it."""
+    multiple of 128 (and agrees with its plain code), 1152 included (the wide
+    design), runs its plain code without a launch at any other width; the
+    adapter norms (PlainLayerNorm) never launch it."""
     from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
     from safevla_tpu_torch.ops import layer_norm as ln
 
@@ -326,8 +398,10 @@ def test_compat_layer_norm_routes_to_the_kernel_on_the_card(cuda):
     narrow = CompatLayerNorm(192).cuda()
     assert torch.equal(narrow(x[:, :192]), narrow.plain(x[:, :192]))
     assert ln.layer_norm.launches == before + 1
-    with pytest.raises(ValueError, match="multiple of 128"):
-        CompatLayerNorm(1152).cuda()(torch.zeros((2, 1152), device="cuda"))
+    wide = CompatLayerNorm(1152).cuda()
+    xw = torch.randn((2, 1152), device="cuda")
+    assert _ln_close(wide(xw), wide.plain(xw))
+    assert ln.layer_norm.launches == before + 2
 
 
 def _device_activity_names(fn, calls):

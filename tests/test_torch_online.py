@@ -1,9 +1,11 @@
-"""The port's sync OnlineTrainer on the CPU: a two-window run of a tiny
+"""The port's OnlineTrainer on the CPU: a two-window sync run of a tiny
 policy on FakeController streams (the step count, the logged keys, the
 forced final checkpoint), the checkpoint's round trip into an equal train
-state (auto-resume), the weights the second window acts with, the
-async pipeline (not ported yet) refusing to run, and a reference IL
-checkpoint filling the towers."""
+state (auto-resume), the weights the second window acts with, a reference IL
+checkpoint filling the towers, and the async pipeline (the config's
+default): a three-window run (steps, logged keys, the drain, the forced
+final save), its final state against a hand-written stale-by-one loop of
+`collect` and `chunked_update`, and the weights each window acts with."""
 
 import dataclasses
 import random
@@ -134,15 +136,6 @@ def test_window_two_acts_with_the_updated_weights(cfg):
     assert all(torch.equal(a, b) for a, b in zip(w_a, w_b))
 
 
-def test_the_async_pipeline_is_not_ported(cfg):
-    cfg.train.async_pipeline = True  # the JAX default
-    with pytest.raises(NotImplementedError, match="async"):
-        _trainer(cfg, [])
-    cfg.train.async_pipeline = False
-    with pytest.raises(NotImplementedError, match="async"):
-        OnlineTrainer(cfg, make_sampler_factory(), num_workers=0, async_pipeline=True, device="cpu")
-
-
 def test_reference_checkpoint_import_is_not_ported(cfg, tmp_path):
     """il_ckpt_path is ported now (its parity with the JAX importer is
     tests/test_torch_il_import.py): a path that is not there raises, and an
@@ -159,3 +152,104 @@ def test_reference_checkpoint_import_is_not_ported(cfg, tmp_path):
     for name, p in ts.tower_params.items():
         assert torch.equal(p.detach(), actor[name.split(".", 1)[1]])
     trainer.close()
+
+
+def test_async_three_windows_log_drain_and_final_save(cfg):
+    """The async pipeline (Config()'s default) over three windows: as in JAX
+    the step count moves when an update finishes, so train(2 * B * T)
+    collects windows 0-2 and the drain applies window 2's update (step 3BT).
+    Three logs, each one window late, with the sync keys plus "async"; the
+    stages of the updates are those of the steps learned when their window
+    began (0, 0, B*T: stage 0, 0, 1); the drained update is saved."""
+    cfg.train.async_pipeline = True  # the JAX default
+    logs = []
+    trainer = _trainer(cfg, logs)
+    assert trainer.async_pipeline and trainer.act_policy is not trainer.policy
+    windows = []
+    collect = trainer.runner.collect
+    trainer.runner.collect = lambda *a, **k: windows.append(k.get("interleave_fn")) or collect(*a, **k)
+    ts = trainer.train(2 * B * T)
+    trainer.close()
+    assert len(windows) == 3 and all(fn is not None for fn in windows)
+    assert ts.step == 3 * B * T and ts.opt_state.count == 3 * cfg.ppo.update_repeats
+    assert [s for s, _ in logs] == [B * T, 2 * B * T, 3 * B * T]
+    assert [m["stage"] for _, m in logs] == [0, 0, 1]
+    for _, m in logs:
+        keys = {k for k in m if not k.startswith("ep/")}
+        assert keys == LOG_KEYS | {"async"}, keys ^ (LOG_KEYS | {"async"})
+        assert m["async"] is True and m["env_frames"] == B * T
+    ckpt = latest_checkpoint(trainer.output_dir)
+    assert ckpt is not None and ckpt.endswith(f"step_{3 * B * T}")  # the drained update, saved
+    saved = restore_checkpoint(ckpt, trainer.learner.init())
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(saved), _state_tensors(ts)))
+
+
+def test_async_trainer_equals_a_stale_by_one_hand_loop(cfg):
+    """The async trainer's final TrainState (towers, Adam moments, Lagrange
+    state) equals a loop written out by hand: collect window k with the
+    weights of updates 0..k-2, then window k-1's `chunked_update` (with the
+    stage of the steps learned when window k-1 began), then copy the weights
+    into the acting towers; the same seeds (the samplers' global `random` /
+    `np.random` reseeded), at 1e-6."""
+    cfg.train.async_pipeline = True
+    results = []
+    for run in ("async", "hand"):
+        cfg.train.tag = run  # each run its own output dir: no auto-resume
+        random.seed(0)
+        np.random.seed(0)
+        trainer = _trainer(cfg, [])
+        if run == "async":
+            ts = trainer.train(2 * B * T)
+        else:
+            ts = trainer.init_state()
+            learner, runner = trainer.learner, trainer.runner
+            trainer.act_policy.load_towers(trainer.policy)
+            prev = None
+            for _ in range(3):
+                stage = learner.stage_for_step(ts.step)
+                batch, stats = runner.collect(T)
+                if prev is not None:
+                    ts, _ = learner.chunked_update(*prev)
+                    trainer.act_policy.load_towers(trainer.policy)
+                prev = (ts, batch, stats["mean_episode_cost"], stage)
+            ts, _ = learner.chunked_update(*prev)
+        trainer.close()
+        assert ts.step == 3 * B * T
+        results.append(_state_tensors(ts))
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_async_windows_act_with_the_weights_of_update_k_minus_2(cfg):
+    """Window k acts with the learner's weights after update k-2 (windows 0
+    and 1 with the initial ones), not with those of update k-1, which the
+    learner steps in place while window k is collected."""
+    cfg.train.async_pipeline = True
+    trainer = _trainer(cfg, [])
+    acted, learned = [], []
+    towers = lambda policy: [p.detach().clone() for p in policy.towers.parameters()]
+    collect = trainer.runner.collect
+
+    def recording_collect(*args, **kw):
+        acted.append(towers(trainer.act_policy))
+        return collect(*args, **kw)
+
+    iterate = trainer.learner.iter_chunked_update
+
+    def recording_update(*args, **kw):
+        result = yield from iterate(*args, **kw)
+        learned.append(towers(trainer.policy))
+        return result
+
+    trainer.runner.collect = recording_collect
+    trainer.learner.iter_chunked_update = recording_update
+    ts = trainer.init_state()
+    initial = towers(trainer.policy)
+    trainer.train(3 * B * T, train_state=ts)
+    trainer.close()
+    assert len(acted) == 4 and len(learned) == 4
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(a, b))
+    assert same(acted[0], initial) and same(acted[1], initial)
+    for k in (2, 3):
+        assert same(acted[k], learned[k - 2])
+        assert not same(acted[k], learned[k - 1])  # the update of window k-1 moved them
