@@ -13,7 +13,11 @@ Phases (none catches its own failure; any failure exits non-zero):
      32 and 128 and past their resident designs' S limits (the streaming
      designs), at head dims the resident designs do not take (8, 24, 48,
      96, 256) and at S 4096, the LayerNorm kernels at D 1152, 2048 and 4096
-     (the wide designs), and at the async update's chunk shapes; times of the
+     (the wide designs), and at the async update's chunk shapes; the offline
+     path's shapes (the ViT on 1600 frames: attention B=1600 and LayerNorm
+     over 716,800 rows; the fusion's chunks of 100 samples); head dims 384
+     and 512 (the sliced design), 70,000 batch rows and 65,536 heads (the
+     launch split), forward and backward; times of the
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA-event ms, host µs to enqueue a call, profiler device
      ms); the LayerNorm backward's kernels per call, and its two designs
@@ -56,7 +60,18 @@ Phases (none catches its own failure; any failure exits non-zero):
      ObjectNavType episodes at 224x384 (at most 100 steps each) on 8 streams
      with the restored agent (sampled actions): episodes/s, ms per act, and
      the attention and LayerNorm launches against the count per act;
-  8. one JSON line of kernels, then the last line
+  8. offline: one BC step of the small f32 policy with one tower on the
+     card against the CPU; OfflineTrainer at Config() with one tower, B=16,
+     T=50 (uint8 224x384 frames of both cameras, every batch through
+     `prepared_batches`): 1 warm-up, 3 timed and 1 profiled step (ms a
+     step, samples/s, images/s, device ms, idle share, the analytic TFLOP
+     and the share of the bf16 dense peak, launches a step asserted), 8
+     more steps that must lower bc_loss, `_eval_step` and `per_action_f1`;
+     the bf16 loss with the kernels on against the attention and LayerNorm
+     sites patched to their plain versions; `fit` for 2 epochs writing
+     checkpoints, and EarlyFusionCnnTransformer.build_agent from the last
+     one acting bit-equal to the in-memory policy;
+  9. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -64,14 +79,17 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import random
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -138,6 +156,25 @@ TRAINER_EPISODE_STEPS = 100
 # the tiny config on the card vs the CPU, f32 everywhere: the tests' 1e-4
 # (tests/test_torch_serving_slice.py)
 TINY_TOL = 1e-4
+# the attention checks at 70,000 batch rows and 65,536 heads (the launch
+# split): N(0, 1) inputs over that many rows reach outputs and gradients of
+# |4|, where one bf16 rounding that falls the other way moves a value by its
+# ulp, up to 2^-7 |want|; the bf16 error there is held to the shape's
+# tolerance beyond that ulp (f32 unchanged)
+BF16_ULP_REL = 2.0**-7
+# the offline (BC) phase at Config() with one tower, B=16, T=50: one warm-up
+# step, OFFLINE_TIMED timed, one profiled; then OFFLINE_LOSS_STEPS more on
+# the same batch must lower bc_loss; `fit` (2 epochs) and the plain check at
+# OFFLINE_FIT_B rows of 50 steps
+OFFLINE_TIMED = 3
+OFFLINE_LOSS_STEPS = 8
+OFFLINE_FIT_B = 2
+# the small f32 BC step's gradients on the card vs the CPU: f32 sums in
+# another order, of terms up to the largest gradient, within 1e-4 of it
+REF_BC_GRAD_RTOL = 1e-4
+# bc_loss of the full-width bf16 step, kernels on vs plain: bf16 roundings
+# fall elsewhere (as REF_TOL)
+OFFLINE_PLAIN_RTOL = 2e-2
 # the evaluate phase: 16 benchmark episodes on the serving streams, each at
 # most 100 steps (FakeController), and the acts checked bit-equal per agent
 EVAL_EPISODES, EVAL_EPISODE_STEPS, EVAL_CHECK_ACTS = 16, 100, 8
@@ -283,9 +320,28 @@ def resident_limits(fa):
             for kind in ("fwd", "bwd") for dt in (torch.bfloat16, torch.float32)}
 
 
-def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=50):
+def beyond_ulp(got, want, rel):
+    """max |got - want| - rel |want| over the elements (rel 0: the max abs err)."""
+    diff = (got.float() - want.float()).abs()
+    return (diff - rel * want.float().abs()).max().item() if rel else diff.max().item()
+
+
+def sdpa_backends(split: bool):
+    """SDPA's backends for the yardstick: all of them, but at a split launch
+    (more than 65535 batch rows or heads) none of cuDNN's, whose backward
+    fails there (`mha_graph.execute` at 70,000 rows): PyTorch picks among
+    the others."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if not split:
+        return contextlib.nullcontext()
+    return sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH])
+
+
+def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=50, rel=0.0):
     """The kernel against its plain version (bf16 and f32) at one shape;
-    times of the kernel, the plain version and SDPA with a boolean mask."""
+    times of the kernel, the plain version and SDPA with a boolean mask.
+    `rel`: the bf16 error is measured beyond rel |want| (BF16_ULP_REL)."""
     import torch.nn.functional as F
 
     qkv = torch.randn((b, s, 3 * heads * dh), generator=gen, device="cuda").to(torch.bfloat16)
@@ -294,8 +350,9 @@ def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain
     want = fa.attention_qkv_reference(qkv, heads, kl)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
+    excess = beyond_ulp(got, want, rel)
     assert got.shape == want.shape and torch.isfinite(got).all(), name
-    assert err <= ATTN_TOL_BF16, f"{name}: kernel vs plain max abs err {err} > {ATTN_TOL_BF16}"
+    assert excess <= ATTN_TOL_BF16, f"{name}: kernel vs plain max abs err {err} ({excess} beyond {rel} |want|)"
     qkv32 = qkv.float()
     err32 = (fa.attention_qkv(qkv32, heads, kl) - fa.attention_qkv_reference(qkv32, heads, kl))
     err32 = err32.abs().max().item()
@@ -303,7 +360,12 @@ def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain
 
     q, k, v = qkv.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4)
     mask = (torch.arange(s, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
-    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    split = len(fa.launch_slices(b, heads)) > 1
+
+    def sdpa():
+        with sdpa_backends(split):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
     lib = sdpa().permute(0, 2, 1, 3).reshape(b, s, heads * dh)
     lib_err = (lib.float() - want.float()).abs().max().item()
 
@@ -318,12 +380,14 @@ def check_attention(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain
         "max_abs_err": err,
         "max_abs_err_f32": err32,
         "tol": ATTN_TOL_BF16,
+        **({"bf16_err_beyond_ulp": excess, "bf16_ulp_rel": rel} if rel else {}),
         **timings(lambda: fa.attention_qkv(qkv, heads, kl),
                   lambda: fa.attention_qkv_reference(qkv, heads, kl), sdpa,
                   plain_iters=plain_iters, iters=iters),
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        **({"library_backends": "no cuDNN (split launch)"} if split else {}),
     }
     log(f"[kernels] {json.dumps(res)}")
     return res
@@ -342,10 +406,11 @@ def attention_bwd_bound(b, s, heads, dh, key_lens, itemsize):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
-def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=10):
+def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, plain_iters=10, rel=0.0):
     """The backward kernel against its plain version (bf16 and f32) at one
     shape; times of the kernel, the plain version and SDPA's backward with a
-    boolean mask (torch.autograd.grad alone)."""
+    boolean mask (torch.autograd.grad alone). `rel`: the bf16 error is
+    measured beyond rel |want| (BF16_ULP_REL)."""
     import torch.nn.functional as F
 
     lanes = heads * dh
@@ -361,13 +426,14 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, p
         torch.cuda.synchronize()
         assert got.shape == want.shape and torch.isfinite(got).all(), name
         assert torch.equal(got, again), f"{name}: the backward kernel is not deterministic"
-        for i, n in enumerate(key_lens):  # masked key rows: dk and dv exactly 0
-            assert torch.all(got[i, n:, lanes:] == 0), f"{name} {dtype}: nonzero dk / dv on masked keys"
+        masked = torch.arange(s, device="cuda")[None, :] >= kl[:, None]  # masked key rows: dk and dv exactly 0
+        assert torch.all(got[..., lanes:][masked] == 0), f"{name} {dtype}: nonzero dk / dv on masked keys"
         diff = (got.float() - want.float()).abs()
         per = {part: diff[..., i * lanes : (i + 1) * lanes].max().item()
                for i, part in enumerate(("dq", "dk", "dv"))}
-        worst = max(per.values())
-        assert worst <= tol, f"{name} {dtype}: kernel vs plain max abs err {per} > {tol}"
+        r = rel if dtype == torch.bfloat16 else 0.0
+        worst = beyond_ulp(got, want, r)
+        assert worst <= tol, f"{name} {dtype}: kernel vs plain max abs err {per} ({worst} beyond {r} |want|) > {tol}"
         errs[str(dtype).split(".")[1]] = per
         if dtype == torch.bfloat16:
             magnitude = {part: want[..., i * lanes : (i + 1) * lanes].abs().max().item()
@@ -376,7 +442,9 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, p
     q, k, v = (t.detach().requires_grad_(True)
                for t in qkv.view(b, s, 3, heads, dh).permute(2, 0, 3, 1, 4))
     mask = (torch.arange(s, device="cuda")[None, :] < kl[:, None])[:, None, None, :]
-    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    split = len(fa.launch_slices(b, heads)) > 1
+    with sdpa_backends(split):  # the backend is chosen here; its backward follows
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
     g4 = g.view(b, s, heads, dh).permute(0, 2, 1, 3)
     sdpa_bwd = lambda: torch.autograd.grad(out, (q, k, v), g4, retain_graph=True)
     bound_ms, bound_by = attention_bwd_bound(b, s, heads, dh, key_lens, 2)
@@ -391,11 +459,13 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, p
         "max_abs_err_by_part": errs,
         "max_abs_want_bf16": magnitude,
         "tol": BWD_TOL_BF16,
+        **({"bf16_ulp_rel": rel} if rel else {}),
         **timings(lambda: fa.attention_qkv_bwd(qkv, heads, kl, g),
                   lambda: fa.attention_qkv_bwd_reference(qkv, heads, kl, g), sdpa_bwd,
                   plain_iters=plain_iters, iters=iters),
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        **({"library_backends": "no cuDNN (split launch)"} if split else {}),
     }
     log(f"[kernels] {json.dumps(res)}")
     return res
@@ -471,6 +541,17 @@ LN_WIDE_SHAPES = [(f"wide_d{d}", 2 * STREAMS * 448, d) for d in (1152, 2048, 409
 # chunk and its CLS rows
 LN_BWD_SHAPES = [("fusion_update", 128 * 208, 512), ("fusion_update_cls", 128, 512),
                  ("fusion_bwd_chunk", 32 * 208, 512), ("fusion_bwd_chunk_cls", 32, 512)]
+
+
+# (name, rows, D, x dtype, out dtype) of the LayerNorm forwards of the offline
+# path: the ViT on 1600 frames of 448 tokens, the fusion on a chunk of 100
+# samples of 208 and its CLS rows (the backward at the last two)
+LN_OFFLINE_SHAPES = [
+    ("vit_offline", 1600 * 448, 384, torch.bfloat16, torch.bfloat16),
+    ("vit_offline_final", 1600 * 448, 384, torch.bfloat16, torch.float32),
+    ("fusion_offline", 100 * 208, 512, torch.bfloat16, torch.bfloat16),
+    ("fusion_offline_cls", 100, 512, torch.bfloat16, torch.bfloat16),
+]
 
 
 def _ln_inputs(r, d, dtype, gen):
@@ -1176,14 +1257,15 @@ def update_ln_launches(cfg, b, t):
 def kernel_counts(fa, ln):
     return {
         "attention_fwd": fa.attention_qkv.launches,
-        "attention_bwd": fa.attention_qkv_bwd.launches,
+        # the wrapper's own count, also while `attention_kernels(False)` patches it
+        "attention_bwd": _ATTENTION.get("bwd", fa.attention_qkv_bwd).launches,
         "layer_norm_fwd": ln.layer_norm.launches,
         "layer_norm_bwd": ln.layer_norm_bwd.launches,
     }
 
 
 def reset_kernel_counts(fa, ln):
-    fa.attention_qkv.launches = fa.attention_qkv_bwd.launches = 0
+    fa.attention_qkv.launches = _ATTENTION.get("bwd", fa.attention_qkv_bwd).launches = 0
     ln.layer_norm.launches = ln.layer_norm_bwd.launches = 0
 
 
@@ -1700,6 +1782,401 @@ def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
     return res
 
 
+def offline_config():
+    """Config() with one tower, as cli/train_offline.py sets it: DINOv2-S at
+    224x384, T5-small, hidden 512, 3 fusion layers x 8 heads, bf16 compute,
+    B = offline.per_device_batch_size 16, T = offline.sliding_window 50."""
+    from safevla_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.model = dataclasses.replace(cfg.model, num_towers=1)
+    return cfg
+
+
+def offline_host_batch(cfg, b, t, seed):
+    """A collated BC batch as bench_offline.py makes it: uint8 frames of both
+    cameras, random last actions and targets, one instruction a row."""
+    h, w = cfg.model.image_size
+    rng = np.random.default_rng(seed)
+    texts = INSTRUCTIONS + NEW_INSTRUCTIONS
+    return {
+        "rgb_nav": rng.integers(0, 255, (b, t, h, w, 3), dtype=np.uint8),
+        "rgb_manip": rng.integers(0, 255, (b, t, h, w, 3), dtype=np.uint8),
+        "last_actions": rng.integers(0, cfg.model.num_actions, (b, t)).astype(np.int32),
+        "actions": rng.integers(0, cfg.model.num_actions, (b, t)).astype(np.int32),
+        "time_ids": np.tile(np.arange(t, dtype=np.int32), (b, 1)),
+        "an_object_is_in_hand": np.zeros((b, t), np.int32),
+        "instructions": [texts[i % len(texts)] for i in range(b)],
+    }
+
+
+def offline_launches(cfg, b, t, vit_depth):
+    """Kernel launches of one BC step and of one eval step at (b, t), from
+    the config: the frozen ViT once over all 2*b*t frames (an attention and
+    norm1 / norm2 a block, and its final norm); per tower, per fusion chunk
+    (the largest divisor of b*t up to fusion_chunk), an attention forward of
+    every packed layer (all but the CLS-row last one) and norm1 / norm2 of
+    every layer, again in the checkpoint's recomputation, and one backward
+    each; the eval step runs the forward once."""
+    n = b * t
+    chunk = min(cfg.model.fusion_chunk or n, n)
+    while n % chunk:
+        chunk -= 1
+    chunks = cfg.model.num_towers * (n // chunk)
+    packed, norms, vit_ln = cfg.model.combiner_layers - 1, 2 * cfg.model.combiner_layers, 2 * vit_depth + 1
+    step = {"attention_fwd": vit_depth + 2 * chunks * packed, "attention_bwd": chunks * packed,
+            "layer_norm_fwd": vit_ln + 2 * chunks * norms, "layer_norm_bwd": chunks * norms}
+    ev = {"attention_fwd": vit_depth + chunks * packed, "attention_bwd": 0,
+          "layer_norm_fwd": vit_ln + chunks * norms, "layer_norm_bwd": 0}
+    return step, ev, chunk
+
+
+_ATTENTION = {}
+
+
+def attention_kernels(on: bool) -> None:
+    """The attention wrapper on its kernels (the port's only path on the
+    card) or, for this script's off-vs-on comparisons alone, patched to
+    its plain versions (the forward and the autograd backward)."""
+    from safevla_tpu_torch.ops import flash_attention as fa
+
+    fwd = _ATTENTION.setdefault("fwd", fa._attention_qkv_fwd)
+    bwd = _ATTENTION.setdefault("bwd", fa.attention_qkv_bwd)
+    fa._attention_qkv_fwd = fwd if on else fa.attention_qkv_reference
+    fa.attention_qkv_bwd = bwd if on else fa.attention_qkv_bwd_reference
+
+
+def diff_counts(after, before):
+    return {k: v - before[k] for k, v in after.items()}
+
+
+def adamw_step_err(new, want, old, g_new, g_want, lr):
+    """How far one AdamW step from zero moments agrees between two runs of
+    it (`new` and `want`: the weights after it, `old` before, `g_*` each
+    run's gradients): AdamW's first step moves a weight by
+    lr * g / (|g| + eps), so where the two gradients differ by more than a
+    tenth of their size (rounding-level gradients, e.g. every attention's
+    key bias, whose true gradient is 0 by the softmax's shift invariance)
+    the step is not determined by the function and may differ by up to two
+    steps. Returns (the largest gradient difference over the largest
+    gradient, the largest |change difference| where the gradients agree,
+    the count of undetermined weights); asserts that each undetermined
+    weight moved at most one step on both sides."""
+    g_max = max(g.abs().max().item() for g in g_want)
+    grad_err, worst, undetermined = 0.0, 0.0, 0
+    for n, w, o, gn, gw in zip(new, want, old, g_new, g_want):
+        gd = (gn - gw).abs()
+        grad_err = max(grad_err, gd.max().item() / g_max)
+        loose = gd > 0.1 * gw.abs()
+        step = lr * (1 + 1e-4 * o[loose].abs()) + 1e-7
+        assert bool(((n - o)[loose].abs() <= step).all() and ((w - o)[loose].abs() <= step).all())
+        d = ((n - o) - (w - o)).abs()[~loose]
+        worst = max(worst, d.max().item() if d.numel() else 0.0)
+        undetermined += int(loose.sum())
+    return grad_err, worst, undetermined
+
+
+def reference_offline():
+    """One BC step of the small f32 policy with one tower (fusion_chunk 8 <
+    B*T = 24: the chunks and their checkpointing run; the T5 in f32) on the
+    card against the same weights, batch and AugmentParams on the CPU (the
+    CPU step is the one the tests hold against the JAX package): metrics at
+    REF_UPDATE_METRIC_TOL, the gradients within REF_BC_GRAD_RTOL of the
+    largest, the weights' change at REF_UPDATE_WEIGHT_TOL (an AdamW step of
+    1e-4) wherever the two gradients agree to a tenth, and at most one step
+    on both sides elsewhere (`adamw_step_err`; their count is reported)."""
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.models import actor_critic, t5
+    from safevla_tpu_torch.preprocessing.augment import sample_augment_params
+    from safevla_tpu_torch.training.offline import OfflineTrainer
+
+    cfg = Config(dataclasses.replace(small_model_config(), num_towers=1, fusion_chunk=8))
+    host = offline_host_batch(cfg, 3, 8, seed=14)
+    aug = sample_augment_params(torch.Generator().manual_seed(3), version=cfg.train.augmentation_version)
+    t5_config = actor_critic.T5Config
+    actor_critic.T5Config = functools.partial(t5.T5Config, dtype=torch.float32)
+    out = {}
+    for d in ("cpu", "cuda"):
+        trainer = OfflineTrainer(cfg, device=d)
+        state = trainer.init_state()
+        batch = trainer.prepare_batch(host)
+        params = list(state.tower_params.values())
+        old = [p.detach().cpu().clone() for p in params]
+        loss, _ = trainer._bc_loss(batch, aug)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, torch.autograd.grad(loss, params, allow_unused=True))]
+        state, metrics = trainer._bc_step(state, batch, aug)
+        out[d] = ({k: float(v) for k, v in metrics.items()}, [p.detach().cpu().clone() for p in params],
+                  [g.cpu() for g in grads], old)
+    actor_critic.T5Config = t5_config
+    (m_cpu, w_cpu, g_cpu, old), (m_gpu, w_gpu, g_gpu, old_gpu) = out["cpu"], out["cuda"]
+    assert all(torch.equal(a, b) for a, b in zip(old, old_gpu)), "the two policies start from other weights"
+    assert m_cpu.keys() == m_gpu.keys() and all(np.isfinite(list(m_gpu.values())))
+    metric_err = max(abs(m_gpu[k] - m_cpu[k]) / (1.0 + abs(m_cpu[k])) for k in m_cpu)
+    grad_err, weight_err, undetermined = adamw_step_err(w_gpu, w_cpu, old, g_gpu, g_cpu, cfg.offline.lr)
+    total = sum(w.numel() for w in w_cpu)
+    res = {"metrics": m_gpu, "metric_rel_err": metric_err, "grad_err_of_largest": grad_err,
+           "weight_change_abs_err": weight_err, "undetermined_weights": undetermined, "weights": total}
+    log(f"[reference] small BC step, cuda vs cpu: {json.dumps(res)}")
+    assert metric_err <= REF_UPDATE_METRIC_TOL, f"BC step metrics differ by {metric_err}"
+    assert grad_err <= REF_BC_GRAD_RTOL and weight_err <= REF_UPDATE_WEIGHT_TOL, res
+    return res
+
+
+def offline(fa, ln, cfg=None, device="cuda"):
+    """OfflineTrainer at Config() with one tower on a synthetic B=16, T=50
+    batch (uint8 224x384 frames of both cameras, bench_offline.py's), each
+    step's batch through `prepared_batches` (the worker thread collates,
+    tokenizes and pins; the upload and the frozen T5 run in `attach_text`),
+    so host preparation is inside the timed window: one warm-up step,
+    OFFLINE_TIMED timed (host clock ended by a synchronise), one profiled,
+    each step's launches of every kernel against the count the config
+    implies; then OFFLINE_LOSS_STEPS more steps on the same batch lower
+    bc_loss, and `_eval_step` + `per_action_f1` run. Returns its numbers,
+    the trainer, its state and the step's AugmentParams."""
+    from safevla_tpu_torch.algo.flops import bc_step_flops_estimate
+    from safevla_tpu_torch.preprocessing.augment import sample_augment_params
+    from safevla_tpu_torch.training.offline import OfflineTrainer
+
+    cfg = cfg or offline_config()
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, t = cfg.offline.per_device_batch_size, cfg.offline.sliding_window
+    # a user's BC run is a process of its own: the phase starts from the
+    # earlier phases' garbage collected (`gc_s`: the host frees what their
+    # reference cycles held) and an empty allocator cache, not from the
+    # blocks they left reserved (a step whose tensors miss them at the card's
+    # limit has the allocator free its cache and retry: `alloc_retries`)
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t0
+    reserved_gib = torch.cuda.memory_reserved() / 2**30 if cuda else None
+    if cuda:
+        torch.cuda.empty_cache()
+    retries = lambda: torch.cuda.memory_stats().get("num_alloc_retries", 0) if cuda else 0
+    retries0 = retries()
+    t0 = time.perf_counter()
+    trainer = OfflineTrainer(cfg, device=device)
+    state = trainer.init_state()
+    host = offline_host_batch(cfg, b, t, seed=cfg.train.seed)
+    aug = sample_augment_params(torch.Generator().manual_seed(1), version=cfg.train.augmentation_version)
+    # set-up of a running trainer's pinned host memory: prefetch_batches + 2
+    # prepared batches alive at once (queued, in preparation, in the step),
+    # so that the timed steps reuse the pool instead of pinning new pages
+    warm = [trainer.host_prepare(host) for _ in range(cfg.offline.prefetch_batches + 2)]
+    del warm
+    sync()
+    setup_s = time.perf_counter() - t0
+    step_want, eval_want, chunk = offline_launches(cfg, b, t, trainer.policy.vit.cfg.depth)
+
+    marks, prepare_ms = [], []  # the timed window's parts, on the host clock
+    prepare = trainer.host_prepare
+
+    def timed_prepare(hb):
+        t = time.perf_counter()
+        out = prepare(hb)
+        prepare_ms.append((threading.current_thread().name, (time.perf_counter() - t) * 1e3))
+        return out
+
+    trainer.host_prepare = timed_prepare
+
+    def steps(n):
+        nonlocal state
+        metrics = None
+        t = time.perf_counter()
+        stamp = lambda what: marks.append((what, (time.perf_counter() - t) * 1e3))
+        for pb in trainer.prepared_batches(host for _ in range(n)):
+            stamp("got")
+            batch = trainer.attach_text(pb)
+            stamp("attached")
+            state, metrics = trainer._bc_step(state, batch, aug)
+            stamp("stepped")
+        return metrics
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    first = steps(1)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    per_step = kernel_counts(fa, ln)
+    assert per_step == step_want or not cuda, f"BC step launches {per_step}, expected {step_want}"
+    marks.clear()
+    prepare_ms.clear()
+    t0 = time.perf_counter()
+    metrics = steps(OFFLINE_TIMED)
+    sync()
+    ms = (time.perf_counter() - t0) / OFFLINE_TIMED * 1e3
+    window = {"marks_ms": list(marks), "prepare_ms": list(prepare_ms)}
+    if cuda:
+        with device_profiler() as prof:
+            steps(1)
+            sync()
+        device_ms, rows = device_rows(prof)
+    else:
+        steps(1)
+        device_ms, rows = 0.0, []
+    launches = kernel_counts(fa, ln)
+    n_steps = 2 + OFFLINE_TIMED
+    assert launches == {k: n_steps * v for k, v in step_want.items()} or not cuda, launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    values = {k: float(v) for k, v in metrics.items()}
+    assert all(np.isfinite(list(values.values()))), values
+
+    # the first of the loss steps inline, its parts on the host clock: the
+    # worker's preparation (tokenize, pinned copies), the enqueue of the step
+    # (upload, T5, ViT, towers, AdamW) and the wait for the card
+    sync()
+    t0 = time.perf_counter()
+    pb = trainer.host_prepare(host)
+    t1 = time.perf_counter()
+    state, loss_metrics = trainer._bc_step(state, trainer.attach_text(pb), aug)
+    t2 = time.perf_counter()
+    sync()
+    t3 = time.perf_counter()
+    inline = {"prepare_ms": (t1 - t0) * 1e3, "enqueue_ms": (t2 - t1) * 1e3, "wait_ms": (t3 - t2) * 1e3}
+    losses = [float(first["bc_loss"]), float(loss_metrics["bc_loss"])]
+    if cuda:  # the next one under the host profiler: where the host's time goes
+        host_profile, loss_metrics = profile_bc_host(trainer, state, host, aug)
+        losses.append(float(loss_metrics["bc_loss"]))
+    else:
+        host_profile = None
+    for _ in range(OFFLINE_LOSS_STEPS - len(losses) + 1):
+        losses.append(float(steps(1)["bc_loss"]))
+    assert losses[-1] < losses[0], f"{OFFLINE_LOSS_STEPS + n_steps} steps on one batch did not lower bc_loss: {losses}"
+
+    before = kernel_counts(fa, ln)
+    ev = trainer._eval_step(state, trainer.prepare_batch(host))
+    preds = ev["preds"].cpu().numpy()
+    f1 = trainer.per_action_f1(preds, host["actions"])
+    eval_launches = diff_counts(kernel_counts(fa, ln), before)
+    assert eval_launches == eval_want or not cuda, f"eval launches {eval_launches}, expected {eval_want}"
+    assert preds.shape == (b, t) and np.isfinite(float(ev["val_loss"])) and all(np.isfinite(list(f1.values())))
+
+    flop = bc_step_flops_estimate(cfg, b, t)
+    res = {
+        "config": "Config() with model.num_towers=1", "batch": b, "window": t, "frames_per_step": 2 * b * t,
+        "fusion_chunk": chunk, "setup_s": setup_s, "first_step_ms": first_ms, "timed_steps": OFFLINE_TIMED,
+        "ms_per_step": ms,
+        "samples_per_s": b * t / (ms / 1e3),  # bench_offline.py's count: B*T a step
+        "images_per_s": 2 * b * t / (ms / 1e3),
+        "device_ms_per_step": device_ms or None,  # 0: the profiler saw no device time
+        "device_idle_share": (1.0 - device_ms / ms) if device_ms else None,
+        "tflop_per_step": flop / 1e12,
+        "mfu_bf16_dense": flop / (ms / 1e3) / PEAK_BF16_FLOPS,
+        "mfu_bf16_dense_device": (flop / (device_ms / 1e3) / PEAK_BF16_FLOPS) if device_ms else None,
+        "peak_mem_gib": peak_gib, "gc_s": gc_s, "reserved_before_gib": reserved_gib, "alloc_retries": retries() - retries0,
+        "timed_window": window, "inline_step": inline, "host_profile": host_profile,
+        "launches_per_step": step_want, "launches": launches, "eval_launches": eval_launches,
+        "last_metrics": values, "bc_loss_over_steps": losses,
+        "eval": {"val_loss": float(ev["val_loss"]), "val_accuracy": float(ev["val_accuracy"]),
+                 "f1_macro": f1["f1/macro"]},
+        "top": [{"name": k[:80], "ms_per_step": v, "calls_per_step": n} for k, v, n in rows[:12]],
+    }
+    log(f"[offline] {json.dumps(res)}")
+    return res, trainer, state, aug
+
+
+# CUDA runtime calls that make the host wait for the card (a pageable
+# host-to-device copy is a cudaMemcpyAsync then a cudaStreamSynchronize)
+_HOST_WAITS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def profile_bc_host(trainer, state, host, aug):
+    """One BC step (host_prepare, attach_text, _bc_step, then a
+    synchronise) under torch.profiler with the host's activity: the CUDA
+    runtime calls that wait for the card (count, ms), the launches and
+    copies issued, and the ops of most host time of their own. Returns
+    (that, the step's metrics); the state is stepped in place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, metrics = trainer._bc_step(state, trainer.attach_text(trainer.host_prepare(host)), aug)
+        torch.cuda.synchronize()
+    calls = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU and e.name().startswith("cuda"):
+            n, ms = calls.get(e.name(), (0, 0.0))
+            calls[e.name()] = (n + 1, ms + e.duration_ns() / 1e6)
+    waits = {k: v for k, v in calls.items() if k in _HOST_WAITS}
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:10]
+    res = {
+        "host_waits": {k: {"calls": n, "ms": ms} for k, (n, ms) in waits.items()},
+        "runtime_calls": {k: n for k, (n, _) in sorted(calls.items(), key=lambda kv: -kv[1][0])[:8]},
+        "top_self_cpu": [{"name": a.key[:60], "self_cpu_ms": a.self_cpu_time_total / 1e3, "calls": a.count}
+                         for a in top],
+    }
+    return res, metrics
+
+
+def offline_plain_check(fa, ln, trainer, aug, cfg=None):
+    """The full-width bf16 BC loss and gradients at OFFLINE_FIT_B x 50 with
+    the kernels on against the same with the attention and LayerNorm sites
+    patched to their plain versions, from the same weights (no step taken):
+    bc_loss within OFFLINE_PLAIN_RTOL, and the kernels launched only when on."""
+    from safevla_tpu_torch.algo.optim import global_norm
+
+    cfg = cfg or offline_config()
+    host = offline_host_batch(cfg, OFFLINE_FIT_B, cfg.offline.sliding_window, seed=cfg.train.seed + 2)
+    batch = trainer.prepare_batch(host)
+    params = list(trainer.policy.towers.parameters())
+    out = {}
+    for on in (True, False):
+        ln_kernels(on)
+        attention_kernels(on)
+        before = kernel_counts(fa, ln)
+        loss, _ = trainer._bc_loss(batch, aug)
+        grads = [g for g in torch.autograd.grad(loss, params, allow_unused=True) if g is not None]
+        norm = global_norm(grads)
+        torch.cuda.synchronize()
+        out[on] = (float(loss.detach()), float(norm), diff_counts(kernel_counts(fa, ln), before))
+    ln_kernels(True)
+    attention_kernels(True)
+    (l_on, g_on, n_on), (l_off, g_off, n_off) = out[True], out[False]
+    res = {"bc_loss_kernels": l_on, "bc_loss_plain": l_off, "bc_loss_rel_diff": abs(l_on - l_off) / abs(l_off),
+           "grad_norm_kernels": g_on, "grad_norm_plain": g_off, "grad_norm_rel_diff": abs(g_on - g_off) / g_off,
+           "launches_kernels": n_on, "launches_plain": n_off}
+    log(f"[offline] kernels vs plain at {OFFLINE_FIT_B} x {cfg.offline.sliding_window}: {json.dumps(res)}")
+    assert all(v > 0 for v in n_on.values()) and not any(n_off.values()), res
+    assert res["bc_loss_rel_diff"] <= OFFLINE_PLAIN_RTOL, res
+    return res
+
+
+def offline_fit(trainer, state, cfg=None, device="cuda"):
+    """`fit` for two epochs of one OFFLINE_FIT_B x 50 batch (and one
+    validation batch) from the offline phase's state: a checkpoint each
+    epoch; `EarlyFusionCnnTransformer.build_agent` from the last one acts
+    bit-equal to the in-memory policy. The checkpoints are removed after."""
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.models.early_fusion import EarlyFusionCnnTransformer
+
+    cfg = cfg or offline_config()
+    host = offline_host_batch(cfg, OFFLINE_FIT_B, cfg.offline.sliding_window, seed=cfg.train.seed + 1)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "output", "chip_smoke_offline")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    logs = []
+    t0 = time.perf_counter()
+    state = trainer.fit(lambda: iter([host]), val_batches=lambda: iter([host]), num_epochs=state.epoch + 2,
+                        state=state, log_fn=lambda m, s: logs.append(m), output_dir=out_dir)
+    fit_s = time.perf_counter() - t0
+    written = sorted(os.listdir(out_dir))
+    assert written == sorted(f"step_{state.step - i}" for i in (0, 1)), written
+    assert len(logs) == 2 and all(np.isfinite(l["bc_loss"]) and "f1/macro" in l for l in logs), logs
+    trainer.policy.requires_grad_(False)
+    restored = EarlyFusionCnnTransformer.build_agent(out_dir, cfg=dataclasses.replace(cfg), num_streams=STREAMS,
+                                                     device=device)
+    equal = same_acts({"in_memory": InferenceAgent(cfg, trainer.policy, STREAMS, mode="greedy"),
+                       "checkpoint": restored}, cfg)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    res = {"epochs": 2, "fit_s": fit_s, "checkpoints": written, "bit_equal": equal,
+           "val_loss": [l.get("val_loss") for l in logs]}
+    log(f"[offline] fit: {json.dumps(res)}")
+    assert all(equal.values()), equal
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -1802,10 +2279,31 @@ def main() -> int:
     ):
         shapes.append(check_attention(fa, name, b, s, heads, kl, gen, dh=dh, iters=5, plain_iters=2))
         bwd_shapes.append(check_attention_bwd(fa, name, b, s, heads, kl, gen, dh=dh, iters=3, plain_iters=1))
+    # the offline (BC) path at Config() with one tower, B=16, T=50: the frozen
+    # ViT on all 2*B*T = 1600 frames in one call, the fusion in chunks of 100
+    # samples (the largest divisor of 800 up to fusion_chunk 128)
+    offline_kl = [fusion_kl[i % len(fusion_kl)] for i in range(100)]
+    shapes.append(check_attention(fa, "vit_offline", 1600, 448, 6, [433] * 1600, gen, iters=5, plain_iters=2))
+    shapes.append(check_attention(fa, "fusion_offline", 100, 208, 8, offline_kl, gen))
+    bwd_shapes.append(check_attention_bwd(fa, "fusion_offline", 100, 208, 8, offline_kl, gen))
+    # the repaired domain: head dims above 256 (the sliced design) and a
+    # launch split over more than 65535 batch rows or heads
+    for name, b, s, heads, kl, dh, rel, it in (
+        ("vit_dh384_lanes384", 16, 448, 1, vit_kl, 384, 0.0, 5),
+        ("dh512_lanes1024", 16, 448, 2, vit_kl, 512, 0.0, 5),
+        ("b70000", 70000, 16, 2, [16 - i % 7 for i in range(70000)], 64, BF16_ULP_REL, 5),
+        ("heads65536", 2, 16, 65536, [16, 9], 2, BF16_ULP_REL, 3),
+    ):
+        shapes.append(check_attention(fa, name, b, s, heads, kl, gen, dh=dh, iters=it, plain_iters=1, rel=rel))
+        bwd_shapes.append(check_attention_bwd(fa, name, b, s, heads, kl, gen, dh=dh, iters=it, plain_iters=1,
+                                              rel=rel))
     ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
     ln_fwd += [check_layer_norm(ln, name, r, d, torch.bfloat16, torch.bfloat16, gen) for name, r, d in LN_WIDE_SHAPES]
     ln_fwd.append(check_layer_norm(ln, "wide_d4096_f32", 2 * STREAMS * 448, 4096, torch.float32, torch.float32, gen))
     ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES + LN_WIDE_SHAPES]
+    ln_fwd += [check_layer_norm(ln, *shape, gen) for shape in LN_OFFLINE_SHAPES]
+    ln_bwd += [check_layer_norm_bwd(ln, name, r, d, gen) for name, r, d, dt, _ in LN_OFFLINE_SHAPES
+               if dt == torch.bfloat16 and name.startswith("fusion")]
     for res in ln_bwd:  # one cooperative kernel a call, dgamma / dbeta included
         assert res["kernels_per_call"] == 1, f"layer_norm_bwd {res['shape']}: {res['kernels_per_call']} kernels"
 
@@ -1834,6 +2332,12 @@ def main() -> int:
     evaluation = evaluate(fa, ln, kept)
     shutil.rmtree(kept["dir"], ignore_errors=True)
     phase_done("evaluate")
+    ref_offline = reference_offline()
+    bc, bc_trainer, bc_state, bc_aug = offline(fa, ln)
+    bc_plain = offline_plain_check(fa, ln, bc_trainer, bc_aug)
+    bc_fit = offline_fit(bc_trainer, bc_state)
+    del bc_trainer, bc_state
+    phase_done("offline")
 
     # 7. results
     window_launches = {
@@ -1871,14 +2375,15 @@ def main() -> int:
              "training": training["launches"]["attention_fwd"],
              "trainer": window_launches["attention_fwd"],
              "trainer_async": async_launches["attention_fwd"],
-             "evaluate": evaluation["launches"]["attention_fwd"]},
+             "evaluate": evaluation["launches"]["attention_fwd"],
+             "offline": bc["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
         row("flash_attention_bwd", "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
             "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
             {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"],
-             "trainer_async": async_launches["attention_bwd"]},
+             "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -1889,7 +2394,8 @@ def main() -> int:
              "training": training["launches"]["layer_norm_fwd"],
              "trainer": window_launches["layer_norm_fwd"],
              "trainer_async": async_launches["layer_norm_fwd"],
-             "evaluate": evaluation["launches"]["layer_norm_fwd"]},
+             "evaluate": evaluation["launches"]["layer_norm_fwd"],
+             "offline": bc["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -1897,14 +2403,16 @@ def main() -> int:
             "safevla_tpu/ops/layer_norm.py:60", "safevla_tpu/ops/layer_norm.py::_ln_bwd_kernel",
             {"training": training["launches"]["layer_norm_bwd"],
              "trainer": window_launches["layer_norm_bwd"],
-             "trainer_async": async_launches["layer_norm_bwd"]},
+             "trainer_async": async_launches["layer_norm_bwd"],
+             "offline": bc["launches"]["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
             kernels_per_call=1),
     ]
-    for k in kernels:  # every kernel of the trainers' paths ran in each
+    for k in kernels:  # every kernel of the trainers' paths and of the offline path ran in each
         assert k["launches_trainer"] > 0 and k["launches_trainer_async"] > 0, k["name"]
+        assert k["launches_offline"] > 0, k["name"]
     for k in kernels[0], kernels[2]:  # and the forward kernels in the evaluate phase
         assert k["launches_evaluate"] > 0, k["name"]
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -1918,6 +2426,9 @@ def main() -> int:
         f"({online_async['window_wall_s_median']:.2f} s a window), async reference {ref_async}, "
         f"chunked vs update weights {chunked['max_weight_abs_diff']}, "
         f"evaluate {evaluation['episodes_per_s']:.3f} episodes/s, {evaluation['act_ms_mean']:.1f} ms/act, "
+        f"offline {bc['ms_per_step']:.1f} ms/step ({bc['samples_per_s']:.1f} samples/s, "
+        f"{bc['images_per_s']:.1f} images/s, mfu {bc['mfu_bf16_dense']:.4f}), reference BC step {ref_offline}, "
+        f"BC kernels vs plain {bc_plain['bc_loss_rel_diff']}, BC fit bit-equal {bc_fit['bit_equal']}, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

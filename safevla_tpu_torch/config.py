@@ -1,12 +1,13 @@
 """Configuration dataclasses read by the serving path, the learner update,
-the rollout runner, the sync online trainer and the evaluator.
+the rollout runner, the online trainers, the evaluator and the offline
+(behaviour cloning) trainer.
 
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
-`LagrangeConfig`, `TrainingStageConfig` and `EvalConfig`, of the
-`TrainConfig` fields the inference agent, the update, the runner and the
-trainer read, with identical defaults, and of `apply_overrides` (with its
-presets). The rest of the JAX config tree (offline, mesh) is ported with the
-slices that read it: an override of one of its keys is an unknown key here.
+`LagrangeConfig`, `TrainingStageConfig`, `OfflineConfig` and `EvalConfig`,
+of the `TrainConfig` fields the inference agent, the update, the runner and
+the trainers read, with identical defaults, and of `apply_overrides` (with
+its presets). The JAX config's `mesh` section has no counterpart (the port
+runs on one card): an override of one of its keys is an unknown key here.
 """
 
 from __future__ import annotations
@@ -146,6 +147,30 @@ class TrainConfig:
 
 
 @dataclass
+class OfflineConfig:
+    """Offline IL (behavior cloning) configuration (reference train_pl.py:24-71)."""
+
+    lr: float = 1e-4
+    per_device_batch_size: int = 16
+    sliding_window: int = 50
+    max_samples: int = 10_000_000
+    eval_max_samples: int = 2_000
+    num_epochs: int = 100
+    precision: str = "bfloat16"
+    dataset_version: str = "CHORES"
+    data_dir: str = "data"
+    loader_workers: int = 4
+    # host-side batch prep (hdf5/mp4 decode + tokenize + pinned host copy)
+    # runs in a background thread this many batches ahead of the device
+    # step, so IO overlaps compute. 0 disables the thread (synchronous prep).
+    prefetch_batches: int = 2
+    prob_sample_last_steps: float = 0.0
+    # on resume, load model weights but re-initialize the optimizer state
+    # (reference AdamWSkipLoadStateDict + --restart_optimizer, train_pl.py:74-80)
+    restart_optimizer: bool = False
+
+
+@dataclass
 class EvalConfig:
     num_workers: int = 8
     seed: int = 123
@@ -162,6 +187,7 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
     ppo: PPOConfig = field(default_factory=PPOConfig)
     lagrange: LagrangeConfig = field(default_factory=LagrangeConfig)
+    offline: OfflineConfig = field(default_factory=OfflineConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
 

@@ -1,6 +1,7 @@
 // Helpers of the streaming attention kernels (flash_attention_fwd.cu,
 // flash_attention_bwd.cu): the CUDA-core designs that take any S, where the
-// resident designs' shared memory runs out, and every head dim up to 256.
+// resident designs' shared memory runs out, and every other head dim (up to
+// 256 whole, above it in slices of 256: `load_slice`).
 //
 // A block of 8 warps owns 64 rows of one (head, batch row), 8 a warp, staged
 // in shared memory; the other side of each product streams through rings of
@@ -27,6 +28,13 @@
 // takes 16 only); 2 bytes (bf16 at an odd head dim) by a plain load and a
 // st.shared, which the barrier before the tile's use makes visible like the
 // asynchronous copies.
+//
+// Head-dim slices (head dims above 256, the sliced designs): a row's head
+// is staged kSliceDim columns at a time (`load_slice`), the columns of a
+// narrower last slice padded with zeros by the copy itself; a product over
+// the whole head carries one f32 accumulator through the slices in
+// ascending order (`dot_rows`' `acc`), so every kernel that forms a logit of
+// the same pair still gets the same bits.
 
 #pragma once
 
@@ -43,6 +51,7 @@ constexpr int kRowsPerWarp = 8;
 constexpr int kBlockRows = kWarps * kRowsPerWarp;  // rows a block owns
 constexpr int kTileRows = 32;                      // rows of a streamed tile: one a lane
 constexpr int kMaxHeadDim = 256;                   // the widest padded head dim
+constexpr int kSliceDim = kMaxHeadDim;             // columns of a head slice (the sliced designs)
 constexpr int kMaxSmem = 232448;                   // bytes of shared memory a block may use (227 KB)
 
 template <typename T, int DP>
@@ -137,6 +146,27 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const T* src, long long 
   }
 }
 
+// Copies of rows row0 .. row0+n-1 of one head slice (src: the slice's
+// column 0 of row 0, rows `stride` elements apart; its first `cols` columns,
+// `width` bytes a copy) into padded rows of DP columns at dst; the columns
+// cols..DP-1 and the rows >= limit are zero-filled (and not read). Every
+// thread of the block takes part.
+template <typename T, int DP>
+__device__ __forceinline__ void load_slice(uint32_t dst, const T* src, long long stride, int row0,
+                                           int n, int limit, int cols, int width) {
+  using R = Rows<T, DP>;
+  const int per_row = R::kBytes / width;
+  const int real = min(cols, DP) * static_cast<int>(sizeof(T));  // bytes of real columns
+  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
+    const int r = i / per_row, c = i - r * per_row;
+    const int row = row0 + r;
+    const bool ok = row < limit && c * width < real;
+    const unsigned char* s =
+        reinterpret_cast<const unsigned char*>(src + (row < limit ? row : 0) * stride);
+    copy_chunk(dst + r * R::kStride + c * width, s + (ok ? c * width : 0), ok, width);
+  }
+}
+
 // acc += a . b over 16-byte chunk c of two rows in shared memory
 template <typename T>
 __device__ __forceinline__ void dot_chunk(const unsigned char* a, const unsigned char* b, int c,
@@ -150,15 +180,16 @@ __device__ __forceinline__ void dot_chunk(const unsigned char* a, const unsigned
   for (int e = 0; e < kPerChunk; ++e) acc = fmaf(to_f32(xs[e]), to_f32(ys[e]), acc);
 }
 
-// a . b over one padded head, two rows in shared memory, d ascending. With
+// acc + a . b over one padded head (or head slice), two rows in shared
+// memory, d ascending. With
 // kFull (the forward) fully unrolled up to 16 chunks; else, and above 16
 // chunks, 4 chunks at a time: fully unrolled, the backward's 30 templates and
 // the 256-wide ones (32 or 64 chunks) spill registers and make the build
 // several times longer. The same FMA order either way.
 template <typename T, int DP, bool kFull = false>
-__device__ __forceinline__ float dot_rows(const unsigned char* a, const unsigned char* b) {
+__device__ __forceinline__ float dot_rows(const unsigned char* a, const unsigned char* b,
+                                          float acc = 0.f) {
   constexpr int kChunks = Rows<T, DP>::kChunks;
-  float acc = 0.f;
   if constexpr (kFull && kChunks <= 16) {
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) dot_chunk<T>(a, b, c, acc);

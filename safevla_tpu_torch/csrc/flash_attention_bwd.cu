@@ -105,7 +105,13 @@
 //      key_lens[b] are written as zeros;
 //   3. dq, one block per 64-query tile: K and V stream, dq += dsb k.
 // Every kernel forms s with the same FMA order, so p and ds agree bit for
-// bit between them.
+// bit between them. Above head dim 256 the sliced design runs the same three
+// kernels on 256-wide head slices (below, "head-dim sliced").
+//
+// Batch rows and heads: a launch takes at most 65535 of each; the wrapper
+// splits a larger call into launches over slices of both (`launch_slices`);
+// the streaming designs index their statistics scratch by the launch's own
+// rows and heads, (3, B, nh, S).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -258,14 +264,14 @@ template <int DH>
 __global__ void __launch_bounds__(kTcThreads, 2)
     attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                             const __nv_bfloat16* __restrict__ g, const int* __restrict__ key_lens,
-                            __nv_bfloat16* __restrict__ dqkv, int S, int H, long long stride_b,
-                            long long stride_s, float scale) {
+                            __nv_bfloat16* __restrict__ dqkv, int S, int H, int h0,
+                            long long stride_b, long long stride_s, float scale) {
   using T = Tc<DH>;
   constexpr int C = T::kChunks;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int h = static_cast<int>(blockIdx.x);
+  const int h = h0 + static_cast<int>(blockIdx.x);
   const int b = static_cast<int>(blockIdx.y);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
@@ -493,11 +499,11 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ g,
                              const int* __restrict__ key_lens, float* __restrict__ dqkv, int S,
-                             int H, long long stride_b, long long stride_s, float scale) {
+                             int H, int h0, long long stride_b, long long stride_s, float scale) {
   constexpr int kRowStride = DH + 1;            // words per staged row
   constexpr int kPer = DH >= 32 ? DH / 32 : 1;  // head dims a lane accumulates
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int h = static_cast<int>(blockIdx.x);
+  const int h = h0 + static_cast<int>(blockIdx.x);
   const int b = static_cast<int>(blockIdx.y);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
@@ -647,19 +653,21 @@ template <typename T, int DP>
 constexpr int kSlots = stream_smem_bytes<T, DP>(2) <= stream::kMaxSmem ? 2 : 1;
 
 // Where a streaming kernel's operands live: qkv and g of one (head, batch
-// row), the statistics scratch (3, B, H, S) and dqkv.
+// row), the statistics scratch (3, B, nh, S) of the launch (its batch rows
+// and its nh heads h0..h0+nh-1) and dqkv.
 template <typename T>
 struct StreamView {
   const T* q;  // head column 0 of row 0 of q; k and v are lanes and 2 * lanes further
   const T* g;  // head column 0 of row 0 of g (rows `lanes` apart)
   T* dq;       // the same in dqkv
-  float* m;    // m, rowsum and D of row 0 of this (b, h); BHS apart
+  float* m;    // m, rowsum and D of row 0 of this (b, h); B * nh * S apart
   int kl, lanes;
   size_t bhs;
 
   __device__ StreamView(const T* qkv, const T* g_all, T* dqkv, float* stats, const int* key_lens,
-                        int S, int H, int dh, long long stride_b) {
-    const int h = static_cast<int>(blockIdx.y);
+                        int S, int H, int h0, int dh, long long stride_b) {
+    const int hl = static_cast<int>(blockIdx.y);  // the head's place in this launch
+    const int h = h0 + hl;
     const int b = static_cast<int>(blockIdx.z);
     kl = key_lens ? key_lens[b] : S;
     if (kl < 1 || kl > S) __trap();
@@ -667,8 +675,8 @@ struct StreamView {
     q = qkv + b * stride_b + h * dh;
     g = g_all + static_cast<size_t>(b) * S * lanes + h * dh;
     dq = dqkv ? dqkv + b * stride_b + h * dh : nullptr;
-    bhs = static_cast<size_t>(gridDim.z) * H * S;
-    m = stats + (static_cast<size_t>(b) * H + h) * S;
+    bhs = static_cast<size_t>(gridDim.z) * gridDim.y * S;
+    m = stats + (static_cast<size_t>(b) * gridDim.y + hl) * S;
   }
 };
 
@@ -712,13 +720,13 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                                const int* __restrict__ key_lens, float* __restrict__ stats, int S,
-                               int H, int dh, long long stride_b, long long stride_s, float scale,
-                               int width) {
+                               int H, int h0, int dh, long long stride_b, long long stride_s,
+                               float scale, int width) {
   using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
   constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T> v(qkv, g_all, nullptr, stats, key_lens, S, H, dh, stride_b);
+  const StreamView<T> v(qkv, g_all, nullptr, stats, key_lens, S, H, h0, dh, stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
@@ -806,13 +814,14 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                               const int* __restrict__ key_lens, const float* __restrict__ stats,
-                              T* __restrict__ dqkv, int S, int H, int dh, long long stride_b,
-                              long long stride_s, float scale, int width) {
+                              T* __restrict__ dqkv, int S, int H, int h0, int dh,
+                              long long stride_b, long long stride_s, float scale, int width) {
   using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
   constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, dh, stride_b);
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, h0, dh,
+                        stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int j0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
@@ -902,13 +911,14 @@ template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
                             const int* __restrict__ key_lens, const float* __restrict__ stats,
-                            T* __restrict__ dqkv, int S, int H, int dh, long long stride_b,
-                            long long stride_s, float scale, int width) {
+                            T* __restrict__ dqkv, int S, int H, int h0, int dh,
+                            long long stride_b, long long stride_s, float scale, int width) {
   using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
   constexpr int kS = kSlots<T, DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, dh, stride_b);
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, h0, dh,
+                        stride_b);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
@@ -978,6 +988,339 @@ __global__ void __launch_bounds__(stream::kThreads)
   }
 }
 
+// ------------------------------------------------------ head-dim sliced ---
+//
+// Head dims above 256: the three kernels of the streaming design, with every
+// row staged one 256-wide head slice at a time (the shared memory of one
+// slice is that of the 256 template). A logit s = q.k and dp = g.v are
+// accumulated over every slice in ascending order (the same FMA order in
+// the three kernels, so p and ds agree bit for bit between them); the dk/dv
+// and dq kernels own one output slice each (grid.x carries the slices), so
+// their logit work repeats once per output slice.
+
+constexpr int kSlice = stream::kSliceDim;
+
+template <typename T>
+__host__ __device__ constexpr int sliced_smem_bytes() {
+  // two slices of 64 owned rows and two of a 32-row tile (f32: 199,680 bytes)
+  return (2 * stream::kBlockRows + 2 * stream::kTileRows) * stream::Rows<T, kSlice>::kStride;
+}
+
+// Stages slice c of rows0 (64 owned rows from a0, rows a_stride apart, rows
+// >= a_lim zero) into own0, of rows1 (the same) into own1, and of 32-row
+// tile rows t0.. of b0 / b1 into tile0 / tile1; a null source is skipped.
+// Every thread of the block takes part; returns once the copies landed.
+template <typename T>
+__device__ __forceinline__ void stage_slice(int c, int dh, int width, uint32_t own0,
+                                            const T* a0, uint32_t own1, const T* a1,
+                                            long long a_stride0, long long a_stride1, int row0,
+                                            int a_lim, uint32_t tile0, const T* b0,
+                                            uint32_t tile1, const T* b1, long long b_stride0,
+                                            long long b_stride1, int t0, int b_lim) {
+  const int cols = dh - c * kSlice;
+  __syncthreads();  // every warp is done with the previous slice
+  if (a0)
+    stream::load_slice<T, kSlice>(own0, a0 + c * kSlice, a_stride0, row0, stream::kBlockRows,
+                                  a_lim, cols, width);
+  if (a1)
+    stream::load_slice<T, kSlice>(own1, a1 + c * kSlice, a_stride1, row0, stream::kBlockRows,
+                                  a_lim, cols, width);
+  if (b0)
+    stream::load_slice<T, kSlice>(tile0, b0 + c * kSlice, b_stride0, t0, stream::kTileRows, b_lim,
+                                  cols, width);
+  if (b1)
+    stream::load_slice<T, kSlice>(tile1, b1 + c * kSlice, b_stride1, t0, stream::kTileRows, b_lim,
+                                  cols, width);
+  hopper::cp_async_commit();
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// 1. m, rowsum and D of 64 query rows.
+template <typename T>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_sliced_stats_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                                      const int* __restrict__ key_lens, float* __restrict__ stats,
+                                      int S, int H, int h0, int dh, long long stride_b,
+                                      long long stride_s, float scale, int width) {
+  using R = stream::Rows<T, kSlice>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T> v(qkv, g_all, nullptr, stats, key_lens, S, H, h0, dh, stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
+  const int n_slices = (dh + kSlice - 1) / kSlice;
+  unsigned char* q_s = smem_raw;
+  unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + R::kTileBytes;
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;
+  const unsigned char* my_g = g_s + warp * kRows * R::kStride;
+  const unsigned char* k_row = k_s + lane * R::kStride;
+  const unsigned char* v_row = v_s + lane * R::kStride;
+  const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
+
+  // s = q.k (and, with dp, dp = g.v) of this lane's key of tile t, unscaled
+  auto products = [&](int t, float (&s)[kRows], float* dp) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      s[r] = 0.f;
+      if (dp) dp[r] = 0.f;
+    }
+    for (int c = 0; c < n_slices; ++c) {
+      stage_slice<T>(c, dh, width, hopper::smem_addr(q_s), v.q, hopper::smem_addr(g_s),
+                     dp ? v.g : nullptr, stride_s, v.lanes, q0, S, hopper::smem_addr(k_s),
+                     v.q + v.lanes, hopper::smem_addr(v_s), dp ? v.q + 2 * v.lanes : nullptr,
+                     stride_s, stride_s, t * stream::kTileRows, v.kl);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        s[r] = stream::dot_rows<T, kSlice>(my_q + r * R::kStride, k_row, s[r]);
+        if (dp) dp[r] = stream::dot_rows<T, kSlice>(my_g + r * R::kStride, v_row, dp[r]);
+      }
+    }
+  };
+
+  // the row max and rowsum, each lane over its own keys
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = __int_as_float(0xff800000);
+    l[r] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows];
+    products(t, s, nullptr);
+    if (t * stream::kTileRows + lane >= v.kl) continue;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float x = s[r] * scale;
+      if (x > m[r]) {
+        l[r] = l[r] * expf(m[r] - x) + 1.f;
+        m[r] = x;
+      } else {
+        l[r] += expf(x - m[r]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float mx = stream::warp_max(m[r]);
+    l[r] = stream::warp_sum(l[r] * expf(m[r] - mx));  // a lane with no key: 0 * 0
+    m[r] = mx;
+  }
+
+  // D = sum_j p_ij dp_ij, p = io(e / rowsum)
+  float dsum[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) dsum[r] = 0.f;
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows], dp[kRows];
+    products(t, s, dp);
+    if (t * stream::kTileRows + lane >= v.kl) continue;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float p = stream::round_io<T>(expf(s[r] * scale - m[r]) / l[r]);
+      dsum[r] = fmaf(dp[r], p, dsum[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float d = stream::warp_sum(dsum[r]);
+    const int row = q0 + warp * kRows + r;
+    if (lane == 0 && row < S) {
+      v.m[row] = m[r];
+      v.m[v.bhs + row] = l[r];
+      v.m[2 * v.bhs + row] = d;
+    }
+  }
+}
+
+// 2. dk and dv of 64 key rows, one 256-wide output slice.
+template <typename T>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_sliced_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                                     const int* __restrict__ key_lens,
+                                     const float* __restrict__ stats, T* __restrict__ dqkv, int S,
+                                     int H, int h0, int dh, long long stride_b,
+                                     long long stride_s, float scale, int width) {
+  using R = stream::Rows<T, kSlice>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, h0, dh,
+                        stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_slices = (dh + kSlice - 1) / kSlice;
+  const int j0 = static_cast<int>(blockIdx.x) / n_slices * stream::kBlockRows;
+  const int os = static_cast<int>(blockIdx.x) % n_slices;  // this block's output slice
+  const int c0 = os * kSlice + R::kPer * lane;  // this lane's first column of the head
+  if (j0 >= v.kl) {  // every key row of the tile is masked: dk = dv = 0
+    for (int r = warp; r < stream::kBlockRows && j0 + r < S; r += stream::kWarps) {
+      T* row = v.dq + (j0 + r) * stride_s + c0;
+#pragma unroll
+      for (int u = 0; u < R::kPer; ++u)
+        if (c0 + u < dh) row[v.lanes + u] = row[2 * v.lanes + u] = stream::from_f32<T>(0.f);
+    }
+    return;
+  }
+  unsigned char* k_s = smem_raw;
+  unsigned char* vv_s = k_s + stream::kBlockRows * R::kStride;
+  unsigned char* q_s = vv_s + stream::kBlockRows * R::kStride;
+  unsigned char* g_s = q_s + R::kTileBytes;
+  const unsigned char* my_k = k_s + warp * kRows * R::kStride;
+  const unsigned char* my_v = vv_s + warp * kRows * R::kStride;
+  const unsigned char* q_row = q_s + lane * R::kStride;
+  const unsigned char* g_row = g_s + lane * R::kStride;
+  const int n_tiles = (S + stream::kTileRows - 1) / stream::kTileRows;
+
+  float dk[kRows][R::kPer], dv[kRows][R::kPer];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) dk[r][u] = dv[r][u] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < n_slices; ++c) {
+      stage_slice<T>(c, dh, width, hopper::smem_addr(k_s), v.q + v.lanes, hopper::smem_addr(vv_s),
+                     v.q + 2 * v.lanes, stride_s, stride_s, j0, v.kl, hopper::smem_addr(q_s),
+                     v.q, hopper::smem_addr(g_s), v.g, stride_s, v.lanes, t * stream::kTileRows,
+                     S);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        s[r] = stream::dot_rows<T, kSlice>(q_row, my_k + r * R::kStride, s[r]);
+        dp[r] = stream::dot_rows<T, kSlice>(g_row, my_v + r * R::kStride, dp[r]);
+      }
+    }
+    const int i = t * stream::kTileRows + lane;  // this lane's query row
+    const bool q_ok = i < S;
+    const float mi = q_ok ? v.m[i] : 0.f;
+    const float li = q_ok ? v.m[v.bhs + i] : 1.f;
+    const float di = q_ok ? v.m[2 * v.bhs + i] : 0.f;
+    float p[kRows], dsb[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      p[r] = q_ok ? stream::round_io<T>(expf(s[r] * scale - mi) / li) : 0.f;
+      dsb[r] = stream::round_io<T>(p[r] * (dp[r] - di));
+    }
+    // this block's slice of the tile's q and g rows
+    stage_slice<T>(os, dh, width, 0, nullptr, 0, nullptr, 0, 0, 0, 0, hopper::smem_addr(q_s), v.q,
+                   hopper::smem_addr(g_s), v.g, stride_s, v.lanes, t * stream::kTileRows, S);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      for (int jq = 0; jq < stream::kTileRows; ++jq) {
+        const float pj = __shfl_sync(0xffffffffu, p[r], jq);
+        const float dj = __shfl_sync(0xffffffffu, dsb[r], jq);
+        stream::axpy_row<T, kSlice>(dv[r], pj, g_s + jq * R::kStride, R::kPer * lane);
+        stream::axpy_row<T, kSlice>(dk[r], dj, q_s + jq * R::kStride, R::kPer * lane);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int j = j0 + warp * kRows + r;
+    if (j >= S) continue;
+    const bool key = j < v.kl;  // a masked key row: exactly 0
+    T* row = v.dq + j * stride_s + c0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) {
+      if (c0 + u >= dh) continue;
+      row[v.lanes + u] = stream::from_f32<T>(key ? dk[r][u] * scale : 0.f);
+      row[2 * v.lanes + u] = stream::from_f32<T>(key ? dv[r][u] : 0.f);
+    }
+  }
+}
+
+// 3. dq of 64 query rows, one 256-wide output slice.
+template <typename T>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_bwd_sliced_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ g_all,
+                                   const int* __restrict__ key_lens,
+                                   const float* __restrict__ stats, T* __restrict__ dqkv, int S,
+                                   int H, int h0, int dh, long long stride_b, long long stride_s,
+                                   float scale, int width) {
+  using R = stream::Rows<T, kSlice>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const StreamView<T> v(qkv, g_all, dqkv, const_cast<float*>(stats), key_lens, S, H, h0, dh,
+                        stride_b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_slices = (dh + kSlice - 1) / kSlice;
+  const int q0 = static_cast<int>(blockIdx.x) / n_slices * stream::kBlockRows;
+  const int os = static_cast<int>(blockIdx.x) % n_slices;
+  const int c0 = os * kSlice + R::kPer * lane;
+  unsigned char* q_s = smem_raw;
+  unsigned char* g_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* k_s = g_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + R::kTileBytes;
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;
+  const unsigned char* my_g = g_s + warp * kRows * R::kStride;
+  const unsigned char* k_row = k_s + lane * R::kStride;
+  const unsigned char* v_row = v_s + lane * R::kStride;
+  float m[kRows], l[kRows], d[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = min(q0 + warp * kRows + r, S - 1);  // rows past S: computed, never stored
+    m[r] = v.m[row];
+    l[r] = v.m[v.bhs + row];
+    d[r] = v.m[2 * v.bhs + row];
+  }
+  const int n_tiles = (v.kl + stream::kTileRows - 1) / stream::kTileRows;
+
+  float dq[kRows][R::kPer];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) dq[r][u] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
+    for (int c = 0; c < n_slices; ++c) {
+      stage_slice<T>(c, dh, width, hopper::smem_addr(q_s), v.q, hopper::smem_addr(g_s), v.g,
+                     stride_s, v.lanes, q0, S, hopper::smem_addr(k_s), v.q + v.lanes,
+                     hopper::smem_addr(v_s), v.q + 2 * v.lanes, stride_s, stride_s,
+                     t * stream::kTileRows, v.kl);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        s[r] = stream::dot_rows<T, kSlice>(my_q + r * R::kStride, k_row, s[r]);
+        dp[r] = stream::dot_rows<T, kSlice>(my_g + r * R::kStride, v_row, dp[r]);
+      }
+    }
+    const bool valid = t * stream::kTileRows + lane < v.kl;
+    float dsb[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float p = valid ? stream::round_io<T>(expf(s[r] * scale - m[r]) / l[r]) : 0.f;
+      dsb[r] = stream::round_io<T>(p * (dp[r] - d[r]));
+    }
+    // this block's slice of the tile's k rows
+    stage_slice<T>(os, dh, width, 0, nullptr, 0, nullptr, 0, 0, 0, 0, hopper::smem_addr(k_s),
+                   v.q + v.lanes, 0, nullptr, stride_s, 0, t * stream::kTileRows, v.kl);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      for (int j = 0; j < stream::kTileRows; ++j) {
+        const float dj = __shfl_sync(0xffffffffu, dsb[r], j);
+        stream::axpy_row<T, kSlice>(dq[r], dj, k_s + j * R::kStride, R::kPer * lane);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = q0 + warp * kRows + r;
+    if (row >= S) continue;
+    T* out = v.dq + row * stride_s + c0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u)
+      if (c0 + u < dh) out[u] = stream::from_f32<T>(dq[r][u] * scale);
+  }
+}
+
 // ------------------------------------------------------------- launches ---
 
 template <typename Kernel>
@@ -986,13 +1329,17 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// One launch covers batch rows 0..B-1 of the pointers it is given (the
+// wrapper offsets qkv, g, key_lens and dqkv to a slice of at most 65535
+// rows) and heads h0..h0+nh-1 of H (at most 65535); the streaming designs'
+// stats scratch is (3, B, nh, S), the launch's own.
 struct Args {
   const void* qkv;
   const void* g;
   const void* key_lens;
   void* dqkv;
   float* stats;
-  int B, S, H, dh;
+  int B, S, H, h0, nh, dh;
   long long stride_b, stride_s;
   float scale;
   int width;  // bytes a copy of the streaming design: 16, 8, 4 or 2
@@ -1004,9 +1351,9 @@ cudaError_t launch_bf16(const Args& a) {
   const size_t smem = tc_smem_bytes<DH>(a.S);
   cudaError_t err = set_smem(attention_bwd_tc_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_tc_kernel<DH><<<dim3(a.H, a.B), kTcThreads, smem, a.stream>>>(
+  attention_bwd_tc_kernel<DH><<<dim3(a.nh, a.B), kTcThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const __nv_bfloat16*>(a.g),
-      static_cast<const int*>(a.key_lens), static_cast<__nv_bfloat16*>(a.dqkv), a.S, a.H,
+      static_cast<const int*>(a.key_lens), static_cast<__nv_bfloat16*>(a.dqkv), a.S, a.H, a.h0,
       a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
@@ -1016,10 +1363,10 @@ cudaError_t launch_f32(const Args& a) {
   const size_t smem = f32_smem_bytes<DH>(a.S);
   cudaError_t err = set_smem(attention_bwd_f32_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_f32_kernel<DH><<<dim3(a.H, a.B), kThreads, smem, a.stream>>>(
+  attention_bwd_f32_kernel<DH><<<dim3(a.nh, a.B), kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.qkv), static_cast<const float*>(a.g),
-      static_cast<const int*>(a.key_lens), static_cast<float*>(a.dqkv), a.S, a.H, a.stride_b,
-      a.stride_s, a.scale);
+      static_cast<const int*>(a.key_lens), static_cast<float*>(a.dqkv), a.S, a.H, a.h0,
+      a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
 
@@ -1031,19 +1378,47 @@ cudaError_t launch_stream(const Args& a) {
   if (err == cudaSuccess) err = set_smem(attention_bwd_dkdv_kernel<T, DP>, smem);
   if (err == cudaSuccess) err = set_smem(attention_bwd_dq_kernel<T, DP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
+  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.nh, a.B);
   const T* qkv = static_cast<const T*>(a.qkv);
   const T* g = static_cast<const T*>(a.g);
   const int* kl = static_cast<const int*>(a.key_lens);
   T* dqkv = static_cast<T*>(a.dqkv);
   attention_bwd_stats_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+      qkv, g, kl, a.stats, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attention_bwd_dkdv_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   attention_bwd_dq_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
-      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sliced(const Args& a) {
+  constexpr int smem = sliced_smem_bytes<T>();
+  static_assert(smem <= stream::kMaxSmem, "the sliced backward's tiles must fit one block");
+  cudaError_t err = set_smem(attention_bwd_sliced_stats_kernel<T>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_sliced_dkdv_kernel<T>, smem);
+  if (err == cudaSuccess) err = set_smem(attention_bwd_sliced_dq_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (a.S + stream::kBlockRows - 1) / stream::kBlockRows;
+  const long long blocks = tiles * ((a.dh + kSlice - 1) / kSlice);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 stats_grid(static_cast<unsigned>(tiles), a.nh, a.B);
+  const dim3 grid(static_cast<unsigned>(blocks), a.nh, a.B);
+  const T* qkv = static_cast<const T*>(a.qkv);
+  const T* g = static_cast<const T*>(a.g);
+  const int* kl = static_cast<const int*>(a.key_lens);
+  T* dqkv = static_cast<T*>(a.dqkv);
+  attention_bwd_sliced_stats_kernel<T><<<stats_grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_sliced_dkdv_kernel<T><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attention_bwd_sliced_dq_kernel<T><<<grid, stream::kThreads, smem, a.stream>>>(
+      qkv, g, kl, a.stats, dqkv, a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   return cudaGetLastError();
 }
 
@@ -1065,20 +1440,24 @@ cudaError_t launch_streaming(const Args& a, int dtype) {
 
 bool valid_args(const Args& a) {
   // grid.y and grid.z take at most 65535 blocks
-  return a.B >= 1 && a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535 && a.dh >= 1;
+  return a.B >= 1 && a.S >= 1 && a.nh >= 1 && a.h0 >= 0 && a.h0 + a.nh <= a.H && a.B <= 65535 &&
+         a.nh <= 65535 && a.dh >= 1;
 }
 
 }  // namespace
 
 // dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores); head_dim
-// 16, 32, 64 or 128. qkv and dqkv share the strides (in elements) stride_b,
-// stride_s with a contiguous last axis; g is contiguous (B, S, H*Dh); every
-// row starts on a 16-byte boundary. Returns a cudaError_t (0 on success).
+// 16, 32, 64 or 128. B batch rows from the pointers given (at most 65535),
+// heads h0..h0+nh-1 (nh at most 65535) of the H that the rows pack. qkv and
+// dqkv share the strides (in elements) stride_b, stride_s with a contiguous
+// last axis; g is contiguous (B, S, H*Dh); every row starts on a 16-byte
+// boundary. Returns a cudaError_t (0 on success).
 extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key_lens, void* dqkv,
-                                 int B, int S, int H, int head_dim, long long stride_b,
-                                 long long stride_s, float scale, int dtype, void* stream) {
-  const Args a{qkv, g, key_lens, dqkv, nullptr, B, S, H, head_dim, stride_b, stride_s, scale, 16,
-               static_cast<cudaStream_t>(stream)};
+                                 int B, int S, int H, int h0, int nh, int head_dim,
+                                 long long stride_b, long long stride_s, float scale, int dtype,
+                                 void* stream) {
+  const Args a{qkv, g, key_lens, dqkv, nullptr, B, S, H, h0, nh, head_dim, stride_b, stride_s,
+               scale, 16, static_cast<cudaStream_t>(stream)};
   if (!valid_args(a)) return cudaErrorInvalidValue;
   switch (head_dim) {
     case 16: return launch_resident<16>(a, dtype);
@@ -1089,19 +1468,20 @@ extern "C" int attention_qkv_bwd(const void* qkv, const void* g, const void* key
   }
 }
 
-// The streaming design (CUDA cores, both dtypes; three kernels), same
-// arguments, `stats`, an f32 (3, B, H, S) scratch for m, rowsum and D, and
+// The streaming designs (CUDA cores, both dtypes; three kernels), same
+// arguments, `stats`, an f32 (3, B, nh, S) scratch for m, rowsum and D, and
 // copy_bytes, the width of its row copies (16, 8, 4, or 2 for bf16; a
 // divisor of head_dim * the dtype's size): the wrapper's choice above the
-// resident designs' largest S and at every head dim from 1 to 256 that they
-// do not take, on the template of the padded head dim (the least of 16, 32,
-// 64, 128, 256 not below head_dim).
+// resident designs' largest S and at every head dim that they do not take;
+// up to 256 on the template of the padded head dim (the least of 16, 32,
+// 64, 128, 256 not below head_dim), above 256 the sliced design.
 extern "C" int attention_qkv_bwd_stream(const void* qkv, const void* g, const void* key_lens,
-                                        void* dqkv, void* stats, int B, int S, int H, int head_dim,
-                                        long long stride_b, long long stride_s, float scale,
-                                        int dtype, int copy_bytes, void* stream) {
-  const Args a{qkv, g, key_lens, dqkv, static_cast<float*>(stats), B, S, H, head_dim, stride_b,
-               stride_s, scale, copy_bytes, static_cast<cudaStream_t>(stream)};
+                                        void* dqkv, void* stats, int B, int S, int H, int h0,
+                                        int nh, int head_dim, long long stride_b,
+                                        long long stride_s, float scale, int dtype,
+                                        int copy_bytes, void* stream) {
+  const Args a{qkv, g, key_lens, dqkv, static_cast<float*>(stats), B, S, H, h0, nh, head_dim,
+               stride_b, stride_s, scale, copy_bytes, static_cast<cudaStream_t>(stream)};
   const int size = dtype == 0 ? 2 : 4;
   if (!valid_args(a) || copy_bytes < size || (head_dim * size) % copy_bytes) return cudaErrorInvalidValue;
   if (head_dim <= 16) return launch_streaming<16>(a, dtype);
@@ -1109,6 +1489,8 @@ extern "C" int attention_qkv_bwd_stream(const void* qkv, const void* g, const vo
   if (head_dim <= 64) return launch_streaming<64>(a, dtype);
   if (head_dim <= 128) return launch_streaming<128>(a, dtype);
   if (head_dim <= stream::kMaxHeadDim) return launch_streaming<256>(a, dtype);
+  if (dtype == 0) return launch_sliced<__nv_bfloat16>(a);
+  if (dtype == 1) return launch_sliced<float>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -14,11 +14,17 @@
 //   otherwise (a host-side check would synchronise every call).
 //
 // Head dims: the resident designs are templates over Dh in {16, 32, 64,
-// 128}; every other head dim from 1 to 256 (the JAX kernel's domain:
-// lanes % 128 == 0 and lanes % heads == 0, any Dh) runs the streaming design,
-// on the template of its padded head dim (16, 32, 64, 128 or 256) with the
-// runtime Dh (attention_stream.cuh). Above 256 the wrapper refuses. Every
-// path shape has Dh = 64.
+// 128}; every other head dim (the JAX kernel's domain: lanes % 128 == 0 and
+// lanes % heads == 0, any Dh) runs a streaming design: up to 256 on the
+// template of its padded head dim (16, 32, 64, 128 or 256) with the runtime
+// Dh (attention_stream.cuh), above 256 the sliced design (the head staged
+// 256 columns at a time, a block per output slice; below). Every path shape
+// has Dh = 64.
+//
+// Batch rows and heads: a launch takes at most 65535 of each (grid.z,
+// grid.y); the wrapper splits a larger call into launches over slices of
+// both (`launch_slices`), offsetting the pointers to the slice's first batch
+// row and passing its first head h0.
 //
 // What bounds it on an H100: 4*S*kl*Dh flops per (b, h) for q.k and p.v
 // against 2*B*S*4*H*Dh bytes (qkv read once, out written once) in bf16. At
@@ -152,15 +158,15 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[T
 template <int DH>
 __global__ void __launch_bounds__(kTcThreads, DH <= 64 ? 4 : 2)
     attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ key_lens,
-                            __nv_bfloat16* __restrict__ out, int S, int H, long long stride_b,
-                            long long stride_s, float scale) {
+                            __nv_bfloat16* __restrict__ out, int S, int H, int h0,
+                            long long stride_b, long long stride_s, float scale) {
   using T = Tc<DH>;
   constexpr int C = T::kChunks;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * kTile;
-  const int h = static_cast<int>(blockIdx.y);
+  const int h = h0 + static_cast<int>(blockIdx.y);
   const int b = static_cast<int>(blockIdx.z);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
@@ -310,12 +316,12 @@ size_t f32_smem_bytes(int S) {
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_f32_kernel(const float* __restrict__ qkv, const int* __restrict__ key_lens,
-                             float* __restrict__ out, int S, int H, long long stride_b,
+                             float* __restrict__ out, int S, int H, int h0, long long stride_b,
                              long long stride_s, float scale) {
   constexpr int kRowStride = DH + 1;  // words per staged K row
   constexpr int kPer = DH >= 32 ? DH / 32 : 1;  // head dims a lane accumulates in p.v
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int h = static_cast<int>(blockIdx.y);
+  const int h = h0 + static_cast<int>(blockIdx.y);
   const int b = static_cast<int>(blockIdx.z);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
@@ -402,15 +408,15 @@ __host__ __device__ constexpr int stream_smem_bytes() {
 template <typename T, int DP>
 __global__ void __launch_bounds__(stream::kThreads)
     attention_fwd_stream_kernel(const T* __restrict__ qkv, const int* __restrict__ key_lens,
-                                T* __restrict__ out, int S, int H, int dh, long long stride_b,
-                                long long stride_s, float scale, int width) {
+                                T* __restrict__ out, int S, int H, int h0, int dh,
+                                long long stride_b, long long stride_s, float scale, int width) {
   using R = stream::Rows<T, DP>;
   constexpr int kRows = stream::kRowsPerWarp;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int q0 = static_cast<int>(blockIdx.x) * stream::kBlockRows;
-  const int h = static_cast<int>(blockIdx.y);
+  const int h = h0 + static_cast<int>(blockIdx.y);
   const int b = static_cast<int>(blockIdx.z);
   const int kl = key_lens ? key_lens[b] : S;
   if (kl < 1 || kl > S) __trap();
@@ -514,6 +520,129 @@ __global__ void __launch_bounds__(stream::kThreads)
   }
 }
 
+// ------------------------------------------------------ head-dim sliced ---
+
+template <typename T>
+__host__ __device__ constexpr int sliced_smem_bytes() {
+  // a slice of the 64 owned Q rows, a slice of a 32-row K tile and of a V tile
+  return (stream::kBlockRows + 2 * stream::kTileRows) * stream::Rows<T, stream::kSliceDim>::kStride;
+}
+
+// Head dims above 256: one block of 8 warps per (64-query tile, 256-wide
+// output slice, head, batch row). Each logit is accumulated over every head
+// slice (Q and K staged one slice at a time), so the logit work repeats once
+// per output slice; pass 2 stages only this block's slice of V.
+template <typename T>
+__global__ void __launch_bounds__(stream::kThreads)
+    attention_fwd_sliced_kernel(const T* __restrict__ qkv, const int* __restrict__ key_lens,
+                                T* __restrict__ out, int S, int H, int h0, int dh,
+                                long long stride_b, long long stride_s, float scale, int width) {
+  constexpr int DP = stream::kSliceDim;
+  using R = stream::Rows<T, DP>;
+  constexpr int kRows = stream::kRowsPerWarp;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_slices = (dh + DP - 1) / DP;
+  const int q0 = static_cast<int>(blockIdx.x) / n_slices * stream::kBlockRows;
+  const int os = static_cast<int>(blockIdx.x) % n_slices;  // this block's output slice
+  const int h = h0 + static_cast<int>(blockIdx.y);
+  const int b = static_cast<int>(blockIdx.z);
+  const int kl = key_lens ? key_lens[b] : S;
+  if (kl < 1 || kl > S) __trap();
+  const int lanes = H * dh;
+  const T* base = qkv + b * stride_b + h * dh;
+  const int n_tiles = (kl + stream::kTileRows - 1) / stream::kTileRows;
+
+  unsigned char* q_s = smem_raw;
+  unsigned char* k_s = q_s + stream::kBlockRows * R::kStride;
+  unsigned char* v_s = k_s + R::kTileBytes;
+  const uint32_t q_a = hopper::smem_addr(q_s), k_a = hopper::smem_addr(k_s),
+                 v_a = hopper::smem_addr(v_s);
+  const unsigned char* my_q = q_s + warp * kRows * R::kStride;  // this warp's 8 query rows
+
+  // s[r] = q_r . k_(lane's key) of key tile t, unscaled, over every slice in
+  // ascending order: the same FMA order in both passes
+  auto logits = [&](int t, float (&s)[kRows]) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+    for (int c = 0; c < n_slices; ++c) {
+      __syncthreads();  // every warp is done with the previous slice
+      stream::load_slice<T, DP>(q_a, base + c * DP, stride_s, q0, stream::kBlockRows, S,
+                                dh - c * DP, width);
+      stream::load_slice<T, DP>(k_a, base + lanes + c * DP, stride_s, t * stream::kTileRows,
+                                stream::kTileRows, kl, dh - c * DP, width);
+      hopper::cp_async_commit();
+      hopper::cp_async_wait<0>();
+      __syncthreads();
+      const unsigned char* k_row = k_s + lane * R::kStride;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        s[r] = stream::dot_rows<T, DP>(my_q + r * R::kStride, k_row, s[r]);
+    }
+  };
+
+  // pass 1: the row max of the scaled logits over the valid keys
+  float m[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) m[r] = __int_as_float(0xff800000);
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows];
+    logits(t, s);
+    if (t * stream::kTileRows + lane < kl) {
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) m[r] = fmaxf(m[r], s[r] * scale);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) m[r] = stream::warp_max(m[r]);
+
+  // pass 2: e, the f32 denominator, p = io(e), and o = p . v over this
+  // block's slice of V
+  const int d0 = R::kPer * lane;  // 8 of the slice's 256 columns a lane
+  float o[kRows][R::kPer];
+  float denom[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    denom[r] = 0.f;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u) o[r][u] = 0.f;
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[kRows];
+    logits(t, s);
+    __syncthreads();  // the V slot is free
+    stream::load_slice<T, DP>(v_a, base + 2 * lanes + os * DP, stride_s, t * stream::kTileRows,
+                              stream::kTileRows, kl, dh - os * DP, width);
+    hopper::cp_async_commit();
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    const bool valid = t * stream::kTileRows + lane < kl;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float e = valid ? expf(s[r] * scale - m[r]) : 0.f;
+      denom[r] += e;
+      const float p = stream::round_io<T>(e);
+      for (int j = 0; j < stream::kTileRows; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, p, j);
+        stream::axpy_row<T, DP>(o[r], pj, v_s + j * R::kStride, d0);
+      }
+    }
+  }
+
+  const int c0 = os * DP + d0;  // this lane's first column of the head
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float den = stream::warp_sum(denom[r]);
+    const int row = q0 + warp * kRows + r;
+    if (row >= S) continue;
+    T* o_row = out + (static_cast<size_t>(b) * S + row) * lanes + h * dh + c0;
+#pragma unroll
+    for (int u = 0; u < R::kPer; ++u)
+      if (c0 + u < dh) o_row[u] = stream::from_f32<T>(o[r][u] / den);
+  }
+}
+
 // ------------------------------------------------------------- launches ---
 
 template <typename Kernel>
@@ -522,11 +651,14 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// One launch covers batch rows 0..B-1 of the pointers it is given (the
+// wrapper offsets qkv, key_lens and out to a slice of at most 65535 rows)
+// and heads h0..h0+nh-1 of H (at most 65535): grid.z and grid.y.
 struct Args {
   const void* qkv;
   const void* key_lens;
   void* out;
-  int B, S, H, dh;
+  int B, S, H, h0, nh, dh;
   long long stride_b, stride_s;
   float scale;
   int width;  // bytes a copy of the streaming design: 16, 8, 4 or 2
@@ -538,10 +670,10 @@ cudaError_t launch_bf16(const Args& a) {
   const int smem = tc_smem_bytes<DH>(a.S);
   cudaError_t err = set_smem(attention_fwd_tc_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kTile - 1) / kTile, a.H, a.B);
+  const dim3 grid((a.S + kTile - 1) / kTile, a.nh, a.B);
   attention_fwd_tc_kernel<DH><<<grid, kTcThreads, smem, a.stream>>>(
       static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const int*>(a.key_lens),
-      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.stride_b, a.stride_s, a.scale);
+      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.h0, a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
 
@@ -550,10 +682,10 @@ cudaError_t launch_f32(const Args& a) {
   const size_t smem = f32_smem_bytes<DH>(a.S);
   cudaError_t err = set_smem(attention_fwd_f32_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, a.H, a.B);
+  const dim3 grid((a.S + kRowsPerBlock - 1) / kRowsPerBlock, a.nh, a.B);
   attention_fwd_f32_kernel<DH><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.qkv), static_cast<const int*>(a.key_lens),
-      static_cast<float*>(a.out), a.S, a.H, a.stride_b, a.stride_s, a.scale);
+      static_cast<float*>(a.out), a.S, a.H, a.h0, a.stride_b, a.stride_s, a.scale);
   return cudaGetLastError();
 }
 
@@ -563,10 +695,26 @@ cudaError_t launch_stream(const Args& a) {
   static_assert(smem <= stream::kMaxSmem, "the streaming forward's tiles must fit one block");
   cudaError_t err = set_smem(attention_fwd_stream_kernel<T, DP>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.H, a.B);
+  const dim3 grid((a.S + stream::kBlockRows - 1) / stream::kBlockRows, a.nh, a.B);
   attention_fwd_stream_kernel<T, DP><<<grid, stream::kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.qkv), static_cast<const int*>(a.key_lens), static_cast<T*>(a.out),
-      a.S, a.H, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+      a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_sliced(const Args& a) {
+  constexpr int smem = sliced_smem_bytes<T>();
+  static_assert(smem <= stream::kMaxSmem, "the sliced forward's tiles must fit one block");
+  cudaError_t err = set_smem(attention_fwd_sliced_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>((a.S + stream::kBlockRows - 1) / stream::kBlockRows) *
+                           ((a.dh + stream::kSliceDim - 1) / stream::kSliceDim);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks), a.nh, a.B);
+  attention_fwd_sliced_kernel<T><<<grid, stream::kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.qkv), static_cast<const int*>(a.key_lens), static_cast<T*>(a.out),
+      a.S, a.H, a.h0, a.dh, a.stride_b, a.stride_s, a.scale, a.width);
   return cudaGetLastError();
 }
 
@@ -588,19 +736,22 @@ cudaError_t launch_streaming(const Args& a, int dtype) {
 
 bool valid_args(const Args& a) {
   // grid.y and grid.z take at most 65535 blocks
-  return a.B >= 1 && a.S >= 1 && a.H >= 1 && a.B <= 65535 && a.H <= 65535 && a.dh >= 1;
+  return a.B >= 1 && a.S >= 1 && a.nh >= 1 && a.h0 >= 0 && a.h0 + a.nh <= a.H && a.B <= 65535 &&
+         a.nh <= 65535 && a.dh >= 1;
 }
 
 }  // namespace
 
 // dtype: 0 = bfloat16 (tensor cores), 1 = float32 (CUDA cores); head_dim
-// 16, 32, 64 or 128. Strides are in elements; the last axis of qkv is
-// contiguous and every row starts on a 16-byte boundary. Returns a
-// cudaError_t (0 on success).
+// 16, 32, 64 or 128. B batch rows from the pointers given (at most 65535),
+// heads h0..h0+nh-1 (nh at most 65535) of the H whose q, k and v the rows
+// pack. Strides are in elements; the last axis of qkv is contiguous and
+// every row starts on a 16-byte boundary. Returns a cudaError_t (0 on
+// success).
 extern "C" int attention_qkv_fwd(const void* qkv, const void* key_lens, void* out, int B, int S,
-                                 int H, int head_dim, long long stride_b, long long stride_s,
-                                 float scale, int dtype, void* stream) {
-  const Args a{qkv, key_lens, out, B, S, H, head_dim, stride_b, stride_s, scale, 16,
+                                 int H, int h0, int nh, int head_dim, long long stride_b,
+                                 long long stride_s, float scale, int dtype, void* stream) {
+  const Args a{qkv, key_lens, out, B, S, H, h0, nh, head_dim, stride_b, stride_s, scale, 16,
                static_cast<cudaStream_t>(stream)};
   if (!valid_args(a)) return cudaErrorInvalidValue;
   switch (head_dim) {
@@ -612,18 +763,18 @@ extern "C" int attention_qkv_fwd(const void* qkv, const void* key_lens, void* ou
   }
 }
 
-// The streaming design (CUDA cores, both dtypes), same arguments and
+// The streaming designs (CUDA cores, both dtypes), same arguments and
 // copy_bytes, the width of its row copies (16, 8, 4, or 2 for bf16; a
 // divisor of head_dim * the dtype's size): the wrapper's choice above the
-// resident designs' largest S and at every head dim from 1 to 256 that they
-// do not take. It runs the template of the padded head dim (the least of 16,
-// 32, 64, 128, 256 not below head_dim).
+// resident designs' largest S and at every head dim that they do not take.
+// Up to 256 it runs the template of the padded head dim (the least of 16,
+// 32, 64, 128, 256 not below head_dim); above 256 the sliced design.
 extern "C" int attention_qkv_fwd_stream(const void* qkv, const void* key_lens, void* out, int B,
-                                        int S, int H, int head_dim, long long stride_b,
-                                        long long stride_s, float scale, int dtype, int copy_bytes,
-                                        void* stream) {
-  const Args a{qkv, key_lens, out, B, S, H, head_dim, stride_b, stride_s, scale, copy_bytes,
-               static_cast<cudaStream_t>(stream)};
+                                        int S, int H, int h0, int nh, int head_dim,
+                                        long long stride_b, long long stride_s, float scale,
+                                        int dtype, int copy_bytes, void* stream) {
+  const Args a{qkv, key_lens, out, B, S, H, h0, nh, head_dim, stride_b, stride_s, scale,
+               copy_bytes, static_cast<cudaStream_t>(stream)};
   const int size = dtype == 0 ? 2 : 4;
   if (!valid_args(a) || copy_bytes < size || (head_dim * size) % copy_bytes) return cudaErrorInvalidValue;
   if (head_dim <= 16) return launch_streaming<16>(a, dtype);
@@ -631,6 +782,8 @@ extern "C" int attention_qkv_fwd_stream(const void* qkv, const void* key_lens, v
   if (head_dim <= 64) return launch_streaming<64>(a, dtype);
   if (head_dim <= 128) return launch_streaming<128>(a, dtype);
   if (head_dim <= stream::kMaxHeadDim) return launch_streaming<256>(a, dtype);
+  if (dtype == 0) return launch_sliced<__nv_bfloat16>(a);
+  if (dtype == 1) return launch_sliced<float>(a);
   return cudaErrorInvalidValue;
 }
 

@@ -17,8 +17,10 @@ text, padded ViT tokens).
   `attention_design` picks the design before any launch: the resident
   designs at head dims `KERNEL_HEAD_DIMS` up to their largest S
   (`resident_max_s`), the same source's streaming design at any other S and
-  at every other head dim up to `MAX_HEAD_DIM` (JAX's kernel takes any head
-  dim; above 256 the wrapper raises, naming the shared memory it would need).
+  at every other head dim up to 256, and above 256 the sliced streaming
+  design (the head staged `SLICE_HEAD_DIM` columns at a time): every head
+  dim JAX's kernel takes. A launch takes at most 65535 batch rows and heads
+  (grid.z, grid.y); `launch_slices` splits a larger call into several.
 * On a CPU tensor it runs `attention_qkv_reference`, the plain PyTorch
   version with the kernel's rounding points: f32 logits scaled by 1/sqrt(Dh),
   -1e30 on masked columns, f32 max/exp/denominator, probabilities cast to the
@@ -46,14 +48,15 @@ import torch
 _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)  # head dims the resident designs are compiled for
 STREAM_HEAD_DIMS = (16, 32, 64, 128, 256)  # padded head dims of the streaming designs
-MAX_HEAD_DIM = STREAM_HEAD_DIMS[-1]  # the widest head dim the kernels take
+SLICE_HEAD_DIM = STREAM_HEAD_DIMS[-1]  # columns of a head slice of the sliced design (above it)
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on an H100 (227 KB)
 MAX_GRID_YZ = 65535  # blocks a launch may have along grid.y (heads) and grid.z (batch rows)
 STREAM_BLOCK_ROWS, STREAM_TILE_ROWS = 64, 32  # csrc/attention_stream.cuh kBlockRows, kTileRows
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _FWD_ARGS = [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, key_lens, out
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # qkv, key_lens, out (at the launch's row 0)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B (of the launch), S, H (of qkv)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h0, heads of the launch, Dh
     ctypes.c_longlong, ctypes.c_longlong,  # stride_b, stride_s (elements)
     ctypes.c_float, ctypes.c_int,  # scale, dtype
 ]
@@ -65,13 +68,14 @@ _C_ARGTYPES = {
 }
 _BWD_PTRS = [ctypes.c_void_p] * 4  # qkv, g, key_lens, dqkv
 _BWD_REST = [
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, S, H, Dh
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B (of the launch), S, H (of qkv)
+    ctypes.c_int, ctypes.c_int, ctypes.c_int,  # h0, heads of the launch, Dh
     ctypes.c_longlong, ctypes.c_longlong,  # qkv / dqkv stride_b, stride_s (elements)
     ctypes.c_float, ctypes.c_int,  # scale, dtype
 ]
 _C_ARGTYPES_BWD = {
     "attention_qkv_bwd": (_BWD_PTRS + _BWD_REST + [ctypes.c_void_p], ctypes.c_int),
-    # the streaming design takes an f32 (3, B, H, S) scratch after dqkv, and
+    # the streaming designs take an f32 (3, B, heads, S) scratch after dqkv, and
     # the bytes of its row copies before the stream
     "attention_qkv_bwd_stream": (
         _BWD_PTRS + [ctypes.c_void_p] + _BWD_REST + [ctypes.c_int, ctypes.c_void_p], ctypes.c_int
@@ -136,22 +140,41 @@ def stream_smem_bytes(kind: str, dtype: torch.dtype, dp: int) -> int:
     return nbytes
 
 
+def sliced_smem_bytes(kind: str, dtype: torch.dtype) -> int:
+    """Shared memory a block of the sliced design of `kind` takes: one head
+    slice (SLICE_HEAD_DIM columns plus a 16-byte pad) of the forward's 64
+    owned query rows and of a K and a V tile of 32 rows; of the backward's
+    two planes of 64 owned rows and two tiles of 32."""
+    stride = SLICE_HEAD_DIM * torch.tensor([], dtype=dtype).element_size() + 16
+    owned = STREAM_BLOCK_ROWS if kind == "fwd" else 2 * STREAM_BLOCK_ROWS
+    return (owned + 2 * STREAM_TILE_ROWS) * stride
+
+
 def attention_design(kind: str, dtype: torch.dtype, dh: int, s: int) -> str:
-    """"resident" or "streaming": the design of `kind` ("fwd" or "bwd") that
-    a CUDA call at (dtype, head dim, S) launches, decided before any launch.
-    Raises for a head dim above MAX_HEAD_DIM, with the reason."""
+    """"resident", "streaming" or "streaming_sliced": the design of `kind`
+    ("fwd" or "bwd") that a CUDA call at (dtype, head dim, S) launches,
+    decided before any launch. The 512 template cannot be the streaming
+    design: in f32 its tiles need 396,288 bytes of shared memory a block
+    (the limit is 232,448), in bf16 its backward 2 x 8 x 16 f32 accumulators
+    a lane; so every head dim above 256 takes the sliced design, whose
+    shared memory is that of one 256-wide slice."""
     if dh in KERNEL_HEAD_DIMS and s <= resident_max_s(kind, dtype, dh):
         return "resident"
-    if dh > MAX_HEAD_DIM:
-        wide = {dt: stream_smem_bytes("fwd", dt, 2 * MAX_HEAD_DIM) for dt in _DTYPE_CODES}
-        raise ValueError(
-            f"the CUDA kernels take head dims up to {MAX_HEAD_DIM}, not {dh}: the streaming "
-            f"design's next template (padded head dim {2 * MAX_HEAD_DIM}) would need "
-            f"{wide[torch.float32]} bytes of shared memory a block in f32 (the limit is "
-            f"{SMEM_PER_BLOCK}), and in bf16 ({wide[torch.bfloat16]} bytes) 2 x 8 x 16 f32 "
-            f"accumulators a lane in its backward, past the 255 registers a thread may hold"
-        )
+    if dh > SLICE_HEAD_DIM:
+        return "streaming_sliced"
     return "streaming"
+
+
+def launch_slices(b: int, heads: int) -> list[tuple[int, int, int, int]]:
+    """The launches of one call over b batch rows and `heads` heads:
+    [(b0, b1, h0, h1), ...], rows b0..b1-1 and heads h0..h1-1 each, at most
+    MAX_GRID_YZ of either (a launch's grid.z and grid.y), batch-major. One
+    launch where both fit."""
+    return [
+        (b0, min(b0 + MAX_GRID_YZ, b), h0, min(h0 + MAX_GRID_YZ, heads))
+        for b0 in range(0, b, MAX_GRID_YZ)
+        for h0 in range(0, heads, MAX_GRID_YZ)
+    ]
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -208,16 +231,13 @@ def attention_qkv_bwd_reference(
     return torch.cat([x.to(io).reshape(b, s, lanes) for x in (dq, dk, dv)], dim=-1)
 
 
-def _check_cuda_args(qkv, dh, b, key_lens, what: str) -> None:
+def _check_cuda_args(qkv, b, key_lens, what: str) -> None:
     if qkv.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu tensors, not {qkv.device}")
     if qkv.dtype not in _DTYPE_CODES:
         raise ValueError(f"the CUDA kernel takes bfloat16 or float32, not {qkv.dtype}")
-    if b > MAX_GRID_YZ or qkv.shape[2] // (3 * dh) > MAX_GRID_YZ or qkv.shape[1] >= 2**31:
-        raise ValueError(
-            f"the CUDA kernel takes B and heads up to {MAX_GRID_YZ} (a launch's grid.z and "
-            f"grid.y) and S below 2**31, not {tuple(qkv.shape)} at head dim {dh}"
-        )
+    if qkv.shape[1] >= 2**31:
+        raise ValueError(f"the CUDA kernel takes S below 2**31, not {qkv.shape[1]}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs a contiguous, 16-byte aligned qkv")
     if key_lens is not None:
@@ -243,25 +263,29 @@ def _attention_qkv_fwd(qkv, heads, key_lens):
     if qkv.device.type == "cpu":
         _check_cpu_key_lens(key_lens, s)
         return attention_qkv_reference(qkv, heads, key_lens)
-    _check_cuda_args(qkv, dh, b, key_lens, "attention_qkv")
+    _check_cuda_args(qkv, b, key_lens, "attention_qkv")
     from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_fwd", _C_ARGTYPES)
-    stream = attention_design("fwd", qkv.dtype, dh, s) == "streaming"
+    # the streaming entry takes the sliced design above head dim 256 too
+    stream = attention_design("fwd", qkv.dtype, dh, s) != "resident"
     out = torch.empty((b, s, lanes), dtype=qkv.dtype, device=qkv.device)
+    size = qkv.element_size()
     with torch.cuda.device(qkv.device):
-        launch(
-            lib, "attention_qkv_fwd_stream" if stream else "attention_qkv_fwd",
-            qkv.data_ptr(),
-            None if key_lens is None else key_lens.data_ptr(),
-            out.data_ptr(),
-            b, s, heads, dh,
-            qkv.stride(0), qkv.stride(1),
-            1.0 / math.sqrt(dh),
-            _DTYPE_CODES[qkv.dtype],
-            *([copy_width(dh, qkv.element_size())] if stream else []),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
+        cuda_stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        for b0, b1, h0, h1 in launch_slices(b, heads):
+            launch(
+                lib, "attention_qkv_fwd_stream" if stream else "attention_qkv_fwd",
+                qkv.data_ptr() + b0 * qkv.stride(0) * size,
+                None if key_lens is None else key_lens.data_ptr() + 4 * b0,
+                out.data_ptr() + b0 * s * lanes * size,
+                b1 - b0, s, heads, h0, h1 - h0, dh,
+                qkv.stride(0), qkv.stride(1),
+                1.0 / math.sqrt(dh),
+                _DTYPE_CODES[qkv.dtype],
+                *([copy_width(dh, size)] if stream else []),
+                cuda_stream,
+            )
     attention_qkv.launches += 1
     return out
 
@@ -279,32 +303,40 @@ def attention_qkv_bwd(
     if qkv.device.type == "cpu":
         _check_cpu_key_lens(key_lens, s)
         return attention_qkv_bwd_reference(qkv, heads, key_lens, g)
-    _check_cuda_args(qkv, dh, b, key_lens, "attention_qkv_bwd")
+    _check_cuda_args(qkv, b, key_lens, "attention_qkv_bwd")
     g = g.to(qkv.dtype).contiguous()
     if g.device != qkv.device or g.data_ptr() % 16:
         raise ValueError("the CUDA kernel needs g on qkv's device, 16-byte aligned")
     from safevla_tpu_torch.ops._build import launch, load_library
 
     lib = load_library("flash_attention_bwd", _C_ARGTYPES_BWD)
-    stream = attention_design("bwd", qkv.dtype, dh, s) == "streaming"
+    # the streaming entry takes the sliced design above head dim 256 too
+    stream = attention_design("bwd", qkv.dtype, dh, s) != "resident"
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-    # the streaming design's scratch: m, rowsum and D of every query row
-    stats = torch.empty((3, b, heads, s), device=qkv.device) if stream else None
+    slices = launch_slices(b, heads)
+    # the streaming designs' scratch: m, rowsum and D of every query row of
+    # a launch, (3, its rows, its heads, S); one of the largest launch's
+    # size serves each in turn (the launches run in order on one stream)
+    b0, b1, h0, h1 = slices[0]
+    stats = torch.empty((3, b1 - b0, h1 - h0, s), device=qkv.device) if stream else None
+    size = qkv.element_size()
     with torch.cuda.device(qkv.device):
-        launch(
-            lib, "attention_qkv_bwd_stream" if stream else "attention_qkv_bwd",
-            qkv.data_ptr(),
-            g.data_ptr(),
-            None if key_lens is None else key_lens.data_ptr(),
-            dqkv.data_ptr(),
-            *([stats.data_ptr()] if stream else []),
-            b, s, heads, dh,
-            qkv.stride(0), qkv.stride(1),
-            1.0 / math.sqrt(dh),
-            _DTYPE_CODES[qkv.dtype],
-            *([copy_width(dh, qkv.element_size())] if stream else []),
-            torch.cuda.current_stream(qkv.device).cuda_stream,
-        )
+        cuda_stream = torch.cuda.current_stream(qkv.device).cuda_stream
+        for b0, b1, h0, h1 in slices:
+            launch(
+                lib, "attention_qkv_bwd_stream" if stream else "attention_qkv_bwd",
+                qkv.data_ptr() + b0 * qkv.stride(0) * size,
+                g.data_ptr() + b0 * s * lanes * size,
+                None if key_lens is None else key_lens.data_ptr() + 4 * b0,
+                dqkv.data_ptr() + b0 * dqkv.stride(0) * size,
+                *([stats.data_ptr()] if stream else []),
+                b1 - b0, s, heads, h0, h1 - h0, dh,
+                qkv.stride(0), qkv.stride(1),
+                1.0 / math.sqrt(dh),
+                _DTYPE_CODES[qkv.dtype],
+                *([copy_width(dh, size)] if stream else []),
+                cuda_stream,
+            )
     attention_qkv_bwd.launches += 1
     return dqkv
 

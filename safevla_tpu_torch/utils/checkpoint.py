@@ -8,7 +8,10 @@ port one torch file in each:
     (`frozen_params`, so that a restored policy runs the backbone it was
     trained with), the Adam count and moments, the Lagrange state and the
     step. Files written before the frozen encoders were saved hold towers
-    only, and restore with the encoders the policy was built with;
+    only, and restore with the encoders the policy was built with. The
+    offline trainer's BCTrainState goes to the same file: the towers, the
+    frozen encoders, the AdamW count and moments, the step and the epoch
+    (`"kind": "bc"`, no Lagrange state);
   * `params.pt`, a bare params tree (`save_checkpoint` of a mapping):
     `{"towers": ..., "vit": ..., "t5": ...}`, each subtree optional, as
     `tools/torch_from_orbax.py` writes from a JAX Orbax checkpoint.
@@ -19,10 +22,11 @@ through `models/convert.py`.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
 import tempfile
-from typing import Mapping, Optional, Union
+from typing import Mapping, Optional
 
 import torch
 from torch import nn
@@ -59,16 +63,40 @@ def _train_state_payload(train_state: TrainState) -> dict:
     }
 
 
-def save_checkpoint(path: str, state: Union[TrainState, Mapping], step: int) -> str:
+def _bc_state_payload(state) -> dict:
+    opt = state.opt_state
+    return {
+        "kind": "bc",
+        "step": int(state.step),
+        "epoch": int(state.epoch),
+        "tower_params": {k: _cpu(p) for k, p in state.tower_params.items()},
+        "frozen_params": {
+            k: {n: _cpu(t) for n, t in sd.items()} for k, sd in state.frozen_params.items()
+        },
+        "adam": {"count": opt.count, "mu": [_cpu(m) for m in opt.mu], "nu": [_cpu(n) for n in opt.nu]},
+    }
+
+
+def _bc_state_type():
+    # training/offline.py imports this module: its state type is looked up
+    # at call time
+    from safevla_tpu_torch.training.offline import BCTrainState
+
+    return BCTrainState
+
+
+def save_checkpoint(path: str, state, step: int) -> str:
     """Write `state` under `path/step_<step>`; returns that directory. A
-    TrainState goes to `train_state.pt`, a params mapping (subtree name ->
-    state dict) to `params.pt`. The directory appears whole or not at all
-    (written aside, then renamed)."""
+    TrainState or a BCTrainState goes to `train_state.pt`, a params mapping
+    (subtree name -> state dict) to `params.pt`. The directory appears whole
+    or not at all (written aside, then renamed)."""
     path = os.path.abspath(path)
     ckpt_dir = os.path.join(path, f"step_{step}")
     os.makedirs(path, exist_ok=True)
     if isinstance(state, TrainState):
         name, payload = _FILE, _train_state_payload(state)
+    elif isinstance(state, _bc_state_type()):
+        name, payload = _FILE, _bc_state_payload(state)
     else:
         name = _PARAMS_FILE
         payload = {
@@ -110,15 +138,22 @@ def _copy_frozen(saved: Mapping, live: Mapping) -> None:
 
 
 @torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
+def restore_checkpoint(ckpt_dir: str, target):
     """Load a trainer checkpoint into `target` (a TrainState over the live
-    policy, e.g. `Learner.init()`): the tower weights, the frozen encoders
-    (when saved) and the Adam moments are copied in place, on their
-    devices; returns the restored TrainState."""
+    policy, e.g. `Learner.init()`, or a BCTrainState, e.g.
+    `OfflineTrainer.init_state()`, of the checkpoint's own kind): the tower
+    weights, the frozen encoders (when saved) and the Adam moments are
+    copied in place, on their devices; returns the restored state."""
     file = os.path.join(os.path.abspath(ckpt_dir), _FILE)
     if not os.path.isfile(file):
         raise FileNotFoundError(f"{file}: not a trainer checkpoint of the port")
     payload = torch.load(file, map_location="cpu", weights_only=True)
+    bc = isinstance(target, _bc_state_type())
+    if bc != (payload.get("kind") == "bc"):
+        raise ValueError(
+            f"{file} holds a {'BC' if payload.get('kind') == 'bc' else 'PPO'} trainer state, "
+            f"not a {type(target).__name__}"
+        )
     params = target.tower_params
     if set(payload["tower_params"]) != set(params):
         missing = sorted(set(params) ^ set(payload["tower_params"]))[:5]
@@ -129,6 +164,9 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
     adam = payload["adam"]
     for dst, src in zip(target.opt_state.mu + target.opt_state.nu, adam["mu"] + adam["nu"]):
         dst.copy_(src)
+    opt_state = AdamState(adam["count"], target.opt_state.mu, target.opt_state.nu)
+    if bc:
+        return dataclasses.replace(target, opt_state=opt_state, step=payload["step"], epoch=payload["epoch"])
     lag = payload["lagrange"]
     dev = target.lagrange.multiplier.device
     to = lambda t: t.to(dev)
@@ -141,7 +179,7 @@ def restore_checkpoint(ckpt_dir: str, target: TrainState) -> TrainState:
     return TrainState(
         tower_params=params,
         frozen_params=target.frozen_params,
-        opt_state=AdamState(adam["count"], target.opt_state.mu, target.opt_state.nu),
+        opt_state=opt_state,
         lagrange=lagrange,
         step=payload["step"],
     )

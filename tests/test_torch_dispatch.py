@@ -18,10 +18,12 @@ same shape rules as the JAX package, decided before any launch.
   dims up to their largest S, the streaming design at every other S and
   every other head dim up to 256 (including ones JAX admits at lanes 384 and
   640: 1, 3, 12, 24, 40, 48, 96, 192), with tiles that fit a block's shared
-  memory and a copy width that divides the head slice; above 256 it raises.
-  The plain attention at head dims 8, 12 and 48 and the plain LayerNorm at
-  D 1152 and 2048 (the wide designs' widths) against the Pallas kernels in
-  interpret mode.
+  memory and a copy width that divides the head slice; above 256 the sliced
+  streaming design, whose shared memory is one 256-wide slice's. The split
+  of a launch over more than 65535 batch rows or heads (`launch_slices`).
+  The plain attention at head dims 8, 12, 48, 384 and 512 (forward and
+  backward at the last two) and the plain LayerNorm at D 1152 and 2048 (the
+  wide designs' widths) against the Pallas kernels in interpret mode.
 
 The JAX dispatchers are observed with their two branches replaced by
 recorders, under `jax.eval_shape`, so nothing is computed on the JAX side.
@@ -150,18 +152,21 @@ def test_attention_design_on_a_grid(dh):
     design's limit, streaming at every other (head dim <= 256) shape, with
     the streaming tiles inside a block's shared memory and a copy width of
     the widest of 16 / 8 / 4 / 2 bytes that divides the head slice; above
-    256 it raises, naming the shared memory and the limit."""
+    256 the sliced design at every S, its one-slice tiles inside a block's
+    shared memory and its copy width dividing both the head and a slice."""
     for kind in ("fwd", "bwd"):
         for dtype in (torch.bfloat16, torch.float32):
             size = torch.tensor([], dtype=dtype).element_size()
             for s in DESIGN_S:
-                if dh > fa.MAX_HEAD_DIM:
-                    with pytest.raises(ValueError, match=f"up to {fa.MAX_HEAD_DIM}, not {dh}.*232448"):
-                        fa.attention_design(kind, dtype, dh, s)
+                if dh > fa.SLICE_HEAD_DIM:
+                    assert fa.attention_design(kind, dtype, dh, s) == "streaming_sliced"
                     continue
                 resident = dh in fa.KERNEL_HEAD_DIMS and s <= fa.resident_max_s(kind, dtype, dh)
                 assert fa.attention_design(kind, dtype, dh, s) == ("resident" if resident else "streaming")
-            if dh > fa.MAX_HEAD_DIM:
+            if dh > fa.SLICE_HEAD_DIM:
+                assert fa.sliced_smem_bytes(kind, dtype) <= fa.SMEM_PER_BLOCK
+                w = fa.copy_width(dh, size)
+                assert (dh * size) % w == 0 and (fa.SLICE_HEAD_DIM * size) % w == 0
                 continue
             dp = fa.padded_head_dim(dh)
             assert dp in fa.STREAM_HEAD_DIMS and dh <= dp and (dp == 16 or dp // 2 < dh)
@@ -176,16 +181,18 @@ def test_attention_design_on_a_grid(dh):
 
 
 def test_every_head_dim_jax_admits_up_to_256_has_a_design():
-    """Every (lanes, heads) of JAX's kernel rule on the grid, at a head dim
-    up to 256, gets a design at every S of the grid; none raises."""
+    """Every (lanes, heads) of JAX's kernel rule on the grid, at every head
+    dim (up to 1024: lanes 1024 and one head), gets a design at every S of
+    the grid; none raises."""
+    designs = ("resident", "streaming", "streaming_sliced")
     for lanes in LANES:
         for heads in HEADS + [lanes // d for d in (1, 3, 12, 24, 48) if lanes % d == 0]:
-            if heads < 1 or not fa.kernel_takes(lanes, heads) or lanes // heads > fa.MAX_HEAD_DIM:
+            if heads < 1 or not fa.kernel_takes(lanes, heads):
                 continue
             for s in DESIGN_S:
                 for dtype in (torch.bfloat16, torch.float32):
-                    assert fa.attention_design("fwd", dtype, lanes // heads, s) in ("resident", "streaming")
-                    assert fa.attention_design("bwd", dtype, lanes // heads, s) in ("resident", "streaming")
+                    assert fa.attention_design("fwd", dtype, lanes // heads, s) in designs
+                    assert fa.attention_design("bwd", dtype, lanes // heads, s) in designs
 
 
 @pytest.mark.parametrize("dh,lanes", [(8, 128), (12, 384), (48, 384)])
@@ -201,6 +208,61 @@ def test_plain_attention_at_new_head_dims_matches_pallas(dh, lanes):
     want = jfa.flash_attention_qkv(jnp.asarray(qkv), heads, interpret=True, key_lens=jnp.asarray(kl))
     got = fa.attention_qkv(torch.from_numpy(qkv), heads, torch.from_numpy(kl))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dh", [320, 384, 448, 512, 640, 768, 1024])
+def test_sliced_design_above_head_dim_256(dh):
+    """Every head dim above 256 takes the sliced design, forward and
+    backward, both dtypes, at every S of the grid: ceil(dh / 256) slices of
+    256 columns, the last one padded, in a block's shared memory."""
+    for kind in ("fwd", "bwd"):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert {fa.attention_design(kind, dtype, dh, s) for s in DESIGN_S} == {"streaming_sliced"}
+            assert fa.sliced_smem_bytes(kind, dtype) <= fa.SMEM_PER_BLOCK
+    # the one-slice tiles: 64 owned rows + 2 tiles of 32 (forward), 2 x 64 +
+    # 2 x 32 (backward), rows of 256 columns plus 16 bytes
+    assert fa.sliced_smem_bytes("bwd", torch.float32) == 192 * 1040
+    assert fa.sliced_smem_bytes("fwd", torch.bfloat16) == 128 * 528
+
+
+@pytest.mark.parametrize("b,heads", [(65535, 8), (65536, 8), (200_001, 6), (16, 70_000), (70_000, 65_536)])
+def test_launch_slices_cover_the_call_within_the_grid(b, heads):
+    """launch_slices splits a call into launches of at most 65535 batch rows
+    and heads each (grid.z, grid.y): every (row, head) pair exactly once,
+    batch-major; one launch where both fit."""
+    slices = fa.launch_slices(b, heads)
+    assert all(0 < b1 - b0 <= fa.MAX_GRID_YZ and 0 < h1 - h0 <= fa.MAX_GRID_YZ for b0, b1, h0, h1 in slices)
+    rows = sorted({(b0, b1) for b0, b1, _, _ in slices})
+    cols = sorted({(h0, h1) for _, _, h0, h1 in slices})
+    assert rows[0][0] == 0 and rows[-1][1] == b and all(x[1] == y[0] for x, y in zip(rows, rows[1:]))
+    assert cols[0][0] == 0 and cols[-1][1] == heads and all(x[1] == y[0] for x, y in zip(cols, cols[1:]))
+    assert len(slices) == len(rows) * len(cols) == -(-b // 65535) * -(-heads // 65535)
+    assert slices == sorted(slices)
+    if b <= 65535 and heads <= 65535:
+        assert slices == [(0, b, 0, heads)]
+    if b == 200_001:
+        assert [x[:2] for x in slices] == [(0, 65535), (65535, 131070), (131070, 196605), (196605, 200_001)]
+
+
+@pytest.mark.parametrize("dh,lanes", [(384, 384), (512, 1024)])
+def test_plain_attention_above_head_dim_256_matches_pallas(dh, lanes):
+    """The plain forward and backward the sliced design is held to, at head
+    dim 384 (lanes 384, one head) and 512 (lanes 1024, two heads), against
+    the Pallas forward and backward kernels in interpret mode, f32 at 1e-5,
+    with ragged key counts."""
+    from safevla_tpu.ops.flash_attention import _flash_attention_qkv_bwd
+
+    rng = np.random.default_rng(dh + lanes)
+    b, s, heads = 2, 24, lanes // dh
+    qkv = rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)
+    g = rng.standard_normal((b, s, lanes), dtype=np.float32)
+    kl = np.asarray([s, 9], np.int32)
+    want = jfa.flash_attention_qkv(jnp.asarray(qkv), heads, interpret=True, key_lens=jnp.asarray(kl))
+    want_d = _flash_attention_qkv_bwd(jnp.asarray(qkv), heads, jnp.asarray(kl), jnp.asarray(g), interpret=True)
+    tq, tkl = torch.from_numpy(qkv), torch.from_numpy(kl)
+    np.testing.assert_allclose(fa.attention_qkv(tq, heads, tkl).numpy(), np.asarray(want), atol=1e-5)
+    got_d = fa.attention_qkv_bwd(tq, heads, tkl, torch.from_numpy(g))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), atol=1e-5)
 
 
 @pytest.mark.parametrize("d", [1152, 2048])

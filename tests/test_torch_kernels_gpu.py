@@ -98,9 +98,9 @@ def test_attention_kernels_at_tile_edges(cuda, b, s, h, key_lens, dtype, tol, bw
 @pytest.mark.gpu
 def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     """Inside JAX's kernel domain (lanes a multiple of 128) the kernels take
-    head dim 48 and S 2049 (the streaming design: it agrees with the plain
-    version) and raise on a head dim above MAX_HEAD_DIM, naming the limit;
-    outside it (lanes 64) the plain dense path runs instead."""
+    head dim 48 and S 2049 (the streaming design) and head dim 384 (the
+    sliced design, lanes 384 and one head): each agrees with the plain
+    version; outside it (lanes 64) the plain dense path runs instead."""
     rng = np.random.default_rng(48)
     qkv = torch.from_numpy(rng.standard_normal((2, 16, 3 * 8 * 48), dtype=np.float32)).to("cuda", torch.bfloat16)
     before = fa.attention_qkv.launches
@@ -110,8 +110,9 @@ def test_attention_kernel_refuses_what_it_does_not_take(cuda):
     long = torch.from_numpy(rng.standard_normal((1, 2049, 3 * 128), dtype=np.float32)).to("cuda", torch.bfloat16)
     got = fa.attention_qkv(long, 2)  # S 2049, head dim 64
     assert (got.float() - fa.attention_qkv_reference(long, 2).float()).abs().max().item() <= 2e-2
-    with pytest.raises(ValueError, match="head dims up to 256, not 384"):
-        fa.attention_qkv(torch.zeros((2, 16, 3 * 384), device="cuda", dtype=torch.bfloat16), 1)
+    wide = torch.from_numpy(rng.standard_normal((2, 16, 3 * 384), dtype=np.float32)).to("cuda", torch.bfloat16)
+    got = fa.attention_qkv(wide, 1)  # head dim 384: the sliced design
+    assert (got.float() - fa.attention_qkv_reference(wide, 1).float()).abs().max().item() <= 2e-2
     before = fa.attention_qkv.launches
     assert fa.attention_qkv(torch.zeros((2, 16, 3 * 2 * 32), device="cuda"), 2).shape == (2, 16, 64)
     assert fa.attention_qkv.launches == before  # head dim 32 at 64 lanes: JAX's XLA path
@@ -171,6 +172,58 @@ def test_attention_kernels_at_s_4096(cuda, dtype, tol, bwd_tol):
     assert (got.float() - fa.attention_qkv_reference(qkv, h, kl).float()).abs().max().item() <= tol
     assert (d.float() - fa.attention_qkv_bwd_reference(qkv, h, kl, g).float()).abs().max().item() <= bwd_tol
     assert torch.all(d[0, 3000:, h * 64 :] == 0)
+
+
+# head dims above 256 (the sliced design: 256-wide head slices, the last one
+# padded), at lanes 640, 384 and 1024; S 100 (two query tiles, ragged key tiles)
+SLICED_HEAD_DIMS = [(320, 640), (384, 384), (512, 1024), (1024, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,lanes", SLICED_HEAD_DIMS)
+@pytest.mark.parametrize("dtype,tol,bwd_tol", EDGE_DTYPES)
+def test_attention_kernels_above_head_dim_256(cuda, dh, lanes, dtype, tol, bwd_tol):
+    """The sliced design against its plain versions, forward and backward;
+    the backward twice gives the same bits and exactly zero dk and dv on the
+    masked key rows."""
+    b, s, h = 2, 100, lanes // dh
+    rng = np.random.default_rng(dh + lanes)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.standard_normal((b, s, lanes), dtype=np.float32)).to("cuda", dtype)
+    key_lens = [s, 37]
+    kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
+    assert fa.attention_design("fwd", dtype, dh, s) == fa.attention_design("bwd", dtype, dh, s) == "streaming_sliced"
+    got = fa.attention_qkv(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    again = fa.attention_qkv_bwd(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert (got.float() - fa.attention_qkv_reference(qkv, h, kl).float()).abs().max().item() <= tol
+    want = fa.attention_qkv_bwd_reference(qkv, h, kl, g)
+    assert (d.float() - want.float()).abs().max().item() <= bwd_tol
+    assert torch.equal(d, again)
+    assert torch.all(d[1, key_lens[1] :, lanes:] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,dh", [(65537, 2, 64), (3, 65536, 2)])
+def test_attention_launches_split_past_65535_rows_or_heads(cuda, b, h, dh):
+    """A call over more than 65535 batch rows or heads runs as several
+    launches (`launch_slices`), counted as one call: f32 forward and
+    backward against the plain versions at 1e-4, the rows and heads of the
+    last slice included."""
+    s, lanes = 8, h * dh
+    rng = np.random.default_rng(b + h)
+    qkv = torch.from_numpy(rng.standard_normal((b, s, 3 * lanes), dtype=np.float32)).to("cuda")
+    g = torch.from_numpy(rng.standard_normal((b, s, lanes), dtype=np.float32)).to("cuda")
+    kl = torch.from_numpy(rng.integers(1, s + 1, b).astype(np.int32)).to("cuda")
+    assert len(fa.launch_slices(b, h)) == 2
+    before = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches)
+    got = fa.attention_qkv(qkv, h, kl)
+    d = fa.attention_qkv_bwd(qkv, h, kl, g)
+    torch.cuda.synchronize()
+    assert (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert (got - fa.attention_qkv_reference(qkv, h, kl)).abs().max().item() <= 1e-4
+    assert (d - fa.attention_qkv_bwd_reference(qkv, h, kl, g)).abs().max().item() <= 1e-4
 
 
 # the resident head dims and the long sequences: at 128 lanes every head dim
