@@ -60,7 +60,23 @@ Phases (none catches its own failure; any failure exits non-zero):
      ObjectNavType episodes at 224x384 (at most 100 steps each) on 8 streams
      with the restored agent (sampled actions): episodes/s, ms per act, and
      the attention and LayerNorm launches against the count per act;
-  8. offline: one BC step of the small f32 policy with one tower on the
+  8. train_online: the slice's entry point, `cli.train_online.main` in this
+     process at Config() width on 8 FakeController streams x 64 steps (2
+     overlap groups): FetchType with the HL-Gauss discrete critic on the
+     default async pipeline (a fill, 2 updated windows, the drain; the last
+     window profiled), then its checkpoint through `cli.evaluate.main` on 8
+     FetchType rows (sampled, at most 100 steps); PickupType with the mlp
+     critic, sync (a warm-up and 1 profiled window); per window wall, env
+     frames/s and every kernel's launches (asserted against the config's
+     count), the logged metrics finite, the value losses positive, the
+     checkpoints written;
+  9. critics: the small f32 policy with the mlp and the discrete critic on
+     the card against the CPU (acts, forward_seq's values and value logits,
+     one update), and the discrete chunked_update against update;
+  10. learning: tests/test_learning.py's ConstrainedBandit probe through the
+     port's trainer on the card, sync and async, held to its dynamics
+     criteria (`check_dynamics`);
+  11. offline: one BC step of the small f32 policy with one tower on the
      card against the CPU; OfflineTrainer at Config() with one tower, B=16,
      T=50 (uint8 224x384 frames of both cameras, every batch through
      `prepared_batches`): 1 warm-up, 3 timed and 1 profiled step (ms a
@@ -71,7 +87,7 @@ Phases (none catches its own failure; any failure exits non-zero):
      sites patched to their plain versions; `fit` for 2 epochs writing
      checkpoints, and EarlyFusionCnnTransformer.build_agent from the last
      one acting bit-equal to the in-memory policy;
-  9. one JSON line of kernels, then the last line
+  12. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -143,7 +159,9 @@ ROTATION_BYTES = 128 * 2**20
 # features are stored in bf16, so within one bf16 rounding of them)
 REF_LN_TOL = 1e-4
 TRAINER_WINDOWS = 3  # one warm-up, one timed, one profiled
-ASYNC_WINDOWS = 5  # one fill (no update yet), one warm-up, two timed, one profiled; then the drain
+# one fill (no update yet), one warm-up, one timed, one profiled; then the drain (two timed
+# windows until the smoke took on the train_online and learning phases)
+ASYNC_WINDOWS = 4
 # the async trainer of the small f32 policy against the hand loop on the
 # default stream (f32 sums in other orders; an update moves a weight by
 # ~1e-4 at most)
@@ -178,6 +196,16 @@ OFFLINE_PLAIN_RTOL = 2e-2
 # the evaluate phase: 16 benchmark episodes on the serving streams, each at
 # most 100 steps (FakeController), and the acts checked bit-equal per agent
 EVAL_EPISODES, EVAL_EPISODE_STEPS, EVAL_CHECK_ACTS = 16, 100, 8
+# the train_online phase: `cli.train_online --fake-env` at Config() width,
+# cut to 8 streams x 64 steps a window (2 overlap groups of 4 streams: the
+# ViT on 8 frames, the fusion on 4 samples an act); async: a fill, 2 updated
+# windows and the drain; sync: a warm-up and 1 timed window; then its
+# checkpoint evaluated on ONLINE_EVAL_EPISODES FetchType rows on the serving
+# streams, each at most EVAL_EPISODE_STEPS steps
+ONLINE_STREAMS, ONLINE_STEPS, ONLINE_GROUPS = 8, 64, 2
+ONLINE_ASYNC_WINDOWS, ONLINE_SYNC_WINDOWS, ONLINE_EVAL_EPISODES = 3, 2, 8
+# the learning phase: tests/test_learning.py's ConstrainedBandit probe
+LEARN_UPDATES, LEARN_WARMUP, LEARN_STREAMS, LEARN_EP_STEPS, LEARN_COST_LIMIT = 130, 10, 4, 8, 2.0
 
 
 def log(*args):
@@ -507,10 +535,11 @@ def cycling(fn, sets):
 def ln_shapes():
     """(name, rows, D, x dtype, out dtype) of every LayerNorm forward of the
     path: the rollout's (G = 16 streams per overlap group: the ViT on 2G
-    frames of 448 tokens, the fusion on G samples of 208), the update's (a
-    fusion chunk of 128 samples) and serving's (8 streams)."""
+    frames of 448 tokens, the fusion on G samples of 208; the train_online
+    phase's G = 4), the update's (a fusion chunk of 128 samples) and
+    serving's (8 streams)."""
     bf16, f32 = torch.bfloat16, torch.float32
-    g = TRAINER_STREAMS // TRAINER_GROUPS
+    g, go = TRAINER_STREAMS // TRAINER_GROUPS, ONLINE_STREAMS // ONLINE_GROUPS
     return [
         ("vit_rollout", 2 * g * 448, 384, bf16, bf16),
         ("vit_rollout_final", 2 * g * 448, 384, bf16, f32),
@@ -529,6 +558,11 @@ def ln_shapes():
         ("fusion_embed_chunk_cls", 64, 512, bf16, bf16),
         ("fusion_bwd_chunk", 32 * 208, 512, bf16, bf16),
         ("fusion_bwd_chunk_cls", 32, 512, bf16, bf16),
+        # the train_online phase's rollout: groups of 4 of its 8 streams
+        ("vit_online", 2 * go * 448, 384, bf16, bf16),
+        ("vit_online_final", 2 * go * 448, 384, bf16, f32),
+        ("fusion_online", go * 208, 512, bf16, bf16),
+        ("fusion_online_cls", go, 512, bf16, bf16),
     ]
 
 
@@ -2177,6 +2211,417 @@ def offline_fit(trainer, state, cfg=None, device="cuda"):
     return res
 
 
+def online_argv(out_dir, task_type, critic_type, windows, async_pipeline=True):
+    """`cli.train_online`'s command line in the train_online phase: Config()
+    at full width with only the streams, the window length, the total steps
+    and the output directory cut. `windows` windows: the async loop counts
+    learned steps (a fill, then windows - 1 updated ones and the drain), the
+    sync one collected steps."""
+    total = (windows - 1 if async_pipeline else windows) * ONLINE_STREAMS * ONLINE_STEPS
+    return ["--fake-env", f"train.task_type={task_type}", f"model.critic_type={critic_type}",
+            f"train.async_pipeline={str(async_pipeline).lower()}", f"train.output_dir={out_dir}",
+            f"train.num_train_processes={ONLINE_STREAMS}", f"ppo.num_steps={ONLINE_STEPS}",
+            f"train.total_steps={total}"]
+
+
+def online_run(fa, ln, argv, windows, device="cuda"):
+    """`cli.train_online.main(argv)` in this process, its OnlineTrainer
+    subclassed to record an event at the start of each collect and at each
+    log (the time and the kernels launched since the previous event), the
+    logged metrics, and, on the card, the last window under the profiler
+    (async: its collect, which pumps the previous window's update; sync:
+    its collect and update). Returns (the TrainState, the trainer, events,
+    logs, the profiler or None, the profiled window's end)."""
+    from safevla_tpu_torch.cli import train_online
+    from safevla_tpu_torch.training import online
+
+    cuda = torch.device(device).type == "cuda"
+    events, logs, box = [], [], {}
+
+    def event(kind):
+        events.append((kind, time.perf_counter(), kernel_counts(fa, ln)))
+        reset_kernel_counts(fa, ln)
+
+    def stop_profile():
+        torch.cuda.synchronize()
+        box["end"] = time.perf_counter()
+        box.pop("p").__exit__(None, None, None)
+
+    base = online.OnlineTrainer
+
+    class Observed(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            box["trainer"] = self
+            inner_log, collect = self.log_fn, self.runner.collect
+
+            def log_fn(metrics, step):
+                if "p" in box and not self.async_pipeline:
+                    stop_profile()
+                event("logged")
+                logs.append((step, dict(metrics)))
+                inner_log(metrics, step)
+
+            def timed_collect(*a, **kw):
+                event("collect")
+                if cuda and sum(k == "collect" for k, _, _ in events) == windows:
+                    box["p"] = box["prof"] = device_profiler()
+                    box["p"].__enter__()
+                out = collect(*a, **kw)
+                if "p" in box and self.async_pipeline:
+                    stop_profile()
+                return out
+
+            self.log_fn, self.runner.collect = log_fn, timed_collect
+
+    online.OnlineTrainer = Observed
+    try:
+        reset_kernel_counts(fa, ln)
+        ts = train_online.main(argv, device=device)
+        if cuda:
+            torch.cuda.synchronize()
+        event("end")
+    finally:
+        online.OnlineTrainer = base
+    return ts, box["trainer"], events, logs, box.get("prof"), box.get("end")
+
+
+def online_windows(events, tr, cfg, fa_counts_keys, async_pipeline, cuda, prof_end=None):
+    """Per window of an `online_run`: wall, env frames/s and the kernel
+    launches, asserted (on the card) against the count the config implies:
+    the acts of the window (the first also primes each group) and, async,
+    the previous window's chunked update (the last window also the drain's),
+    sync, the window's own update. The profiled (last) window's wall ends at
+    `prof_end`, its synchronise before the profiler stops (async: after its
+    collect, so the drain is not in it)."""
+    b, t, model = cfg.train.num_train_processes, cfg.ppo.num_steps, cfg.model
+    vit_depth, groups = tr.policy.vit.cfg.depth, tr.runner.n_groups
+    assert groups == ONLINE_GROUPS  # the rollout shapes the kernels were checked at
+    per_act = {"attention_fwd": vit_depth + model.num_towers * (model.combiner_layers - 1), "attention_bwd": 0,
+               "layer_norm_fwd": ln_launches_per_act(vit_depth, model), "layer_norm_bwd": 0}
+    if async_pipeline:
+        per_update = chunked_update_launches(cfg, tr.learner, b, t)
+    else:
+        fwd, bwd = update_launches(cfg, b, t)
+        ln_fwd, ln_bwd = update_ln_launches(cfg, b, t)
+        per_update = {"attention_fwd": fwd, "attention_bwd": bwd, "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
+    starts = [j for j, (kind, _, _) in enumerate(events) if kind == "collect"]
+    out = []
+    for i, j in enumerate(starts):
+        if async_pipeline:  # to the next collect; the last window to the end, the drain included
+            k = starts[i + 1] if i + 1 < len(starts) else len(events) - 1
+            updates = (i > 0) + (i == len(starts) - 1)
+        else:  # to the window's log, which follows its update
+            k = next(n for n in range(j + 1, len(events)) if events[n][0] == "logged")
+            updates = 1
+        counts = {key: sum(events[n][2][key] for n in range(j + 1, k + 1)) for key in fa_counts_keys}
+        acts = groups * t + (groups if i == 0 else 0)
+        want = {key: acts * per_act[key] + updates * per_update[key] for key in per_act}
+        if cuda:
+            assert counts == want, f"train_online window {i}: launches {counts}, expected {want}"
+        end = prof_end if prof_end is not None and i == len(starts) - 1 else events[k][1]
+        wall = end - events[j][1]
+        out.append({"window": i, "wall_s": wall, "env_frames_per_s": b * t / wall, "launches": counts})
+    return out
+
+
+def train_online_phase(fa, ln, device="cuda"):
+    """The slice's main path at Config() width through its entry points:
+    `cli.train_online.main` with `--fake-env train.task_type=FetchType
+    model.critic_type=discrete` on the default async pipeline (a fill, 2
+    updated windows, the drain; the last window profiled: device ms and idle
+    share against the unprofiled updated window's wall), then
+    `cli.evaluate.main` restoring its checkpoint on FetchType rows; and a
+    shorter sync pass, `train.task_type=PickupType model.critic_type=mlp
+    train.async_pipeline=false` (a warm-up and 1 window, the last profiled).
+    Per pass: every window's wall, env frames/s and launches (asserted
+    against the config's count), every logged metric finite, the value and
+    cost-value losses positive (HL-Gauss cross-entropies, or the mlp head's
+    squared errors), every kernel launched, the final checkpoint written."""
+    from safevla_tpu_torch.cli import evaluate as eval_cli
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.evaluation import types as eval_types
+
+    cuda = torch.device(device).type == "cuda"
+    out_root = os.path.join("output", "chip_smoke", "train_online")
+    shutil.rmtree(out_root, ignore_errors=True)
+    ln_kernels(True)
+    passes, total = {}, {k: 0 for k in kernel_counts(fa, ln)}
+    run_dir = None
+    for name, task_type, critic_type, async_pipeline, windows in (
+        ("async", "FetchType", "discrete", True, ONLINE_ASYNC_WINDOWS),
+        ("sync", "PickupType", "mlp", False, ONLINE_SYNC_WINDOWS),
+    ):
+        out_dir = os.path.join(out_root, name)
+        argv = online_argv(out_dir, task_type, critic_type, windows, async_pipeline)
+        reseed_hosts(123)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ts, tr, events, logs, prof, prof_end = online_run(fa, ln, argv, windows, device)
+        run_s = time.perf_counter() - t0
+        cfg = tr.cfg
+        b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+        assert (cfg.train.task_type, cfg.model.critic_type, tr.async_pipeline) == (task_type, critic_type,
+                                                                                 async_pipeline)
+        # Config()'s model at full width, only the critic head chosen
+        assert dataclasses.replace(cfg.model, critic_type=Config().model.critic_type) == Config().model
+        assert ts.step == windows * b * t and [s for s, _ in logs] == [(k + 1) * b * t for k in range(windows)]
+        ckpt = os.path.join(out_dir, cfg.train.tag, f"step_{ts.step}", "train_state.pt")
+        assert os.path.isfile(ckpt), f"no checkpoint {ckpt}"
+        for _, metrics in logs:
+            assert all(np.isfinite([v for v in metrics.values() if isinstance(v, float)])), metrics
+            assert metrics["value"] > 0 and metrics["c_value"] > 0, metrics
+        windows_out = online_windows(events, tr, cfg, total, async_pipeline, cuda, prof_end)
+        launches = {k: sum(c[k] for _, _, c in events) for k in total}
+        assert all(v > 0 for v in launches.values()) or not cuda, f"{name}: a kernel never launched: {launches}"
+        res = {"task_type": task_type, "critic_type": critic_type, "async": async_pipeline, "streams": b,
+               "steps": t, "overlap_groups": tr.runner.n_groups, "image_hw": list(cfg.model.image_size),
+               "stage": logs[-1][1]["stage"], "run_s": run_s, "final_step": ts.step, "launches": launches,
+               "losses": [{"step": s, "value": m["value"], "c_value": m["c_value"], "total": m["total"]}
+                          for s, m in logs],
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+        # the idle share against the window before the profiled one (the
+        # profiler slows the host): the first updated window async, the
+        # warm-up sync
+        timed = windows_out[1] if async_pipeline else windows_out[0]
+        if prof is not None:
+            device_ms, rows = device_rows(prof)
+            windows_out[-1]["device_ms"] = device_ms or None
+            res["device_ms_profiled_window"] = device_ms or None
+            res["device_idle_share"] = (1.0 - device_ms / (timed["wall_s"] * 1e3)) if device_ms else None
+            res["top"] = [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:8]]
+        for w in windows_out:
+            log(f"[train_online] {name} {json.dumps(w)}")
+        res["windows"] = windows_out
+        for k in total:
+            total[k] += launches[k]
+        passes[name] = res
+        log(f"[train_online] {name} {json.dumps({k: v for k, v in res.items() if k != 'windows'})}")
+        if name == "async":
+            run_dir = os.path.join(out_dir, cfg.train.tag)
+        del ts, tr, events, logs, prof
+
+    # the async pass's checkpoint restored through the evaluation CLI, on
+    # FetchType rows, episodes capped at EVAL_EPISODE_STEPS
+    rows = [{**r, "task_type": "FetchType", "natural_language_spec": r["natural_language_spec"].replace(
+        "find", "fetch")} for r in eval_samples(ONLINE_EVAL_EPISODES, Config().model.image_size)]
+    bench = os.path.join(out_root, "fetchtype_val.json")
+    with open(bench, "w") as f:
+        json.dump(rows, f)
+    cap = eval_types.MAX_EPISODE_LEN_PER_TASK.get("FetchType")
+    eval_types.MAX_EPISODE_LEN_PER_TASK["FetchType"] = EVAL_EPISODE_STEPS
+    gc.collect()
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    try:
+        results = eval_cli.main(["--ckpt", run_dir, "--benchmark", bench, "--task-type", "FetchType", "--fake-env",
+                                 "--mode", "sample", "model.critic_type=discrete", f"eval.num_workers={STREAMS}",
+                                 f"train.output_dir={out_root}"], device=device)
+    finally:
+        eval_types.MAX_EPISODE_LEN_PER_TASK["FetchType"] = cap
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_launches = kernel_counts(fa, ln)
+    table = results["safety_table"]
+    assert results["task_type"] == "FetchType" and results["num_episodes"] == ONLINE_EVAL_EPISODES == len(table)
+    assert all(np.isfinite(float(r["cost"])) and r["ep_length"] >= 1 for r in table)
+    assert all(np.isfinite(v) for v in results["aggregate"].values())
+    assert not cuda or (eval_launches["attention_fwd"] > 0 and eval_launches["layer_norm_fwd"] > 0), eval_launches
+    shutil.rmtree(out_root, ignore_errors=True)
+    evaluation = {"episodes": ONLINE_EVAL_EPISODES, "streams": STREAMS, "wall_s": wall,
+                  "episodes_per_s": ONLINE_EVAL_EPISODES / wall, "launches": eval_launches,
+                  "aggregate": {k: results["aggregate"][k] for k in ("success", "cost", "ep_length")
+                                if k in results["aggregate"]}}
+    log(f"[train_online] evaluate {json.dumps(evaluation)}")
+    for k in total:
+        total[k] += eval_launches[k]
+    return {"passes": passes, "evaluate": evaluation, "launches": total}
+
+
+def critics(device="cuda"):
+    """The mlp and discrete critic heads of the small f32 policy (head dim
+    64: every kernel runs) on the card against the CPU: 4 acts (log-probs
+    and values) and forward_seq (logits, values, value logits) within
+    REF_TOL; one Learner.update at stage 1 within REF_UPDATE_METRIC_TOL /
+    REF_UPDATE_WEIGHT_TOL; and, for the discrete head, chunked_update
+    against update on the card within CHUNKED_METRIC_RTOL."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config, TrainConfig
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+
+    keys = ("dino_nav", "dino_manip", "text_hidden", "text_mask", "prev_actions", "not_reset", "object_in_hand",
+            "time_step", "traj_idx", "text_idx")
+    outputs = ("logits", "values", "c_values", "value_logits", "c_value_logits")
+    res = {}
+    for critic_type in ("mlp", "discrete"):
+        m = dataclasses.replace(small_model_config(), critic_type=critic_type, fusion_chunk=8, async_fusion_chunk=8)
+        cfg = Config(m, TrainConfig(max_steps=8))
+        agents = {d: InferenceAgent.build(cfg, None, num_streams=3, device=d) for d in ("cpu", device)}
+        for a in agents.values():
+            a.set_instructions(INSTRUCTIONS[:3])
+        rng = np.random.default_rng(21)
+        act_err = 0.0
+        for t in range(4):
+            nav, manip = rng.integers(0, 256, (2, 3, 28, 42, 3), dtype=np.uint8)
+            not_reset, oih = np.full(3, int(t > 0), np.int32), rng.integers(0, 3, 3).astype(np.int32)
+            got = {}
+            for d, a in agents.items():
+                a.act(nav, manip, not_reset, oih)
+                got[d] = np.concatenate([np.log(a.last_probs).ravel(), *a.last_values])
+            assert np.isfinite(got[device]).all()
+            act_err = max(act_err, float(np.abs(got[device] - got["cpu"]).max()))
+        text = torch.from_numpy(rng.standard_normal((3, m.text_max_tokens, m.text_embed_size), dtype=np.float32))
+        mask = torch.arange(m.text_max_tokens)[None, :] < torch.tensor([[3], [8], [5]])
+        batch = synthetic_batch(m, 3, 8, text, mask, seed=22)
+        fwd, upd = {}, {}
+        for d in ("cpu", device):
+            policy = SafeVLAPolicy(m, device=d, generator=torch.Generator().manual_seed(7))
+            with torch.no_grad():
+                out = policy.forward_seq(*(torch.as_tensor(batch[k], device=d) for k in keys))
+            fwd[d] = {k: None if getattr(out, k) is None else getattr(out, k).float().cpu() for k in outputs}
+            learner = Learner(policy, cfg)
+            ts, metrics = learner.update(learner.init(), batch, MEAN_EPISODE_COST, 1)
+            upd[d] = ({k: float(v) for k, v in metrics.items()},
+                      torch.cat([p.detach().cpu().flatten() for p in ts.tower_params.values()]))
+        assert (fwd[device]["value_logits"] is None) == (critic_type != "discrete")
+        fwd_err = max((fwd[device][k] - fwd["cpu"][k]).abs().max().item() for k in outputs if fwd["cpu"][k] is not None)
+        (m_cpu, w_cpu), (m_gpu, w_gpu) = upd["cpu"], upd[device]
+        metric_err = max(abs(m_gpu[k] - m_cpu[k]) / (1.0 + abs(m_cpu[k])) for k in m_cpu)
+        weight_err = (w_gpu - w_cpu).abs().max().item()
+        r = {"act_abs_err": act_err, "forward_abs_err": fwd_err, "update_metric_rel_err": metric_err,
+             "update_weight_abs_err": weight_err, "value": m_gpu["value"], "c_value": m_gpu["c_value"]}
+        assert all(np.isfinite(list(m_gpu.values()))) and m_gpu["value"] > 0 and m_gpu["c_value"] > 0
+        assert act_err <= REF_TOL and fwd_err <= REF_TOL, r
+        assert metric_err <= REF_UPDATE_METRIC_TOL and weight_err <= REF_UPDATE_WEIGHT_TOL, r
+        if critic_type == "discrete":
+            runs = {}
+            for kind in ("update", "chunked_update"):
+                learner = Learner(SafeVLAPolicy(m, device=device, generator=torch.Generator().manual_seed(7)), cfg)
+                runs[kind] = {k: float(v) for k, v in getattr(learner, kind)(learner.init(), batch,
+                                                                             MEAN_EPISODE_COST, 1)[1].items()}
+            rel = {k: abs(runs["chunked_update"][k] - v) / max(abs(v), 1e-12) for k, v in runs["update"].items()}
+            r["chunked_metric_rel_diff"] = rel
+            bad = {k: v for k, v in rel.items() if v > CHUNKED_METRIC_RTOL and k != "lagrange_multiplier"}
+            assert not bad and rel["lagrange_multiplier"] <= 1e-6, f"discrete chunked vs update: {bad}"
+        log(f"[critics] {critic_type}, cuda vs cpu: {json.dumps(r)}")
+        res[critic_type] = r
+    return res
+
+
+def check_dynamics(series):
+    """tests/test_learning.py::_check_dynamics's criteria (the smoke cannot
+    import the JAX package's tests), with the reward and the entropy judged
+    over the whole run (the best and the least moving mean over `tail`
+    windows, the length of the run's last eighth) where the test judges the
+    last eighth alone, and one criterion added: the constraint bit back (the
+    last eighth's mean episode cost below its peak). At this budget the last
+    eighth's verdicts are a coin flip in the JAX package itself (its runs
+    fail them in 1 of 4 sync and 6 of 8 async seeds on a CPU,
+    `tools/torch_probe_seeds.py`; PERF.md §6), since after lambda's overshoot
+    the policy may still be spreading over the costless actions; they are
+    printed and returned, not asserted."""
+    from safevla_tpu_torch.tasks.probe import ConstrainedBanditTask
+
+    rl = [r for r in series if r.get("stage", 1) >= 1]
+    assert len(rl) > 60, f"too few RL updates logged: {len(rl)}"
+    reward = [r["ep/total_reward"] for r in rl if "ep/total_reward" in r]
+    cost = [r["mean_episode_cost"] for r in rl]
+    lam = [r["lagrange_multiplier"] for r in rl]
+    ent = [r["entropy"] for r in rl]
+
+    tail = max(1, len(reward) // 8)
+    moving = lambda xs: [float(np.mean(xs[i : i + tail])) for i in range(len(xs) - tail + 1)]
+    initial_r = float(np.mean(reward[:10]))
+    final_r = float(np.mean(reward[-tail:]))
+    peak_r = max(moving(reward))
+    initial_ent, final_ent = float(np.mean(ent[:10])), float(np.mean(ent[-tail:]))
+    final_cost = float(np.mean(cost[-tail:]))
+    optima = ConstrainedBanditTask.optima(LEARN_EP_STEPS, LEARN_COST_LIMIT)
+    verdict = {
+        "rl_updates": len(rl), "initial_reward": initial_r, "final_reward": final_r, "peak_reward": peak_r,
+        "optima": optima, "peak_cost": max(cost), "final_cost": final_cost, "peak_lambda": max(lam),
+        "final_lambda": lam[-1], "initial_entropy": initial_ent, "final_entropy": final_ent,
+        "least_entropy": min(moving(ent)),
+        # tests/test_learning.py's last-eighth verdicts, measured
+        "last_eighth": {"reward_rose": final_r > 2.0 * max(initial_r, 0.25),
+                        "beats_safe_only": final_r > optima["safe_only_return"] * 0.9,
+                        "entropy_fell": final_ent < initial_ent},
+    }
+    log(f"[learning] {json.dumps(verdict)}")
+    # reward learning: the policy left the random baseline far behind and
+    # beat the all-safe policy (i.e. it exploited the risky budget)
+    assert peak_r > 2.0 * max(initial_r, 0.25), (initial_r, peak_r)
+    assert peak_r > optima["safe_only_return"] * 0.9, (peak_r, optima)
+    # the cost signal was hit: cost overshot the limit while lambda was
+    # still small (the unconstrained pull), and lambda rose in response
+    assert max(cost) > LEARN_COST_LIMIT, max(cost)
+    assert max(lam) > 0.05, max(lam)
+    # lambda only ever moves while a lagrangian stage is active, and the
+    # projected multiplier stays >= 0
+    assert min(lam) >= 0.0
+    # the constraint bit back: the cost fell from its peak
+    assert final_cost < max(cost), (final_cost, max(cost))
+    # the policy sharpened
+    assert verdict["least_entropy"] < initial_ent, (verdict["least_entropy"], initial_ent)
+    return verdict
+
+
+def learning_run(async_pipeline: bool, device="cuda"):
+    """One run of tests/test_learning.py's ConstrainedBandit probe through the
+    port's trainer (130 updates of 4 streams x 8 steps, cost limit 2, 10
+    warm-up updates), with per-window episode means as that test takes them:
+    -> (the logged metrics of every update, the run's wall s)."""
+    from safevla_tpu_torch.tasks.probe import make_probe_sampler_factory, probe_train_config
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    cfg = probe_train_config(LEARN_UPDATES, "ConstrainedBandit", streams=LEARN_STREAMS,
+                             rollout_steps=LEARN_EP_STEPS, episode_steps=LEARN_EP_STEPS,
+                             cost_limit=LEARN_COST_LIMIT, warmup_updates=LEARN_WARMUP)
+    series = []
+    tr = OnlineTrainer(cfg, make_probe_sampler_factory(cfg, episode_max_steps=LEARN_EP_STEPS), num_workers=0,
+                       log_fn=lambda metrics, step: series.append({"step": step, **metrics}),
+                       async_pipeline=async_pipeline, device=device)
+    inner = tr.log_fn
+
+    def windowed(metrics, step):
+        inner(metrics, step)
+        tr.episode_accum.reset()
+
+    tr.log_fn = windowed
+    t0 = time.perf_counter()
+    try:
+        tr.train()
+    finally:
+        tr.close()
+        shutil.rmtree(cfg.train.output_dir, ignore_errors=True)
+    return series, time.perf_counter() - t0
+
+
+def learning(device="cuda"):
+    """The probe on the card, sync and async, each held to its dynamics
+    criteria (`check_dynamics`). The two runs are independent and host-bound
+    (the probe's model is tiny: hidden 64, head dim 16, so no kernel runs;
+    this tests the optimiser on the card), so they run side by side in two
+    spawned processes, which the pool joins before this returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    with pool:
+        futures = {mode: pool.submit(learning_run, mode == "async", device) for mode in ("sync", "async")}
+        runs = {mode: future.result() for mode, future in futures.items()}
+    res = {}
+    for mode, (series, wall) in runs.items():
+        log(f"[learning] {mode}: {len(series)} updates in {wall:.1f} s")
+        res[mode] = {**check_dynamics(series), "wall_s": wall, "updates": len(series)}
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -2297,6 +2742,12 @@ def main() -> int:
         shapes.append(check_attention(fa, name, b, s, heads, kl, gen, dh=dh, iters=it, plain_iters=1, rel=rel))
         bwd_shapes.append(check_attention_bwd(fa, name, b, s, heads, kl, gen, dh=dh, iters=it, plain_iters=1,
                                               rel=rel))
+    # the train_online phase's rollout (8 streams in 2 overlap groups: the
+    # ViT on 8 frames, the fusion on 4 samples); its updates, its acts in
+    # evaluation and the async chunks take the shapes checked above
+    g_online = ONLINE_STREAMS // ONLINE_GROUPS
+    shapes += [check_attention(fa, "vit_online", 2 * g_online, 448, 6, [433] * (2 * g_online), gen),
+               check_attention(fa, "fusion_online", g_online, 208, 8, fusion_kl[:g_online], gen)]
     ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
     ln_fwd += [check_layer_norm(ln, name, r, d, torch.bfloat16, torch.bfloat16, gen) for name, r, d in LN_WIDE_SHAPES]
     ln_fwd.append(check_layer_norm(ln, "wide_d4096_f32", 2 * STREAMS * 448, 4096, torch.float32, torch.float32, gen))
@@ -2332,6 +2783,12 @@ def main() -> int:
     evaluation = evaluate(fa, ln, kept)
     shutil.rmtree(kept["dir"], ignore_errors=True)
     phase_done("evaluate")
+    online_path = train_online_phase(fa, ln)
+    phase_done("train_online")
+    critic_heads = critics()
+    phase_done("critics")
+    learned = learning()
+    phase_done("learning")
     ref_offline = reference_offline()
     bc, bc_trainer, bc_state, bc_aug = offline(fa, ln)
     bc_plain = offline_plain_check(fa, ln, bc_trainer, bc_aug)
@@ -2376,14 +2833,16 @@ def main() -> int:
              "trainer": window_launches["attention_fwd"],
              "trainer_async": async_launches["attention_fwd"],
              "evaluate": evaluation["launches"]["attention_fwd"],
-             "offline": bc["launches"]["attention_fwd"]},
+             "offline": bc["launches"]["attention_fwd"],
+             "train_online": online_path["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
         row("flash_attention_bwd", "safevla_tpu_torch/csrc/flash_attention_bwd.cu",
             "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
             {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"],
-             "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"]},
+             "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"],
+             "train_online": online_path["launches"]["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -2395,7 +2854,8 @@ def main() -> int:
              "trainer": window_launches["layer_norm_fwd"],
              "trainer_async": async_launches["layer_norm_fwd"],
              "evaluate": evaluation["launches"]["layer_norm_fwd"],
-             "offline": bc["launches"]["layer_norm_fwd"]},
+             "offline": bc["launches"]["layer_norm_fwd"],
+             "train_online": online_path["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -2404,7 +2864,8 @@ def main() -> int:
             {"training": training["launches"]["layer_norm_bwd"],
              "trainer": window_launches["layer_norm_bwd"],
              "trainer_async": async_launches["layer_norm_bwd"],
-             "offline": bc["launches"]["layer_norm_bwd"]},
+             "offline": bc["launches"]["layer_norm_bwd"],
+             "train_online": online_path["launches"]["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
@@ -2412,9 +2873,11 @@ def main() -> int:
     ]
     for k in kernels:  # every kernel of the trainers' paths and of the offline path ran in each
         assert k["launches_trainer"] > 0 and k["launches_trainer_async"] > 0, k["name"]
-        assert k["launches_offline"] > 0, k["name"]
+        assert k["launches_offline"] > 0 and k["launches_train_online"] > 0, k["name"]
     for k in kernels[0], kernels[2]:  # and the forward kernels in the evaluate phase
         assert k["launches_evaluate"] > 0, k["name"]
+    online_frames = " / ".join(f"{p['windows'][-2]['env_frames_per_s']:.1f}"
+                               for p in online_path["passes"].values())
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
         f"reference window on vs off {ref_trainer}, tiny config {ref_tiny}, "
         f"serving {serving['ms_per_act_mean']:.3f} / {serving_ln['ms_per_act_mean']:.3f} ms/act "
@@ -2429,6 +2892,11 @@ def main() -> int:
         f"offline {bc['ms_per_step']:.1f} ms/step ({bc['samples_per_s']:.1f} samples/s, "
         f"{bc['images_per_s']:.1f} images/s, mfu {bc['mfu_bf16_dense']:.4f}), reference BC step {ref_offline}, "
         f"BC kernels vs plain {bc_plain['bc_loss_rel_diff']}, BC fit bit-equal {bc_fit['bit_equal']}, "
+        f"train_online {online_frames} env frames/s (async FetchType discrete / sync PickupType mlp), "
+        f"its checkpoint evaluated at {online_path['evaluate']['episodes_per_s']:.3f} episodes/s, "
+        f"critics cuda vs cpu {json.dumps(critic_heads)}, learning final reward "
+        f"{learned['sync']['final_reward']:.3f} / {learned['async']['final_reward']:.3f} (sync / async; "
+        f"constrained optimum {learned['sync']['optima']['constrained_return']}), "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

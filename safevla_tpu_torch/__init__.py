@@ -15,8 +15,13 @@ online trainer, `training.online.OnlineTrainer.train` (`rollout.env_pool`
 sync and in the default async pipeline (the update as chunk programs,
 `Learner.iter_chunked_update`, on a CUDA stream of its own while the next
 window is collected), on a copy of the FakeController / ObjectNav
-environment stack (`envs`, `tasks`); and evaluation with checkpoint restore
-(`evaluation.evaluator.BatchedEvaluator`, `cli.evaluate`). The packed-qkv flash-attention forward and backward and the row
+environment stack (`envs`, `tasks`); evaluation with checkpoint restore
+(`evaluation.evaluator.BatchedEvaluator`, `cli.evaluate`); offline
+behaviour cloning (`training.offline.OfflineTrainer.fit`, `cli.train_offline`);
+and online training from its command line (`cli.train_online`, with the
+sampler factories of `launch`) on every task family of the JAX package
+(`tasks`) with the linear, mlp and HL-Gauss discrete critics. The packed-qkv
+flash-attention forward and backward and the row
 LayerNorm forward and backward are hand-written CUDA kernels (`csrc/{flash_attention_fwd,flash_attention_bwd,
 layer_norm}.cu`, built at first use by `ops/_build.py`).
 

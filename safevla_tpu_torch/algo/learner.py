@@ -7,7 +7,8 @@ Counterpart of the synchronous `update` of `safevla_tpu/algo/learner.py`:
     -> lambda ascent vs cost_limit (omnisafe Lagrange semantics)
     -> cfg.ppo.update_repeats epochs of:
          full-sequence policy forward (`SafeVLAPolicy.forward_seq`)
-         stage-weighted losses (PPO-Lagrangian surrogate, value, cost value)
+         stage-weighted losses (PPO-Lagrangian surrogate, value, cost value;
+         the HL-Gauss cross-entropy for the discrete critic)
          gradients of the tower parameters, global-norm clip + Adam (optax's)
 
 Only the tower parameters train; the frozen ViT and T5 do not run (the batch
@@ -45,6 +46,7 @@ from safevla_tpu_torch.algo.optim import AdamState, adam_init, adam_step, clip_b
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.ops.gae import dual_gae
+from safevla_tpu_torch.ops.hl_gauss import HLGauss
 
 
 @dataclass
@@ -145,8 +147,8 @@ class Learner:
         return self._loss_from_outputs(self._forward(batch), batch, lam, stage)
 
     def _loss_from_outputs(self, out, batch, lam, stage: StageSpec):
-        """Stage-weighted losses given policy outputs -> (total, metrics).
-        Only the linear critic is ported, so the values train by MSE."""
+        """Stage-weighted losses given policy outputs -> (total, metrics),
+        shared by `update` and the chunk programs of `iter_chunked_update`."""
         ppo = self.cfg.ppo
         metrics = {}
         adv = batch["advantages"]
@@ -157,14 +159,22 @@ class Learner:
             log_probs, batch["old_log_probs"], adv, ppo.clip_param
         ).mean()
         entropy = L.categorical_entropy(out.logits).mean()
-        v_loss = L.value_loss(
-            out.values, batch["returns"], batch["old_values"], ppo.clip_param,
-            ppo.use_clipped_value_loss,
-        )
-        cv_loss = L.value_loss(
-            out.c_values, batch["c_returns"], batch["old_c_values"], ppo.clip_param,
-            ppo.use_clipped_value_loss,
-        )
+        m = self.cfg.model
+        if m.critic_type == "discrete":
+            # HL-Gauss distributional critics train with cross-entropy on the
+            # smeared return histogram (reference customized_loss.py:364-370)
+            hl = HLGauss(m.hl_gauss_min, m.hl_gauss_max, m.hl_gauss_bins, m.hl_gauss_sigma)
+            v_loss = 0.5 * hl.loss(out.value_logits, batch["returns"])
+            cv_loss = 0.5 * hl.loss(out.c_value_logits, batch["c_returns"])
+        else:
+            v_loss = L.value_loss(
+                out.values, batch["returns"], batch["old_values"], ppo.clip_param,
+                ppo.use_clipped_value_loss,
+            )
+            cv_loss = L.value_loss(
+                out.c_values, batch["c_returns"], batch["old_c_values"], ppo.clip_param,
+                ppo.use_clipped_value_loss,
+            )
         total = (
             stage.action_weight * action_loss
             + stage.value_weight * v_loss

@@ -7,9 +7,9 @@
 The agent runs on the card (`main(..., device="cpu")` runs it on the CPU,
 as the tests do). `--ckpt` is a directory of the port's checkpoint format, a
 reference torch file, or absent (random init); JAX Orbax checkpoints are
-converted first with `tools/torch_from_orbax.py`. Only `--fake-env` runs:
-the AI2-THOR controller and the house stores are not ported yet (ROADMAP
-Queue 1 item 12), nor are the task families outside ObjectNav (item 8).
+converted first with `tools/torch_from_orbax.py`. Every task type of
+`tasks.REGISTERED_TASKS` evaluates. Only `--fake-env` runs: the AI2-THOR
+controller and the house stores are not ported yet (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -63,10 +63,9 @@ def main(argv=None, device="cuda"):
     from safevla_tpu_torch.evaluation.types import (
         MAX_EPISODE_LEN_PER_TASK,
         load_benchmark_episodes,
-        map_hard_easy_objectnavtype_to_objectnavtype,
         normalized_eval_sample_to_task_spec,
     )
-    from safevla_tpu_torch.tasks import REGISTERED_TASKS, MultiTaskSampler, TaskSpecQueue
+    from safevla_tpu_torch.tasks import MultiTaskSampler, TaskSpecQueue
     from safevla_tpu_torch.utils.wandb_logging import WandbLogger
 
     cfg = apply_overrides(Config(), args.overrides)
@@ -86,12 +85,6 @@ def main(argv=None, device="cuda"):
     else:
         task_types = [args.task_type]
         bench_paths = {args.task_type: args.benchmark}
-    for t in task_types:
-        if map_hard_easy_objectnavtype_to_objectnavtype(t) not in REGISTERED_TASKS:
-            raise NotImplementedError(
-                f"task type {t!r} is not ported yet (ROADMAP Queue 1 item 8: the fetch, "
-                f"room-visit, multi-nav and probe families); ported: {sorted(REGISTERED_TASKS)}"
-            )
 
     samples_by_task = {t: load_benchmark_episodes(p) for t, p in bench_paths.items()}
     if args.shuffle:

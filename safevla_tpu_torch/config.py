@@ -3,17 +3,18 @@ the rollout runner, the online trainers, the evaluator and the offline
 (behaviour cloning) trainer.
 
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
-`LagrangeConfig`, `TrainingStageConfig`, `OfflineConfig` and `EvalConfig`,
-of the `TrainConfig` fields the inference agent, the update, the runner and
-the trainers read, with identical defaults, and of `apply_overrides` (with
-its presets). The JAX config's `mesh` section has no counterpart (the port
-runs on one card): an override of one of its keys is an unknown key here.
+`LagrangeConfig`, `TrainingStageConfig`, `TrainConfig`, `OfflineConfig`,
+`EvalConfig` and `Config` (its data roots included), with identical
+defaults, and of `apply_overrides` (with its presets). The JAX config's
+`mesh` section has no counterpart (the port runs on one card): an override
+of one of its keys is an unknown key here.
 """
 
 from __future__ import annotations
 
 import difflib
 import json
+import os
 from dataclasses import dataclass, field
 from typing import Any, List, Optional, Tuple
 
@@ -53,7 +54,8 @@ class ModelConfig:
     add_prev_action_null_token: bool = True
     use_manipulation_camera: bool = True
     use_object_in_hand: bool = True
-    critic_type: str = "linear"  # linear (mlp | discrete: not ported yet)
+    critic_type: str = "linear"  # linear | mlp | discrete
+    # HL-Gauss discrete critic (reference allenact_dino_transformer.py:152-158)
     hl_gauss_min: float = -5.0
     hl_gauss_max: float = 15.0
     hl_gauss_bins: int = 101
@@ -117,14 +119,15 @@ class TrainingStageConfig:
 
 @dataclass
 class TrainConfig:
-    """The fields of the online run configuration the serving path, the
-    update, the runner and the trainer read."""
+    """Online safe-RL run configuration."""
 
+    task_type: str = "ObjectNavType"
     tag: str = "SafeVLA-TPU-ObjectNavType"
     num_train_processes: int = 32
     max_steps: int = 500  # per-episode cap; augmentation resamples this often
     steps_in_house_before_force_scene_advance: int = 2000
     save_interval: int = 50_000
+    metric_accumulate_interval: int = 1_000
     output_dir: str = "output"
     seed: int = 123
     il_ckpt_path: Optional[str] = None
@@ -140,9 +143,14 @@ class TrainConfig:
         ]
     )
     use_data_augmentation: bool = True
+    # torchvision transform list version (reference transformation_util.py:12)
     augmentation_version: str = "v2"
-    # the JAX default is the async rollout/update pipeline (stale-by-one
-    # window PPO); the port runs the sync trainer only and refuses async
+    collision_penalty: float = 0.0
+    # Default training mode: the async rollout/update pipeline (the PPO
+    # epoch decomposed into chunk programs pumped between the rollout's env
+    # steps on a CUDA stream of their own, learner.iter_chunked_update).
+    # Stale-by-one-window PPO. Set False for strictly on-policy synchronous
+    # updates.
     async_pipeline: bool = True
 
 
@@ -189,6 +197,15 @@ class Config:
     lagrange: LagrangeConfig = field(default_factory=LagrangeConfig)
     offline: OfflineConfig = field(default_factory=OfflineConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
+
+    # data roots (env-var fallbacks mirror the reference's
+    # utils/constants/objaverse_data_dirs.py)
+    objaverse_houses_dir: str = field(
+        default_factory=lambda: os.environ.get("OBJAVERSE_HOUSES_DIR", "")
+    )
+    objaverse_data_dir: str = field(
+        default_factory=lambda: os.environ.get("OBJAVERSE_DATA_DIR", "")
+    )
 
 
 def _parse_value(raw: str, current: Any) -> Any:

@@ -5,7 +5,10 @@ The same streams as the JAX package's sync bench (`bench.py`, which takes
 them from `tests/test_rollout_training.py::make_sampler_factory`): stream i
 runs a FakeController seeded with i, whose target is the type of its i-th
 object (modulo the object count), one spec per house, the online-RL sensor
-set at `image_hw`, and `max_steps` steps per episode.
+set at `image_hw`, and `max_steps` steps per episode. The training CLI
+(`cli/train_online.py --fake-env`) builds its streams with
+`launch.make_fake_sampler_factory` instead: the same streams of any task
+type (`cfg.train.task_type`) with the reference's reward config.
 """
 
 from __future__ import annotations

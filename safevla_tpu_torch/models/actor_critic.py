@@ -13,11 +13,15 @@ encoders shared). Three `PolicyTower` modules run one after another
 (the JAX package vmaps one tower over stacked parameters); logits come from
 tower 0, values from tower 1, cost values from tower 2. Trainable tower
 parameters are f32 and cast to the compute dtype at use, as flax's Dense
-(`models/dense.py`). Tower modules carry
-the reference's torch state-dict names (`visual_encoder.fusion_xformer...`,
-`last_actions_embed`, `decoder.layers.N...`, `actor.linear`, `critic.fc`);
-the reference prefixes its critic towers with `critic_tsfm.` and
-`c_critic_tsfm.`, which are `towers.1.` and `towers.2.` here.
+(`models/dense.py`). The critic head is `cfg.critic_type`'s: `linear` (one
+Dense), `mlp` (Dense 256 - relu - Dense 256 - relu - Dense 1) or `discrete`
+(Dense 256 - relu - Dense bins: the HL-Gauss histogram's logits, read out by
+`ops/hl_gauss.py`). Tower modules carry the reference's torch state-dict
+names (`visual_encoder.fusion_xformer...`, `last_actions_embed`,
+`decoder.layers.N...`, `actor.linear`, `critic.fc`, or the Sequential's
+`critic.fc.0/2/4`); the reference prefixes its critic towers with
+`critic_tsfm.` and `c_critic_tsfm.`, which are `towers.1.` and `towers.2.`
+here.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from safevla_tpu_torch.models.llama_decoder import DecoderConfig, LlamaDecoder, 
 from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
 from safevla_tpu_torch.models.t5 import T5Config, T5Encoder, T5LayerNorm
 from safevla_tpu_torch.models.vit import DinoViT, LayerScale
+from safevla_tpu_torch.ops.hl_gauss import HLGauss
 from safevla_tpu_torch.ops.masks import incremental_episode_mask, packed_block_causal_mask
 
 
@@ -115,9 +120,20 @@ class ActorHead(nn.Module):
 
 
 class CriticHead(nn.Module):
-    def __init__(self, dim: int):
+    """`fc`: the linear head, or the mlp / discrete heads' Sequential (f32)."""
+
+    def __init__(self, dim: int, critic_type: str = "linear", bins: int = 1):
         super().__init__()
-        self.fc = nn.Linear(dim, 1)  # f32
+        if critic_type == "linear":
+            self.fc = nn.Linear(dim, 1)
+        elif critic_type == "mlp":
+            self.fc = nn.Sequential(
+                nn.Linear(dim, 256), nn.ReLU(), nn.Linear(256, 256), nn.ReLU(), nn.Linear(256, 1)
+            )
+        elif critic_type == "discrete":
+            self.fc = nn.Sequential(nn.Linear(dim, 256), nn.ReLU(), nn.Linear(256, bins))
+        else:
+            raise ValueError(f"Unknown critic type {critic_type}")
 
 
 class PolicyTower(nn.Module):
@@ -126,10 +142,6 @@ class PolicyTower(nn.Module):
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.critic_type != "linear":
-            raise NotImplementedError(
-                f"critic_type={cfg.critic_type!r} is not ported yet (only 'linear')"
-            )
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.compute_dtype)
         d = cfg.hidden_size
@@ -140,7 +152,8 @@ class PolicyTower(nn.Module):
             self.object_in_hand_embed = nn.Embedding(3, d)
         self.decoder = LlamaDecoder(self.decoder_config())
         self.actor = ActorHead(d, cfg.num_actions)
-        self.critic = CriticHead(d)
+        self.critic = CriticHead(d, cfg.critic_type, cfg.hl_gauss_bins)
+        self.hl = HLGauss(cfg.hl_gauss_min, cfg.hl_gauss_max, cfg.hl_gauss_bins, cfg.hl_gauss_sigma)
 
     def decoder_config(self) -> DecoderConfig:
         c = self.cfg
@@ -187,10 +200,18 @@ class PolicyTower(nn.Module):
             joint = joint + self.object_in_hand_embed.weight[object_in_hand.long()]
         return joint + sinusoidal_time_encoding(time_step, c.hidden_size)
 
+    def _critic(self, beliefs):
+        """The critic head: values (linear, mlp) or value logits (discrete)."""
+        out = self.critic.fc(beliefs)
+        return out if self.cfg.critic_type == "discrete" else out[..., 0]
+
     def _heads(self, beliefs):
+        """-> (logits, values, value logits: None unless discrete)."""
         logits = self.actor.linear(beliefs)
-        values = self.critic.fc(beliefs)[..., 0]
-        return logits, values
+        if self.cfg.critic_type == "discrete":
+            value_logits = self._critic(beliefs)
+            return logits, self.hl.from_logits(value_logits), value_logits
+        return logits, self._critic(beliefs), None
 
     def embed_obs(self, dino_nav_flat, dino_manip_flat, text_h, text_m):
         """Per-step fusion embedding over a flat (N, ...) batch -> (N, D) f32.
@@ -199,12 +220,12 @@ class PolicyTower(nn.Module):
 
     def decode_heads(self, obs_embeds, prev_actions, not_reset, object_in_hand, time_step, attn_mask):
         """(B, T, D) observation embeddings -> full-sequence decoder + heads:
-        (logits, values, value logits (None: linear critic), values of the
-        critic on stop-gradient beliefs)."""
+        (logits, values, value logits (None unless discrete), the critic
+        head on stop-gradient beliefs: values, or value logits if discrete)."""
         joint = self._joint_embed(obs_embeds, prev_actions, not_reset, object_in_hand, time_step)
         beliefs = self.decoder.full(joint, attn_mask)
-        logits, values = self._heads(beliefs)
-        return logits, values, None, self.critic.fc(beliefs.detach())[..., 0]
+        logits, values, value_logits = self._heads(beliefs)
+        return logits, values, value_logits, self._critic(beliefs.detach())
 
     def step(
         self,
@@ -231,7 +252,7 @@ class PolicyTower(nn.Module):
         )
         mask = incremental_episode_mask(time_step, pos, max_steps)
         beliefs = self.decoder.step(joint, cache_k, cache_v, pos, mask)
-        logits, values = self._heads(beliefs)
+        logits, values, _ = self._heads(beliefs)
         return logits[:, 0], values[:, 0]
 
 
@@ -355,7 +376,9 @@ class SafeVLAPolicy(nn.Module):
                 if m.cfg.use_object_in_hand:
                     uniform(m.object_in_hand_embed.weight, -0.01, 0.01)
                 orthogonal(m.actor.linear.weight, 0.01)
-                orthogonal(m.critic.fc.weight, 1.0)
+                for lin in m.critic.modules():
+                    if isinstance(lin, nn.Linear):
+                        orthogonal(lin.weight, 1.0)
 
     # -------------- frozen encoders --------------
 

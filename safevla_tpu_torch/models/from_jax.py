@@ -153,9 +153,12 @@ def tower_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
     sd["decoder.norm.weight"] = np.asarray(dec["norm"]["weight"])
     sd.update(_dense("decoder.output", dec["output"], bias=False))
     sd.update(_dense("actor.linear", p["actor_head"]))
-    if "layers_0" in p["critic_head"]:
-        raise NotImplementedError("only the linear critic head is ported yet")
-    sd.update(_dense("critic.fc", p["critic_head"]))
+    critic = p["critic_head"]
+    if "layers_0" in critic:  # the mlp / discrete heads' Sequential: layers_0/2(/4)
+        for name, layer in critic.items():
+            sd.update(_dense(f"critic.fc.{name[len('layers_'):]}", layer))
+    else:
+        sd.update(_dense("critic.fc", critic))
     return sd
 
 

@@ -1,9 +1,11 @@
-"""Task layer: registry, samplers and the ObjectNav task family.
+"""Task layer: registry + concrete tasks.
 
-Copies of `safevla_tpu/tasks/{registry,task_specs,samplers,base,cost_model,
-rewards,object_nav}.py` (only their imports differ). The registry holds the
-ObjectNav family alone: the fetch, room-visit, multi-nav and probe families
-are not ported yet.
+Copies of `safevla_tpu/tasks/` (only their imports differ): the registry,
+task specs and samplers, and every task family of the JAX package — the
+ObjectNav family, fetch / pickup, room visit, multi-target and room
+navigation, and the constrained learnability probes. The registry mirrors
+reference tasks/__init__.py:11-37 — a task class is registered iff its
+task_type_str has a registered param schema.
 """
 
 from safevla_tpu_torch.tasks.registry import REGISTERED_TASKS, register_task
@@ -16,6 +18,14 @@ from safevla_tpu_torch.tasks.object_nav import (
     ObjectNavLocalRefTask,
     ObjectNavAffordanceTask,
     ObjectNavDescriptionTask,
+)
+from safevla_tpu_torch.tasks.fetch import FetchTask, EasyFetchTask, PickupTask
+from safevla_tpu_torch.tasks.room_visit import RoomVisitTask
+from safevla_tpu_torch.tasks.multi_nav import ObjectNavMultiTask, RoomNavTask
+from safevla_tpu_torch.tasks.probe import (
+    ConstrainedBanditTask,
+    InstructionBanditTask,
+    make_probe_sampler_factory,
 )
 from safevla_tpu_torch.tasks.samplers import MultiTaskSampler, SPOCTaskSampler
 from safevla_tpu_torch.tasks.task_specs import (
@@ -39,6 +49,15 @@ __all__ = [
     "ObjectNavLocalRefTask",
     "ObjectNavAffordanceTask",
     "ObjectNavDescriptionTask",
+    "FetchTask",
+    "EasyFetchTask",
+    "PickupTask",
+    "RoomVisitTask",
+    "ObjectNavMultiTask",
+    "RoomNavTask",
+    "ConstrainedBanditTask",
+    "InstructionBanditTask",
+    "make_probe_sampler_factory",
     "MultiTaskSampler",
     "SPOCTaskSampler",
     "TaskSpec",

@@ -150,24 +150,28 @@ def test_batched_evaluator_matches_jax(mcfg):
 
 
 def test_evaluate_cli_on_fake_env(mcfg, tmp_path, monkeypatch):
-    bench = tmp_path / "objectnavtype_val.jsonl.gz"
-    with gzip.open(bench, "wt") as f:
-        for row in _eval_samples(3):
-            f.write(json.dumps(row) + "\n")
+    benches = {}
+    for task_type in ("ObjectNavType", "FetchType"):
+        benches[task_type] = tmp_path / f"{task_type.lower()}_val.jsonl.gz"
+        with gzip.open(benches[task_type], "wt") as f:
+            for row in _eval_samples(3):
+                f.write(json.dumps({**row, "task_type": task_type}) + "\n")
+        # episodes of 12 steps at most, not the benchmark's: the size of the test
+        monkeypatch.setitem(ptypes.MAX_EPISODE_LEN_PER_TASK, task_type, 12)
     tiny_cfg = _port_cfg(mcfg)
     monkeypatch.setattr(pconfig, "Config", lambda: dataclasses.replace(tiny_cfg, train=TrainConfig()))
-    # episodes of 12 steps at most, not the benchmark's 600: the size of the test
-    monkeypatch.setitem(ptypes.MAX_EPISODE_LEN_PER_TASK, "ObjectNavType", 12)
     out = tmp_path / "results.json"
-    results = eval_cli.main(
-        ["--benchmark", str(bench), "--fake-env", "--eval-set-size", "2", "--output", str(out),
-         "eval.num_workers=2", "eval.test_augmentation=false", f"train.output_dir={tmp_path}"],
-        device="cpu",
-    )
+    args = ["--fake-env", "--eval-set-size", "2", "eval.num_workers=2", "eval.test_augmentation=false",
+            f"train.output_dir={tmp_path}"]
+    results = eval_cli.main(["--benchmark", str(benches["ObjectNavType"]), "--output", str(out), *args],
+                            device="cpu")
     assert results["num_episodes"] == 2 and len(results["safety_table"]) == 2
     assert json.loads(out.read_text())["task_type"] == "ObjectNavType"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        eval_cli.main(["--benchmark", str(bench), "--task-type", "FetchType", "--fake-env"], device="cpu")
+    # every registered task type evaluates (the fetch family here)
+    results = eval_cli.main(["--benchmark", str(benches["FetchType"]), "--task-type", "FetchType", *args],
+                            device="cpu")
+    assert results["task_type"] == "FetchType" and results["num_episodes"] == 2
+    bench = benches["ObjectNavType"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         eval_cli.main(["--benchmark", str(bench)], device="cpu")
 

@@ -15,6 +15,8 @@ outputs reach ~6, so they are held to one bf16 ulp of the plain version
 (2^-7 |want| + 1e-3), f32 to 1e-5.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -592,3 +594,84 @@ def test_tiny_test_config_acts_and_updates_on_the_card(cuda, monkeypatch):
     after = (fa.attention_qkv.launches, fa.attention_qkv_bwd.launches, ln.layer_norm.launches,
              ln.layer_norm_bwd.launches)
     assert after == before  # every site takes the plain path at these widths
+
+
+def _small_config(critic_type):
+    """A small f32 policy whose attention (head dim 64, 128 lanes) and
+    LayerNorm (D 128) sites take the kernels on the card."""
+    from safevla_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from safevla_tpu_torch.models import vit
+
+    vit.VIT_CONFIGS.setdefault("gpu_test_small", vit.DinoViTConfig(
+        embed_dim=128, depth=2, num_heads=2, img_height=28, img_width=42, dtype=torch.float32))
+    m = ModelConfig(
+        hidden_size=128, num_tx_layers=2, num_tx_heads=2, goal_dims=128, text_embed_size=128, combiner_layers=3,
+        combiner_heads=2, combiner_ffn_dim=256, dino_compressor_hidden_out_dims=(128, 128),
+        vision_backbone="gpu_test_small", vision_feature_dim=128, image_size=(28, 42), max_steps=8,
+        text_max_tokens=8, compute_dtype="float32", critic_type=critic_type, fusion_chunk=8,
+    )
+    return Config(m, TrainConfig(max_steps=8))
+
+
+@pytest.mark.gpu
+def test_discrete_critic_update_on_the_card_matches_the_cpu(cuda):
+    """One stage-1 Learner.update of the HL-Gauss discrete critic on the
+    card against the CPU, from the same weights and batch: metrics within
+    1e-4 (1 + |x|), weights within 1e-5; the kernels ran on the card."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.ops import layer_norm as ln
+
+    cfg = _small_config("discrete")
+    m = cfg.model
+    rng = np.random.default_rng(5)
+    b, steps, length = 3, 8, m.text_max_tokens
+    not_reset = np.ones((b, steps), np.int32)
+    not_reset[:, 0] = 0
+    not_reset[1, 4] = 0
+    batch = {
+        "dino_nav": rng.standard_normal((b, steps, 7, 12, 128)).astype(np.float32),
+        "dino_manip": rng.standard_normal((b, steps, 7, 12, 128)).astype(np.float32),
+        "text_hidden": rng.standard_normal((b, length, 128)).astype(np.float32),
+        "text_mask": np.arange(length)[None, :] < np.array([[3], [8], [5]]),
+        "prev_actions": rng.integers(0, m.num_actions, (b, steps)).astype(np.int32),
+        "not_reset": not_reset,
+        "object_in_hand": rng.integers(0, 3, (b, steps)).astype(np.int32),
+        "time_step": np.tile(np.arange(steps, dtype=np.int32), (b, 1)),
+        "traj_idx": (np.cumsum(1 - not_reset, axis=1) - 1).astype(np.int32),
+        "actions": rng.integers(0, m.num_actions, (b, steps)).astype(np.int32),
+        "old_log_probs": np.full((b, steps), -3.0, np.float32),
+        "rewards": rng.standard_normal((b, steps)).astype(np.float32),
+        "costs": rng.integers(0, 3, (b, steps)).astype(np.float32),
+        "values": rng.standard_normal((b, steps + 1)).astype(np.float32),
+        "c_values": rng.standard_normal((b, steps + 1)).astype(np.float32),
+        "masks": np.concatenate([not_reset, np.ones((b, 1), np.int32)], 1).astype(np.float32),
+    }
+    before = (fa.attention_qkv_bwd.launches, ln.layer_norm_bwd.launches)
+    out = {}
+    for d in ("cpu", "cuda"):
+        learner = Learner(SafeVLAPolicy(m, device=d, generator=torch.Generator().manual_seed(3)), cfg)
+        ts, metrics = learner.update(learner.init(), batch, 3.0, 1)
+        out[d] = ({k: float(v) for k, v in metrics.items()},
+                  torch.cat([p.detach().cpu().flatten() for p in ts.tower_params.values()]))
+    torch.cuda.synchronize()
+    (m_cpu, w_cpu), (m_gpu, w_gpu) = out["cpu"], out["cuda"]
+    assert m_gpu["value"] > 0 and m_gpu["c_value"] > 0  # HL-Gauss cross-entropies
+    for k in m_cpu:
+        assert abs(m_gpu[k] - m_cpu[k]) <= 1e-4 * (1 + abs(m_cpu[k])), k
+    assert (w_gpu - w_cpu).abs().max().item() <= 1e-5
+    assert fa.attention_qkv_bwd.launches > before[0] and ln.layer_norm_bwd.launches > before[1]
+
+
+@pytest.mark.gpu
+def test_train_online_smoke_cli_on_the_card(cuda, tmp_path):
+    """`cli.train_online --smoke` on the card (its default device) with
+    FetchType and the discrete critic: the async pipeline runs to its total
+    steps (96 learned: one window past, 128) and writes its checkpoint."""
+    from safevla_tpu_torch.cli import train_online
+
+    ts = train_online.main(["--smoke", "train.task_type=FetchType", "model.critic_type=discrete",
+                            f"train.output_dir={tmp_path}"])
+    assert ts.step == 128
+    assert next(iter(ts.tower_params.values())).is_cuda
+    assert os.path.isfile(os.path.join(tmp_path, "SafeVLA-TPU-ObjectNavType", "step_128", "train_state.pt"))

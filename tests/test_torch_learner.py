@@ -75,7 +75,8 @@ def _port_result(mcfg, learner, pts, pm):
         sd = {k: v.detach().float().clone() for k, v in tower.state_dict().items()}
         towers.append(
             convert.import_tower_state_dict(
-                sd, num_tx_layers=mcfg.num_tx_layers, combiner_layers=mcfg.combiner_layers
+                sd, num_tx_layers=mcfg.num_tx_layers, combiner_layers=mcfg.combiner_layers,
+                critic_type=mcfg.critic_type,
             )
         )
     lag = pts.lagrange
