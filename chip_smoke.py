@@ -87,7 +87,20 @@ Phases (none catches its own failure; any failure exits non-zero):
      sites patched to their plain versions; `fit` for 2 epochs writing
      checkpoints, and EarlyFusionCnnTransformer.build_agent from the last
      one acting bit-equal to the in-memory policy;
-  12. one JSON line of kernels, then the last line
+  12. encoders: the secondary encoders at full width through the port's
+     entry points. preset=siglip_base (SigLIP ViT-B/16-256 at 256x256, the
+     SigLIP text tower 768 wide, 12 layers, 64 tokens, Config()'s 3
+     towers): InferenceAgent.act at 8 streams (64 timed acts, launches per
+     act asserted, device ms, one act against the kernels' plain versions
+     within REF_TOL), `cli.train_online.main(["--fake-env",
+     "preset=siglip_base", "train.async_pipeline=false", ...])` at 8
+     streams x 64 steps (a warm-up and one profiled window), its checkpoint
+     restored bit-equal to the trained policy and through `cli.evaluate.main`
+     (8 ObjectNav rows); vision_backbone=clip_rn50 (CLIP RN50 at 224x384,
+     2048 channels): the agent's acts as above and one BC step of
+     OfflineTrainer with one tower at B=16, T=50 (ms, device ms, idle share,
+     peak GiB); the kernels at the phase's new shapes are checked in 2;
+  13. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -206,6 +219,23 @@ ONLINE_STREAMS, ONLINE_STEPS, ONLINE_GROUPS = 8, 64, 2
 ONLINE_ASYNC_WINDOWS, ONLINE_SYNC_WINDOWS, ONLINE_EVAL_EPISODES = 3, 2, 8
 # the learning phase: tests/test_learning.py's ConstrainedBandit probe
 LEARN_UPDATES, LEARN_WARMUP, LEARN_STREAMS, LEARN_EP_STEPS, LEARN_COST_LIMIT = 130, 10, 4, 8, 2.0
+# the encoders phase: preset=siglip_base and vision_backbone=clip_rn50 at
+# full width through the port's entry points. The launches of one act at 3
+# towers, predicted from the code: the SigLIP ViT-B has DINOv2-S's 12 blocks
+# (12 attention forwards, 25 LayerNorms) and the text tower runs plain math
+# once per episode; the ResNet launches no kernel, so its acts run the
+# fusion's alone (3 towers x 2 packed layers, 3 towers x 3 layers x 2 norms)
+ENC_PER_ACT = {"siglip": {"attention_fwd": 18, "layer_norm_fwd": 43},
+               "clip": {"attention_fwd": 6, "layer_norm_fwd": 18}}
+ENC_WARMUP, ENC_ACTS = 4, 64
+ENC_ONLINE_WINDOWS = 2  # sync: a warm-up and one profiled window
+ENC_EVAL_EPISODES = 8
+# the two configurations at full width, as a user asks for them on any CLI:
+# SigLIP ViT-B/16-256 at 256x256, the SigLIP text tower (768 wide, 12 layers
+# and heads, 64 tokens) and Config()'s towers; Config() with CLIP's RN50 at
+# 224x384 (2048 channels into the towers' compressor)
+SIGLIP_OVERRIDES = ("preset=siglip_base",)
+CLIP_OVERRIDES = ("model.vision_backbone=clip_rn50", "model.vision_feature_dim=2048")
 
 
 def log(*args):
@@ -569,6 +599,21 @@ def ln_shapes():
 # (name, rows, D) of the wide LayerNorm designs (D above 1024; on no path at
 # Config()): the ViT serving shape's rows at ViT-g-like widths
 LN_WIDE_SHAPES = [(f"wide_d{d}", 2 * STREAMS * 448, d) for d in (1152, 2048, 4096)]
+
+
+# (name, rows, D, x dtype, out dtype) of the encoders phase's LayerNorm
+# forwards (preset=siglip_base): the SigLIP ViT-B's rows at D 768 on the
+# serving streams' 16 frames and the train_online rollout's 8 (its norms and
+# its final norm to f32), the fusion's rows at S=240 on the serving streams,
+# the rollout's groups of 4 and the update's chunks of 128
+LN_ENCODER_SHAPES = [
+    ("vit_siglip_serving", 2 * STREAMS * 256, 768, torch.bfloat16, torch.bfloat16),
+    ("vit_siglip_serving_final", 2 * STREAMS * 256, 768, torch.bfloat16, torch.float32),
+    ("vit_siglip_online", 2 * (ONLINE_STREAMS // ONLINE_GROUPS) * 256, 768, torch.bfloat16, torch.bfloat16),
+    ("fusion_siglip_serving", STREAMS * 240, 512, torch.bfloat16, torch.bfloat16),
+    ("fusion_siglip_online", (ONLINE_STREAMS // ONLINE_GROUPS) * 240, 512, torch.bfloat16, torch.bfloat16),
+    ("fusion_siglip_update", 128 * 240, 512, torch.bfloat16, torch.bfloat16),
+]
 
 
 # (name, rows, D) of the LayerNorm backward on the path: the update's fusion
@@ -1068,9 +1113,9 @@ def reseed_hosts(seed: int) -> None:
 def ln_launches_per_act(vit_depth, model):
     """LayerNorm forward launches of one act with the kernels on: the
     ViT's norm1 and norm2 per block and its final norm (both cameras in one
-    batch), the fusion layers' norm1 and norm2 per tower (the adapter norms
-    never take the kernel)."""
-    return 2 * vit_depth + 1 + model.num_towers * model.combiner_layers * 2
+    batch; none for a ResNet, `vit_depth` 0), the fusion layers' norm1 and
+    norm2 per tower (the adapter norms never take the kernel)."""
+    return (2 * vit_depth + 1 if vit_depth else 0) + model.num_towers * model.combiner_layers * 2
 
 
 def reference_trainer():
@@ -1847,7 +1892,8 @@ def offline_host_batch(cfg, b, t, seed):
 def offline_launches(cfg, b, t, vit_depth):
     """Kernel launches of one BC step and of one eval step at (b, t), from
     the config: the frozen ViT once over all 2*b*t frames (an attention and
-    norm1 / norm2 a block, and its final norm); per tower, per fusion chunk
+    norm1 / norm2 a block, and its final norm; a ResNet, `vit_depth` 0,
+    launches none); per tower, per fusion chunk
     (the largest divisor of b*t up to fusion_chunk), an attention forward of
     every packed layer (all but the CLS-row last one) and norm1 / norm2 of
     every layer, again in the checkpoint's recomputation, and one backward
@@ -1857,7 +1903,8 @@ def offline_launches(cfg, b, t, vit_depth):
     while n % chunk:
         chunk -= 1
     chunks = cfg.model.num_towers * (n // chunk)
-    packed, norms, vit_ln = cfg.model.combiner_layers - 1, 2 * cfg.model.combiner_layers, 2 * vit_depth + 1
+    packed, norms = cfg.model.combiner_layers - 1, 2 * cfg.model.combiner_layers
+    vit_ln = 2 * vit_depth + 1 if vit_depth else 0  # a ResNet (vit_depth 0) launches none
     step = {"attention_fwd": vit_depth + 2 * chunks * packed, "attention_bwd": chunks * packed,
             "layer_norm_fwd": vit_ln + 2 * chunks * norms, "layer_norm_bwd": chunks * norms}
     ev = {"attention_fwd": vit_depth + chunks * packed, "attention_bwd": 0,
@@ -2622,6 +2669,288 @@ def learning(device="cuda"):
     return res
 
 
+def encoder_depth(policy):
+    """The frozen image encoder's kernel-launching blocks: a ViT's depth, 0
+    for a ResNet (cuDNN convolutions, plain BatchNorm)."""
+    from safevla_tpu_torch.models.vit import DinoViT
+
+    return policy.vit.cfg.depth if isinstance(policy.vit, DinoViT) else 0
+
+
+def encoder_launches_per_act(policy, model):
+    """Attention and LayerNorm forward launches of one act: the frozen
+    encoder's and the towers' fusion layers'."""
+    depth = encoder_depth(policy)
+    return {"attention_fwd": depth + model.num_towers * (model.combiner_layers - 1), "attention_bwd": 0,
+            "layer_norm_fwd": ln_launches_per_act(depth, model), "layer_norm_bwd": 0}
+
+
+def encoder_serve(fa, ln, name, cfg, acts=ENC_ACTS, device="cuda"):
+    """InferenceAgent.act at STREAMS streams: ENC_WARMUP acts, then `acts`
+    timed (a reset of 4 streams with new instructions midway), each act's
+    launches against the count per act; the device ms of 4 more acts; one act
+    from the same state with the attention and LayerNorm sites patched to
+    their plain versions, its log-probabilities and values within REF_TOL
+    (the values within REF_TOL * (1 + |v|)) of the kernels'. Returns its
+    numbers."""
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ln_kernels(True)
+    t0 = time.perf_counter()
+    agent = InferenceAgent.build(cfg, None, num_streams=STREAMS, mode="greedy", seed=123, device=device)
+    sync()
+    build_s = time.perf_counter() - t0
+    per_act = encoder_launches_per_act(agent.policy, cfg.model)
+    h, w = cfg.model.image_size
+    total = ENC_WARMUP + acts
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, (total + 5, 2, STREAMS, h, w, 3), dtype=np.uint8)
+    oih = rng.integers(0, 3, (total + 5, STREAMS)).astype(np.int32)
+    agent.set_instructions(INSTRUCTIONS)
+    times = []
+    reset_kernel_counts(fa, ln)
+    for t in range(total):
+        not_reset = np.full(STREAMS, int(t > 0), np.int32)
+        if t == ENC_WARMUP + acts // 2:
+            not_reset[:4] = 0
+            agent.reset_streams(not_reset == 0)
+            agent.set_instructions(NEW_INSTRUCTIONS + [None] * (STREAMS - 4))
+        t1 = time.perf_counter()
+        actions = agent.act(frames[t, 0], frames[t, 1], not_reset, oih[t])  # ends in the action fetch
+        times.append(time.perf_counter() - t1)
+        assert actions.shape == (STREAMS,) and np.isfinite(agent.last_probs).all()
+        assert all(np.isfinite(v).all() for v in agent.last_values)
+    launches = kernel_counts(fa, ln)
+    want = {k: v * total for k, v in per_act.items()}
+    assert launches == want or not cuda, f"{name} act launches {launches}, expected {want}"
+    steady = np.asarray(times[ENC_WARMUP:]) * 1e3
+    res = {"backbone": cfg.model.vision_backbone, "text": cfg.model.text_backbone,
+           "image_hw": list(cfg.model.image_size), "streams": STREAMS, "acts": acts, "build_s": build_s,
+           "first_act_ms": times[0] * 1e3, "ms_per_act_mean": float(steady.mean()),
+           "ms_per_act_median": float(np.median(steady)), "ms_per_act_p90": float(np.percentile(steady, 90)),
+           "frames_per_s": STREAMS / (float(steady.mean()) / 1e3), "launches_per_act": per_act,
+           "launches": launches, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    if cuda:
+        device_ms = profile_acts(agent, frames[total:], oih[total:])["device_ms_per_act"] or None
+        res["device_ms_per_act"] = device_ms
+        res["device_idle_share"] = device_ms and 1.0 - device_ms / res["ms_per_act_mean"]
+
+    # one act from the same state, kernels on and plain
+    state = agent.state
+    imgs = torch.from_numpy(np.concatenate([frames[-1, 0], frames[-1, 1]])).to(agent.device)
+    ints = torch.from_numpy(np.stack([agent.prev_action, np.ones(STREAMS), oih[-1]]).astype(np.int32))
+    ints = ints.to(agent.device)
+    out = {}
+    for on in (True, False):
+        ln_kernels(on)
+        attention_kernels(on)
+        before = kernel_counts(fa, ln)
+        copy = dataclasses.replace(state, cache={k: v.clone() for k, v in state.cache.items()})
+        _, probs, v, cv, _ = agent._step(copy, agent.aug_params, imgs, ints)
+        sync()
+        out[on] = (torch.log(probs).float().cpu(), torch.stack([v, cv]).float().cpu(),
+                   diff_counts(kernel_counts(fa, ln), before))
+    ln_kernels(True)
+    attention_kernels(True)
+    (lp_on, v_on, n_on), (lp_off, v_off, n_off) = out[True], out[False]
+    res["plain_check"] = {"log_prob_abs_diff": (lp_on - lp_off).abs().max().item(),
+                          "value_abs_diff": (v_on - v_off).abs().max().item(),
+                          "value_rel_diff": ((v_on - v_off).abs() / (1 + v_off.abs())).max().item(),
+                          "launches_kernels": n_on, "launches_plain": n_off}
+    log(f"[encoders] {name} serving {json.dumps(res)}")
+    assert not any(n_off.values()), res["plain_check"]
+    assert not cuda or (n_on["attention_fwd"] > 0 and n_on["layer_norm_fwd"] > 0), res["plain_check"]
+    pc = res["plain_check"]
+    assert pc["log_prob_abs_diff"] <= REF_TOL and pc["value_rel_diff"] <= REF_TOL, pc
+    return res
+
+
+def encoder_train_online(fa, ln, cfg, overrides, out_root, device="cuda"):
+    """`cli.train_online.main(["--fake-env", *overrides, ...])` sync at
+    ONLINE_STREAMS x ONLINE_STEPS: a warm-up and one profiled window (wall,
+    env frames/s, launches asserted per window, the device's idle share of
+    the profiled window against the warm-up's wall); then the restored
+    checkpoint (`InferenceAgent.build`) acting bit-equal to the trained
+    policy, and `cli.evaluate.main` on it over ENC_EVAL_EPISODES ObjectNav
+    rows (sampled, at most EVAL_EPISODE_STEPS steps): episodes/s and its
+    own launches (the counts set to 0 just before it), the attention and
+    LayerNorm forwards asserted above 0 on the card."""
+    from safevla_tpu_torch.cli import evaluate as eval_cli
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+
+    cuda = torch.device(device).type == "cuda"
+    shutil.rmtree(out_root, ignore_errors=True)
+    windows = ENC_ONLINE_WINDOWS
+    total = windows * ONLINE_STREAMS * ONLINE_STEPS
+    argv = ["--fake-env", *overrides, "train.async_pipeline=false", f"train.output_dir={out_root}",
+            f"train.num_train_processes={ONLINE_STREAMS}", f"ppo.num_steps={ONLINE_STEPS}",
+            f"train.total_steps={total}"]
+    reseed_hosts(123)
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ts, tr, events, logs, prof, prof_end = online_run(fa, ln, argv, windows, device)
+    run_s = time.perf_counter() - t0
+    assert dataclasses.replace(tr.cfg.model) == cfg.model, "the CLI built another model than the phase's"
+    assert ts.step == total and [s for s, _ in logs] == [(k + 1) * ONLINE_STREAMS * ONLINE_STEPS
+                                                         for k in range(windows)]
+    for _, metrics in logs:
+        assert all(np.isfinite([v for v in metrics.values() if isinstance(v, float)])), metrics
+    keys = kernel_counts(fa, ln)
+    windows_out = online_windows(events, tr, tr.cfg, keys, False, cuda, prof_end)
+    launches = {k: sum(c[k] for _, _, c in events) for k in keys}
+    assert all(v > 0 for v in launches.values()) or not cuda, f"a kernel never launched: {launches}"
+    res = {"streams": ONLINE_STREAMS, "steps": ONLINE_STEPS, "run_s": run_s, "final_step": ts.step,
+           "windows": windows_out, "launches": launches,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    if prof is not None:
+        device_ms, rows = device_rows(prof)
+        res["device_ms_profiled_window"] = device_ms or None
+        res["device_idle_share"] = (1.0 - device_ms / (windows_out[0]["wall_s"] * 1e3)) if device_ms else None
+        res["top"] = [{"name": k[:80], "ms": ms, "calls": n} for k, ms, n in rows[:8]]
+    run_dir = os.path.join(out_root, tr.cfg.train.tag)
+    policy = tr.policy.requires_grad_(False)
+    del ts, tr, events, logs, prof
+
+    gc.collect()
+    equal = same_acts({"in_memory": InferenceAgent(cfg, policy, STREAMS, mode="greedy"),
+                       "checkpoint": InferenceAgent.build(cfg, run_dir, num_streams=STREAMS, device=device)}, cfg)
+    assert all(equal.values()), equal
+    del policy
+    bench = os.path.join(out_root, "objectnavtype_val.json")
+    with open(bench, "w") as f:
+        json.dump(eval_samples(ENC_EVAL_EPISODES, cfg.model.image_size), f)
+    from safevla_tpu_torch.evaluation import types as eval_types
+
+    cap = eval_types.MAX_EPISODE_LEN_PER_TASK.get("ObjectNavType")
+    eval_types.MAX_EPISODE_LEN_PER_TASK["ObjectNavType"] = EVAL_EPISODE_STEPS
+    gc.collect()
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    try:
+        results = eval_cli.main(["--ckpt", run_dir, "--benchmark", bench, "--fake-env", "--mode", "sample",
+                                 *overrides, f"eval.num_workers={STREAMS}", f"train.output_dir={out_root}"],
+                                device=device)
+    finally:
+        eval_types.MAX_EPISODE_LEN_PER_TASK["ObjectNavType"] = cap
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eval_launches = kernel_counts(fa, ln)
+    assert results["num_episodes"] == ENC_EVAL_EPISODES == len(results["safety_table"])
+    assert all(np.isfinite(v) for v in results["aggregate"].values())
+    assert not cuda or (eval_launches["attention_fwd"] > 0 and eval_launches["layer_norm_fwd"] > 0), eval_launches
+    shutil.rmtree(out_root, ignore_errors=True)
+    res["evaluate"] = {"episodes": ENC_EVAL_EPISODES, "wall_s": wall, "episodes_per_s": ENC_EVAL_EPISODES / wall,
+                       "bit_equal": equal, "launches": eval_launches}
+    for k in keys:
+        res["launches"][k] += eval_launches[k]
+    log(f"[encoders] siglip train_online {json.dumps(res)}")
+    return res
+
+
+def encoder_bc_step(fa, ln, cfg, device="cuda"):
+    """One BC step of OfflineTrainer with one tower at the offline phase's
+    batch (B=16, T=50: the frozen encoder on 1600 frames of both cameras in
+    one call): a warm-up step, one timed (host clock, the batch's
+    preparation included, ended by a synchronise), one profiled; each step's
+    launches against the config's count; ms a step, device ms, idle share,
+    the analytic TFLOP and peak GiB."""
+    from safevla_tpu_torch.algo.flops import bc_step_flops_estimate
+    from safevla_tpu_torch.preprocessing.augment import sample_augment_params
+    from safevla_tpu_torch.training.offline import OfflineTrainer
+
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, num_towers=1))
+    cuda = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    b, t = cfg.offline.per_device_batch_size, cfg.offline.sliding_window
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    trainer = OfflineTrainer(cfg, device=device)
+    state = trainer.init_state()
+    host = offline_host_batch(cfg, b, t, seed=cfg.train.seed)
+    aug = sample_augment_params(torch.Generator().manual_seed(1), version=cfg.train.augmentation_version)
+    n = b * t
+    want, _, chunk = offline_launches(cfg, b, t, encoder_depth(trainer.policy))
+
+    def step():
+        nonlocal state
+        state, metrics = trainer._bc_step(state, trainer.prepare_batch(host), aug)
+        return metrics
+
+    losses, counts = [], []
+    for i in range(3):
+        reset_kernel_counts(fa, ln)
+        sync()
+        t0 = time.perf_counter()
+        if i == 2 and cuda:
+            with device_profiler() as prof:
+                metrics = step()
+                sync()
+            device_ms, rows = device_rows(prof)
+        else:
+            metrics = step()
+            sync()
+        if i == 1:
+            ms = (time.perf_counter() - t0) * 1e3
+        counts.append(kernel_counts(fa, ln))
+        losses.append(float(metrics["bc_loss"]))
+    assert all(c == want for c in counts) or not cuda, f"BC step launches {counts}, expected {want}"
+    assert np.isfinite(losses).all(), losses
+    flop = bc_step_flops_estimate(cfg, b, t)
+    res = {"backbone": cfg.model.vision_backbone, "batch": b, "window": t, "frames_per_step": 2 * n,
+           "fusion_chunk": chunk, "ms_per_step": ms, "samples_per_s": n / (ms / 1e3),
+           "tflop_per_step": flop / 1e12, "launches_per_step": want, "bc_loss": losses,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if cuda else None}
+    if cuda:
+        res["device_ms_per_step"] = device_ms or None
+        res["device_idle_share"] = (1.0 - device_ms / ms) if device_ms else None
+        res["mfu_bf16_dense_device"] = (flop / (device_ms / 1e3) / PEAK_BF16_FLOPS) if device_ms else None
+        res["top"] = [{"name": k[:80], "ms": v, "calls": c} for k, v, c in rows[:8]]
+    log(f"[encoders] clip_rn50 BC step {json.dumps(res)}")
+    del trainer, state
+    return res, {k: sum(c[k] for c in counts) for k in want}
+
+
+def encoders(fa, ln, device="cuda"):
+    """The encoders phase: preset=siglip_base (serving, `cli.train_online`
+    and `cli.evaluate` on its checkpoint) and clip_rn50 (serving, one BC
+    step), each at full width. Returns its numbers and every kernel's
+    launches in the phase."""
+    from safevla_tpu_torch.config import Config, apply_overrides
+
+    cuda = torch.device(device).type == "cuda"
+    total = {k: 0 for k in kernel_counts(fa, ln)}
+    res = {}
+    for name, overrides in (("siglip", SIGLIP_OVERRIDES), ("clip", CLIP_OVERRIDES)):
+        cfg = apply_overrides(Config(), list(overrides))
+        serving = encoder_serve(fa, ln, name, cfg, device=device)
+        got = {k: serving["launches_per_act"][k] for k in ENC_PER_ACT[name]}
+        assert got == ENC_PER_ACT[name], f"{name}: {got} launches per act, predicted {ENC_PER_ACT[name]}"
+        if name == "siglip":
+            out_root = os.path.join("output", "chip_smoke", "encoders")
+            res["siglip_train_online"] = trained = encoder_train_online(fa, ln, cfg, list(overrides), out_root, device)
+            phase_launches = trained["launches"]
+        else:
+            res["clip_bc_step"], phase_launches = encoder_bc_step(fa, ln, cfg, device)
+        res[f"{name}_serving"] = serving
+        for k in total:
+            total[k] += serving["launches"][k] + phase_launches[k]
+    assert all(v > 0 for v in total.values()) or not cuda, f"encoders: a kernel never launched: {total}"
+    res["launches"] = total
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -2748,10 +3077,30 @@ def main() -> int:
     g_online = ONLINE_STREAMS // ONLINE_GROUPS
     shapes += [check_attention(fa, "vit_online", 2 * g_online, 448, 6, [433] * (2 * g_online), gen),
                check_attention(fa, "fusion_online", g_online, 208, 8, fusion_kl[:g_online], gen)]
+    # the encoders phase's shapes (preset=siglip_base; clip_rn50's acts and
+    # BC step take the fusion shapes checked above): the SigLIP ViT-B/16-256
+    # (256 tokens, no pad, 12 heads of 64) on both cameras of the serving
+    # streams and of the train_online rollout's groups of 4, and the fusion
+    # at S=240 (1 + 2 * 84 + 64 text tokens = 233, padded to 16) at serving,
+    # the rollout and the sync update's chunks of 128 samples, forward and
+    # backward
+    _, siglip_mask = InstructionTokenizer("siglip_base", 64).encode_batch(INSTRUCTIONS)
+    siglip_kl = [169 + int(n) for n in siglip_mask.sum(-1)]
+    shapes += [
+        check_attention(fa, "vit_siglip", 2 * STREAMS, 256, 12, [256] * (2 * STREAMS), gen),
+        check_attention(fa, "vit_siglip_online", 2 * g_online, 256, 12, [256] * (2 * g_online), gen),
+        check_attention(fa, "fusion_siglip", STREAMS, 240, 8, siglip_kl, gen),
+        check_attention(fa, "fusion_siglip_online", g_online, 240, 8, siglip_kl[:g_online], gen),
+        check_attention(fa, "fusion_siglip_update", 128, 240, 8, [siglip_kl[i % STREAMS] for i in range(128)], gen),
+    ]
+    bwd_shapes.append(check_attention_bwd(fa, "fusion_siglip_update", 128, 240, 8,
+                                          [siglip_kl[i % STREAMS] for i in range(128)], gen))
     ln_fwd = [check_layer_norm(ln, *shape, gen) for shape in ln_shapes()]
+    ln_fwd += [check_layer_norm(ln, *shape, gen) for shape in LN_ENCODER_SHAPES]
     ln_fwd += [check_layer_norm(ln, name, r, d, torch.bfloat16, torch.bfloat16, gen) for name, r, d in LN_WIDE_SHAPES]
     ln_fwd.append(check_layer_norm(ln, "wide_d4096_f32", 2 * STREAMS * 448, 4096, torch.float32, torch.float32, gen))
     ln_bwd = [check_layer_norm_bwd(ln, *shape, gen) for shape in LN_BWD_SHAPES + LN_WIDE_SHAPES]
+    ln_bwd.append(check_layer_norm_bwd(ln, "fusion_siglip_update", 128 * 240, 512, gen))
     ln_fwd += [check_layer_norm(ln, *shape, gen) for shape in LN_OFFLINE_SHAPES]
     ln_bwd += [check_layer_norm_bwd(ln, name, r, d, gen) for name, r, d, dt, _ in LN_OFFLINE_SHAPES
                if dt == torch.bfloat16 and name.startswith("fusion")]
@@ -2795,6 +3144,8 @@ def main() -> int:
     bc_fit = offline_fit(bc_trainer, bc_state)
     del bc_trainer, bc_state
     phase_done("offline")
+    enc = encoders(fa, ln)
+    phase_done("encoders")
 
     # 7. results
     window_launches = {
@@ -2834,7 +3185,8 @@ def main() -> int:
              "trainer_async": async_launches["attention_fwd"],
              "evaluate": evaluation["launches"]["attention_fwd"],
              "offline": bc["launches"]["attention_fwd"],
-             "train_online": online_path["launches"]["attention_fwd"]},
+             "train_online": online_path["launches"]["attention_fwd"],
+             "encoders": enc["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
@@ -2842,7 +3194,8 @@ def main() -> int:
             "safevla_tpu/ops/flash_attention.py:84", "safevla_tpu/ops/flash_attention.py::_bwd_kernel",
             {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"],
              "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"],
-             "train_online": online_path["launches"]["attention_bwd"]},
+             "train_online": online_path["launches"]["attention_bwd"],
+             "encoders": enc["launches"]["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -2855,7 +3208,8 @@ def main() -> int:
              "trainer_async": async_launches["layer_norm_fwd"],
              "evaluate": evaluation["launches"]["layer_norm_fwd"],
              "offline": bc["launches"]["layer_norm_fwd"],
-             "train_online": online_path["launches"]["layer_norm_fwd"]},
+             "train_online": online_path["launches"]["layer_norm_fwd"],
+             "encoders": enc["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -2865,7 +3219,8 @@ def main() -> int:
              "trainer": window_launches["layer_norm_bwd"],
              "trainer_async": async_launches["layer_norm_bwd"],
              "offline": bc["launches"]["layer_norm_bwd"],
-             "train_online": online_path["launches"]["layer_norm_bwd"]},
+             "train_online": online_path["launches"]["layer_norm_bwd"],
+             "encoders": enc["launches"]["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
@@ -2876,6 +3231,8 @@ def main() -> int:
         assert k["launches_offline"] > 0 and k["launches_train_online"] > 0, k["name"]
     for k in kernels[0], kernels[2]:  # and the forward kernels in the evaluate phase
         assert k["launches_evaluate"] > 0, k["name"]
+    for k in kernels:  # the encoders phase runs every kernel (its update and its BC step the backwards)
+        assert k["launches_encoders"] > 0, k["name"]
     online_frames = " / ".join(f"{p['windows'][-2]['env_frames_per_s']:.1f}"
                                for p in online_path["passes"].values())
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -2897,6 +3254,10 @@ def main() -> int:
         f"critics cuda vs cpu {json.dumps(critic_heads)}, learning final reward "
         f"{learned['sync']['final_reward']:.3f} / {learned['async']['final_reward']:.3f} (sync / async; "
         f"constrained optimum {learned['sync']['optima']['constrained_return']}), "
+        f"encoders: siglip_base {enc['siglip_serving']['ms_per_act_mean']:.1f} ms/act, "
+        f"{enc['siglip_train_online']['windows'][-1]['env_frames_per_s']:.1f} env frames/s, its checkpoint "
+        f"bit-equal {enc['siglip_train_online']['evaluate']['bit_equal']}; clip_rn50 "
+        f"{enc['clip_serving']['ms_per_act_mean']:.1f} ms/act, BC step {enc['clip_bc_step']['ms_per_step']:.1f} ms, "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

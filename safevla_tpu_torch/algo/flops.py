@@ -2,8 +2,9 @@
 (the share of the card's peak that chip_smoke.py reports).
 
 The port's copy of `safevla_tpu/algo/flops.py`, over the port's own
-`models/vit.py::VIT_CONFIGS`. Counts multiply-accumulates x2 for the policy
-at the production shapes. The fusion encoder is rematerialized
+encoder registries: `models/vit.py::VIT_CONFIGS` and, beyond JAX's copy,
+`models/resnet.py::RESNET_CONFIGS`, and no CLS token for a patch-only ViT.
+Counts multiply-accumulates x2 for the policy at the production shapes. The fusion encoder is rematerialized
 (torch.utils.checkpoint around each chunk), so its forward runs TWICE on the
 backward pass: epoch cost ~ 4 x fusion_fwd + 3 x decoder_fwd per tower. Heads/GAE/optimizer are noise at
 these scales and are ignored.
@@ -58,15 +59,43 @@ def update_flops_estimate(cfg, batch: int, seq: int) -> float:
     return cfg.ppo.update_repeats * per_epoch
 
 
+def _resnet_fwd_flops(rc, h: int, w: int) -> float:
+    """CLIP's ResNet forward on one h x w frame: 2 x the multiply-accumulates
+    of every convolution (the stem's three 3x3, each bottleneck's 1x1, 3x3,
+    1x1 and its shortcut's 1x1); pools and BatchNorm are noise."""
+    conv = lambda hw, cin, cout, k: 2.0 * hw[0] * hw[1] * cin * cout * k * k
+    hw = (-(-h // 2), -(-w // 2))  # the stride-2 stem conv
+    wd = rc.width
+    total = conv(hw, 3, wd // 2, 3) + conv(hw, wd // 2, wd // 2, 3) + conv(hw, wd // 2, wd, 3)
+    hw = (hw[0] // 2, hw[1] // 2)  # the stem's average pool
+    inplanes = wd
+    for stage, blocks in enumerate(rc.layers):
+        planes = wd * 2**stage
+        for i in range(blocks):
+            stride = 2 if (stage > 0 and i == 0) else 1
+            out = (hw[0] // stride, hw[1] // stride)
+            total += conv(hw, inplanes, planes, 1) + conv(hw, planes, planes, 3) + conv(out, planes, 4 * planes, 1)
+            if stride > 1 or inplanes != 4 * planes:
+                total += conv(out, inplanes, 4 * planes, 1)
+            hw, inplanes = out, 4 * planes
+    return total
+
+
 def _vit_fwd_flops(cfg, frames: int) -> float:
-    """Frozen ViT forward over `frames` camera frames (matmuls + attention +
-    patch embed). Needed because the compiled-step cost analysis can't be
-    trusted for this (see bc_step_flops_estimate)."""
+    """Frozen image encoder forward over `frames` camera frames: a ViT's
+    matmuls + attention + patch embed, or a ResNet's convolutions. Needed
+    because the compiled-step cost analysis can't be trusted for this (see
+    bc_step_flops_estimate)."""
+    from safevla_tpu_torch.models.image_encoders import REFERENCE_ENCODER_ALIASES
+    from safevla_tpu_torch.models.resnet import RESNET_CONFIGS
     from safevla_tpu_torch.models.vit import VIT_CONFIGS
 
-    vc = VIT_CONFIGS[cfg.model.vision_backbone]
+    name = REFERENCE_ENCODER_ALIASES.get(cfg.model.vision_backbone, cfg.model.vision_backbone)
+    if name in RESNET_CONFIGS:
+        return frames * _resnet_fwd_flops(RESNET_CONFIGS[name], *cfg.model.image_size)
+    vc = VIT_CONFIGS[name]
     gh, gw = vc.img_height // vc.patch_size, vc.img_width // vc.patch_size
-    n_tok = 1 + gh * gw
+    n_tok = int(vc.use_cls_token) + gh * gw
     d = vc.embed_dim
     ffn = int(vc.mlp_ratio * d)
     per_tok_layer = 2 * d * (3 * d) + 2 * d * d + 2 * d * ffn * 2  # qkv+proj+mlp

@@ -240,8 +240,7 @@ def _parse_value(raw: str, current: Any) -> Any:
 
 
 # Named experiment presets, selected with `preset=<name>` on any CLI;
-# explicit overrides still win. (The SigLIP encoders are not ported yet: the
-# policy raises on them.)
+# explicit overrides still win.
 PRESETS = {
     "dinov2_t5": [],  # the defaults
     "siglip_base": [

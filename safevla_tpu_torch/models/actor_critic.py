@@ -1,8 +1,12 @@
-"""SafeVLA policy: DINOv2 features -> fusion transformer -> causal decoder
--> actor / reward-critic / cost-critic.
+"""SafeVLA policy: frozen image features -> fusion transformer -> causal
+decoder -> actor / reward-critic / cost-critic.
 
-Counterpart of `safevla_tpu/models/actor_critic.py`: the serving path
-(`act_step`, `init_state`, `update_text`), the update's full-sequence
+Counterpart of `safevla_tpu/models/actor_critic.py`: the frozen encoders
+(`vision_backbone`: a DINOv2 / SigLIP ViT or the CLIP ResNet-50;
+`text_backbone`: T5 or the SigLIP text tower, kept under the name `t5` as
+the JAX package keeps its params key), the serving path
+(`act_step`, `init_state`, `update_text`), one tower's full-sequence
+forward (`PolicyTower.full_seq`), the update's full-sequence
 forward (`forward_seq`: fusion over the packed B*T samples in checkpointed
 chunks, then the decoder over the packed block-causal mask, then the heads)
 and its chunk-granular pieces for the async pipeline (`embed_time_range`:
@@ -44,7 +48,9 @@ from safevla_tpu_torch.models.fusion import FusionTransformer, TorchMultiheadAtt
 from safevla_tpu_torch.models.image_encoders import build_image_encoder
 from safevla_tpu_torch.models.llama_decoder import DecoderConfig, LlamaDecoder, RMSNorm
 from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
+from safevla_tpu_torch.models.resnet import FrozenBatchNorm
 from safevla_tpu_torch.models.t5 import T5Config, T5Encoder, T5LayerNorm
+from safevla_tpu_torch.models.text_towers import SigLIPTextEncoder, TextTowerConfig, TextAttention
 from safevla_tpu_torch.models.vit import DinoViT, LayerScale
 from safevla_tpu_torch.ops.hl_gauss import HLGauss
 from safevla_tpu_torch.ops.masks import incremental_episode_mask, packed_block_causal_mask
@@ -213,6 +219,31 @@ class PolicyTower(nn.Module):
             return logits, self.hl.from_logits(value_logits), value_logits
         return logits, self._critic(beliefs), None
 
+    def full_seq(
+        self,
+        dino_nav,  # (B, T, gh, gw, Dv)
+        dino_manip,  # (B, T, gh, gw, Dv) or None
+        text_hidden,  # (B, E, L, Dt) with text_idx, (B, T, L, Dt) or (B, L, Dt)
+        text_mask,  # the matching (..., L) bool
+        prev_actions,  # (B, T) int
+        not_reset,  # (B, T); 0 marks episode starts
+        object_in_hand,  # (B, T) int or None
+        time_step,  # (B, T) int in-episode step index
+        attn_mask,  # (B, 1, T, T) bool
+        text_idx=None,  # (B, T) int into the episode table
+    ):
+        """This tower's full-sequence forward in one piece (JAX
+        `PolicyTower.full_seq`): the fusion over all B*T steps, then
+        `decode_heads`, whose outputs it returns. `SafeVLAPolicy.forward_seq`
+        runs the same math with the fusion in checkpointed chunks."""
+        b, t = dino_nav.shape[:2]
+        flat = lambda x: None if x is None else x.reshape((b * t,) + x.shape[2:])
+        text_h, text_m = _flat_text(text_hidden, text_mask, text_idx, b, t)
+        fused = self.embed_obs(flat(dino_nav), flat(dino_manip), text_h, text_m)
+        return self.decode_heads(
+            fused.reshape(b, t, -1), prev_actions, not_reset, object_in_hand, time_step, attn_mask
+        )
+
     def embed_obs(self, dino_nav_flat, dino_manip_flat, text_h, text_m):
         """Per-step fusion embedding over a flat (N, ...) batch -> (N, D) f32.
         Per-step independent, so forward_seq runs it in checkpointed chunks."""
@@ -312,9 +343,16 @@ class SafeVLAPolicy(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.vit = build_image_encoder(cfg.vision_backbone)
+        # the frozen text tower: T5, or the SigLIP text transformer (its
+        # heads: the first of 12, 8, 6, 4, 2, 1 that divides the width, as
+        # JAX); the attribute stays `t5`, as JAX's params key
         if "siglip" in cfg.text_backbone.lower():
-            raise NotImplementedError("the SigLIP text tower is not ported yet")
-        self.t5 = T5Encoder(T5Config(d_model=cfg.text_embed_size))
+            heads = next(h for h in (12, 8, 6, 4, 2, 1) if cfg.text_embed_size % h == 0)
+            self.t5 = SigLIPTextEncoder(
+                TextTowerConfig(d_model=cfg.text_embed_size, num_heads=heads, max_tokens=cfg.text_max_tokens)
+            )
+        else:
+            self.t5 = T5Encoder(T5Config(d_model=cfg.text_embed_size))
         self.towers = nn.ModuleList(PolicyTower(cfg) for _ in range(cfg.num_towers))
         self.num_towers = cfg.num_towers
         self.init_params(generator or torch.Generator().manual_seed(0))
@@ -322,13 +360,16 @@ class SafeVLAPolicy(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.vit.pos_embed.device
+        # a weight every policy has, whatever its backbones
+        return self.towers[0].actor.linear.weight.device
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
         """Random weights from `generator`, with the JAX package's init
-        families (lecun-normal dense kernels, zero biases, unit norms,
-        xavier in_proj, orthogonal heads, small uniform embeddings)."""
+        families (lecun-normal dense and conv kernels, zero biases, unit
+        norms, xavier in_proj in the fusion, orthogonal heads, small uniform
+        embeddings; the SigLIP text tower's token and position embeddings
+        normal(0.02) and normal(0.01); BatchNorm the identity)."""
         g = generator
 
         def normal(p, std):
@@ -356,6 +397,11 @@ class SafeVLAPolicy(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, (RMSNorm, T5LayerNorm)):
                 m.weight.fill_(1.0)
+            elif isinstance(m, FrozenBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0)
         # module-specific families, after the generic pass
         for m in self.modules():
             if isinstance(m, LayerScale):
@@ -368,6 +414,12 @@ class SafeVLAPolicy(nn.Module):
                 if m.cfg.use_cls_token:
                     normal(m.cls_token, 0.02)
                 normal(m.pos_embed, 0.02)
+            elif isinstance(m, SigLIPTextEncoder):
+                normal(m.token_embedding.weight, 0.02)
+                normal(m.positional_embedding, 0.01)
+            elif isinstance(m, TextAttention):  # a Dense kernel in JAX: lecun normal
+                normal(m.in_proj_weight, m.in_proj_weight.shape[1] ** -0.5)
+                m.in_proj_bias.zero_()
             elif isinstance(m, VisualEncoder):
                 for name, p in m.named_parameters(recurse=False):
                     p.copy_(0.1 * torch.rand(p.shape, generator=g))

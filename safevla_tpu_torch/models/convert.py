@@ -21,7 +21,10 @@ IL policy into every tower at RL start.
 The frozen encoders: `import_dinov2` takes a torch-hub DINOv2 state dict to
 the port's ViT (its positional embedding interpolated once to the patch
 grid, bicubic with antialias), `import_t5` an HF T5EncoderModel state dict
-to the port's T5.
+to the port's T5, `import_siglip_trunk` an open_clip / timm SigLIP ViT trunk
+to the port's ViT (its 16x16 position grid as it is) and
+`import_siglip_text` an open_clip SigLIP TextTransformer to the port's text
+tower (`models/resnet.py::import_clip_resnet` takes CLIP's ResNet).
 """
 
 from __future__ import annotations
@@ -181,3 +184,38 @@ def import_t5(sd: Mapping[str, Any], num_layers: int = 6) -> Dict[str, torch.Ten
             keys.append(f"{pre}.0.SelfAttention.relative_attention_bias.weight")
     return {k: torch.as_tensor(sd[k]) for k in keys}
 
+
+
+def _strip_prefix(sd: Mapping[str, Any], prefix: str) -> Mapping[str, Any]:
+    """The keys under `prefix`, stripped of it, when any key has it; else sd."""
+    if any(k.startswith(prefix) for k in sd):
+        return {k[len(prefix) :]: v for k, v in sd.items() if k.startswith(prefix)}
+    return sd
+
+
+def import_siglip_trunk(sd: Mapping[str, Any], depth: int = 12) -> Dict[str, torch.Tensor]:
+    """open_clip / timm SigLIP ViT trunk state dict -> the port's DinoViT
+    state dict (a patch-only trunk: no CLS token, no LayerScale). Accepts
+    bare timm keys (`patch_embed.proj...`) or the open_clip checkpoint
+    (`visual.trunk.`-prefixed). SigLIP-256's `pos_embed` is already the
+    16x16 grid: no interpolation."""
+    sd = _strip_prefix(sd, "visual.trunk.")
+    keys = ["patch_embed.proj.weight", "patch_embed.proj.bias", "pos_embed", "norm.weight", "norm.bias"]
+    for i in range(depth):
+        for n in ("norm1", "norm2", "attn.qkv", "attn.proj", "mlp.fc1", "mlp.fc2"):
+            keys += [f"blocks.{i}.{n}.weight", f"blocks.{i}.{n}.bias"]
+    return {k: torch.as_tensor(sd[k]) for k in keys}
+
+
+def import_siglip_text(sd: Mapping[str, Any], num_layers: int = 12) -> Dict[str, torch.Tensor]:
+    """open_clip SigLIP text tower (TextTransformer) state dict -> the port's
+    SigLIPTextEncoder state dict, names kept. Accepts bare TextTransformer
+    keys (`token_embedding...`) or the open_clip checkpoint (`text.`-prefixed)."""
+    sd = _strip_prefix(sd, "text.")
+    keys = ["token_embedding.weight", "positional_embedding", "ln_final.weight", "ln_final.bias"]
+    for i in range(num_layers):
+        pre = f"transformer.resblocks.{i}"
+        keys += [f"{pre}.attn.in_proj_weight", f"{pre}.attn.in_proj_bias"]
+        for n in ("ln_1", "ln_2", "attn.out_proj", "mlp.c_fc", "mlp.c_proj"):
+            keys += [f"{pre}.{n}.weight", f"{pre}.{n}.bias"]
+    return {k: torch.as_tensor(sd[k]) for k in keys}

@@ -2,10 +2,16 @@
 
 `load_jax_params(policy, params_np)` takes the JAX `SafeVLAPolicy` tree
 `{"vit", "t5", "towers"}` as numpy arrays (e.g. `jax.device_get(params)`)
-and fills the port's modules:
+and fills the port's modules, each frozen subtree read by the mapper of the
+policy config's backbone (`vit`: a ViT or the CLIP ResNet; `t5`: T5 or the
+SigLIP text tower):
   * flax Dense kernels (in, out) -> torch Linear weights (out, in);
   * the ViT patch kernel (P, P, 3, D) -> the hub's conv weight (D, 3, P, P);
     the compressors' Dense kernels -> 1x1 conv weights (out, in, 1, 1);
+    flax Conv kernels (kH, kW, I, O) -> torch conv weights (O, I, kH, kW);
+  * flax FrozenBatchNorm scale / bias / mean / var -> BatchNorm's weight /
+    bias / running_mean / running_var;
+  * the text tower's packed qkv Dense (D, 3D) -> in_proj_weight (3D, D);
   * depth-stacked scan leaves (ViT `blocks`, fusion `layers` + `layer_last`,
     decoder `layers`) -> one module per layer;
   * tower-stacked leaves (leading axis = tower) -> the three towers;
@@ -26,7 +32,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
+from safevla_tpu_torch.config import ModelConfig
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+from safevla_tpu_torch.models.image_encoders import REFERENCE_ENCODER_ALIASES
+from safevla_tpu_torch.models.resnet import RESNET_CONFIGS
 
 
 def _params(tree: Mapping) -> Mapping:
@@ -99,6 +108,75 @@ def t5_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
+def text_tower_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX SigLIPTextEncoder tree -> open_clip TextTransformer names."""
+    p = _params(p)
+    sd = {
+        "token_embedding.weight": np.asarray(p["token_embed"]),
+        "positional_embedding": np.asarray(p["pos_embed"]),
+        **_ln("ln_final", p["final_ln"]),
+    }
+    i = 0
+    while f"block_{i}" in p:
+        b, pre = p[f"block_{i}"], f"transformer.resblocks.{i}"
+        sd[f"{pre}.attn.in_proj_weight"] = np.asarray(b["qkv"]["kernel"]).T
+        sd[f"{pre}.attn.in_proj_bias"] = np.asarray(b["qkv"]["bias"])
+        sd.update(_dense(f"{pre}.attn.out_proj", b["proj"]))
+        sd.update(_ln(f"{pre}.ln_1", b["ln1"]))
+        sd.update(_ln(f"{pre}.ln_2", b["ln2"]))
+        sd.update(_dense(f"{pre}.mlp.c_fc", b["fc1"]))
+        sd.update(_dense(f"{pre}.mlp.c_proj", b["fc2"]))
+        i += 1
+    return sd
+
+
+def _conv(prefix: str, leaf: Mapping) -> Dict[str, np.ndarray]:
+    return {f"{prefix}.weight": np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)}
+
+
+def _bn(prefix: str, leaf: Mapping) -> Dict[str, np.ndarray]:
+    names = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var"))
+    return {f"{prefix}.{t}": np.asarray(leaf[j]) for t, j in names}
+
+
+def resnet_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX ClipResNet tree -> CLIP `visual.` names (without the prefix)."""
+    p = _params(p)
+    sd: Dict[str, np.ndarray] = {}
+    for name, leaf in p.items():
+        if name.startswith("conv"):
+            sd.update(_conv(name, leaf))
+        elif name.startswith("bn"):
+            sd.update(_bn(name, leaf))
+        else:  # layer{s}_{i}: one bottleneck
+            pre = name.replace("_", ".")
+            for sub, sl in leaf.items():
+                if sub == "downsample_conv":
+                    sd.update(_conv(f"{pre}.downsample.0", sl))
+                elif sub == "downsample_bn":
+                    sd.update(_bn(f"{pre}.downsample.1", sl))
+                elif sub.startswith("conv"):
+                    sd.update(_conv(f"{pre}.{sub}", sl))
+                else:
+                    sd.update(_bn(f"{pre}.{sub}", sl))
+    return sd
+
+
+def nontx_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
+    """The JAX NonTxVisualEncoder tree -> the port's names (the channel
+    Denses as 1x1 conv weights (out, in, 1, 1))."""
+    p = _params(p)
+    sd: Dict[str, np.ndarray] = {}
+    for name in ("text_adapter", "text_adapter_for_combiner", "final_adapter"):
+        sd.update(_dense(f"{name}.0", p[name]["fc"]))
+        sd.update(_ln(f"{name}.1", p[name]["ln"]))
+    for jname, pre in (("comp0", "visual_compressor.0"), ("comp1", "visual_compressor.2"),
+                       ("comb0", "image_text_combiner.0"), ("comb1", "image_text_combiner.2")):
+        sd[f"{pre}.weight"] = np.asarray(p[jname]["kernel"]).T[:, :, None, None]
+        sd[f"{pre}.bias"] = np.asarray(p[jname]["bias"])
+    return sd
+
+
 def _fusion_layer(pre: str, f: Mapping) -> Dict[str, np.ndarray]:
     sa = f["self_attn"]
     return {
@@ -162,13 +240,17 @@ def tower_state_dict(p: Mapping) -> Dict[str, np.ndarray]:
     return sd
 
 
-def policy_state_dict(params_np: Mapping, num_towers: int) -> Dict[str, torch.Tensor]:
-    """The whole JAX policy tree -> the port's `SafeVLAPolicy` state dict."""
+def policy_state_dict(params_np: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The whole JAX policy tree -> the port's `SafeVLAPolicy` state dict,
+    the frozen subtrees read by the mappers of `cfg`'s backbones."""
+    vision = REFERENCE_ENCODER_ALIASES.get(cfg.vision_backbone, cfg.vision_backbone)
+    vit_map = resnet_state_dict if vision in RESNET_CONFIGS else vit_state_dict
+    text_map = text_tower_state_dict if "siglip" in cfg.text_backbone.lower() else t5_state_dict
     sd: Dict[str, np.ndarray] = {}
-    sd.update({f"vit.{k}": v for k, v in vit_state_dict(params_np["vit"]).items()})
-    sd.update({f"t5.{k}": v for k, v in t5_state_dict(params_np["t5"]).items()})
+    sd.update({f"vit.{k}": v for k, v in vit_map(params_np["vit"]).items()})
+    sd.update({f"t5.{k}": v for k, v in text_map(params_np["t5"]).items()})
     towers = _params(params_np["towers"])
-    for t in range(num_towers):
+    for t in range(cfg.num_towers):
         one = tower_state_dict(_unstack(towers, t))
         sd.update({f"towers.{t}.{k}": v for k, v in one.items()})
     return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)) for k, v in sd.items()}
@@ -178,5 +260,5 @@ def policy_state_dict(params_np: Mapping, num_towers: int) -> Dict[str, torch.Te
 def load_jax_params(policy: SafeVLAPolicy, params_np: Mapping) -> SafeVLAPolicy:
     """Fill `policy` in place from the JAX parameter tree (strict: every
     parameter of the port must be covered, and nothing else given)."""
-    policy.load_state_dict(policy_state_dict(params_np, policy.num_towers), strict=True)
+    policy.load_state_dict(policy_state_dict(params_np, policy.cfg), strict=True)
     return policy

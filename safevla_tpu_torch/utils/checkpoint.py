@@ -128,13 +128,20 @@ def latest_checkpoint(path: str) -> Optional[str]:
     return os.path.join(path, max(steps)[1])
 
 
-def _copy_frozen(saved: Mapping, live: Mapping) -> None:
-    """Copy the saved frozen encoders into the live state dicts, in place."""
-    for k, sd in saved.items():
-        if set(sd) != set(live[k]):
-            raise ValueError(f"checkpoint subtree {k!r} does not match the current model")
-        for n, t in sd.items():
-            live[k][n].copy_(t)
+def _check_matches(saved: Mapping, live: Mapping, what: str) -> None:
+    """Raise ValueError unless `saved` has exactly `live`'s names and shapes
+    (e.g. a checkpoint of another backbone: a SigLIP or ResNet encoder has
+    other names than a DINOv2 ViT, a ResNet's towers other widths)."""
+    names = set(saved) ^ set(live)
+    if names:
+        raise ValueError(f"checkpoint {what} does not match the current model: names differ, e.g. {sorted(names)[:5]}")
+    shapes = [n for n in live if tuple(saved[n].shape) != tuple(live[n].shape)]
+    if shapes:
+        n = shapes[0]
+        raise ValueError(
+            f"checkpoint {what} does not match the current model: {n} has shape "
+            f"{tuple(saved[n].shape)}, the model {tuple(live[n].shape)}"
+        )
 
 
 @torch.no_grad()
@@ -155,12 +162,16 @@ def restore_checkpoint(ckpt_dir: str, target):
             f"not a {type(target).__name__}"
         )
     params = target.tower_params
-    if set(payload["tower_params"]) != set(params):
-        missing = sorted(set(params) ^ set(payload["tower_params"]))[:5]
-        raise ValueError(f"checkpoint tower parameters differ from the model's, e.g. {missing}")
+    frozen = payload.get("frozen_params", {})
+    # every subtree checked before anything is copied
+    _check_matches(payload["tower_params"], params, "tower parameters")
+    for k, sd in frozen.items():
+        _check_matches(sd, target.frozen_params[k], f"subtree {k!r}")
     for name, p in params.items():
         p.copy_(payload["tower_params"][name])
-    _copy_frozen(payload.get("frozen_params", {}), target.frozen_params)
+    for k, sd in frozen.items():
+        for n, t in sd.items():
+            target.frozen_params[k][n].copy_(t)
     adam = payload["adam"]
     for dst, src in zip(target.opt_state.mu + target.opt_state.nu, adam["mu"] + adam["nu"]):
         dst.copy_(src)
@@ -225,14 +236,11 @@ def restore_policy_params(ckpt_dir: str, policy: nn.Module) -> nn.Module:
             f"found {keys}. Torch-format reference files go through models/convert."
         )
     modules = {"towers": policy.towers, "vit": policy.vit, "t5": policy.t5}
+    # every subtree checked before any is loaded (a checkpoint of another
+    # backbone raises here, the policy untouched)
     for k, sd in picked.items():
-        want = modules[k].state_dict()
-        if set(sd) != set(want) or any(tuple(sd[n].shape) != tuple(t.shape) for n, t in want.items()):
-            raise ValueError(
-                f"checkpoint subtree {k!r} does not match the current model "
-                f"({len(sd)} vs {len(want)} tensors) — param layout drift; "
-                "re-import or migrate the checkpoint"
-            )
+        _check_matches(sd, modules[k].state_dict(), f"subtree {k!r}")
+    for k, sd in picked.items():
         modules[k].load_state_dict(sd)
     return policy
 

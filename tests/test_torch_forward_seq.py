@@ -7,7 +7,10 @@ checkpointing run. Outputs (logits, values, cost values, stop-gradient
 values) at atol 1e-4 for each layout; for the update's layout also the
 gradient of a scalar of the outputs with respect to every tower weight,
 taken through the checkpointed chunks and the attention's autograd
-Function, at atol 1e-4."""
+Function, at atol 1e-4. And one tower's `full_seq` (the single-tower
+forward in one piece) in each layout against JAX's."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -121,3 +124,32 @@ def test_forward_seq_grads_match_jax(carried, jax_table):
             np.testing.assert_allclose(
                 np.asarray(a), w, atol=1e-4, err_msg=f"tower {t} {jax.tree_util.keystr(path)}"
             )
+
+
+@pytest.mark.parametrize("text_layout", ["table", "per_step", "per_stream"])
+def test_tower_full_seq_matches_jax(carried, text_layout):
+    """One tower's full-sequence forward in one piece (`PolicyTower.full_seq`)
+    against JAX's `tower.apply(..., method=PolicyTower.full_seq)`, tower 1 (a
+    critic tower, so not the one `forward_seq`'s logits come from), in each
+    of the three text layouts: the (logits, values, value logits, stop-gradient
+    values) tuple at atol 1e-4."""
+    from safevla_tpu.ops.masks import packed_block_causal_mask as jax_mask
+    from safevla_tpu_torch.ops.masks import packed_block_causal_mask
+
+    mcfg, jpol, params, policy = carried
+    batch = tiny.rollout_batch(mcfg, seed=6, text_layout=text_layout)
+    text_idx = batch.get("text_idx")
+    lead = [batch[k] for k in KEYS[:-1]]  # traj_idx goes in as its mask
+    tower = jax.tree.map(lambda x: jnp.asarray(x)[1], params["towers"])
+    want = jax.jit(functools.partial(jpol.tower.apply, method=jac.PolicyTower.full_seq))(
+        tower, *map(jnp.asarray, lead), jax_mask(jnp.asarray(batch["traj_idx"])),
+        None if text_idx is None else jnp.asarray(text_idx),
+    )
+    with torch.no_grad():
+        got = policy.towers[1].full_seq(
+            *map(torch.from_numpy, lead), packed_block_causal_mask(torch.from_numpy(batch["traj_idx"])),
+            None if text_idx is None else torch.from_numpy(text_idx),
+        )
+    assert got[2] is None and want[2] is None  # the linear critic: no value logits
+    for i in (0, 1, 3):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), atol=1e-4, err_msg=str(i))

@@ -15,6 +15,7 @@ outputs reach ~6, so they are held to one bf16 ulp of the plain version
 (2^-7 |want| + 1e-3), f32 to 1e-5.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 from safevla_tpu_torch.ops import flash_attention as fa
 
 FUSION_KEY_LENS = [177, 190, 201, 170, 185, 199, 172, 201]
+SIGLIP_FUSION_KEY_LENS = [169 + n for n in (7, 12, 64, 5, 30, 64, 2, 9)]
 CASES = [
     # (B, S, H, key_lens, dtype, tol): the ViT and fusion shapes of the
     # serving path, f32 at the fusion shape, and no key_lens at all
@@ -31,6 +33,12 @@ CASES = [
     (8, 208, 8, FUSION_KEY_LENS, torch.bfloat16, 2e-2),
     (8, 208, 8, FUSION_KEY_LENS, torch.float32, 1e-4),
     (5, 64, 4, None, torch.bfloat16, 2e-2),
+    # preset=siglip_base: the SigLIP ViT-B/16-256 (256 tokens, no pad: no
+    # key_lens) on both cameras of 8 streams, and the fusion at S=240 (1 +
+    # 2 * 84 + 64 text tokens = 233, padded to 16)
+    (16, 256, 12, None, torch.bfloat16, 2e-2),
+    (8, 240, 8, SIGLIP_FUSION_KEY_LENS, torch.bfloat16, 2e-2),
+    (8, 240, 8, SIGLIP_FUSION_KEY_LENS, torch.float32, 1e-4),
 ]
 
 
@@ -270,6 +278,8 @@ BWD_CASES = [
     (128, 208, 8, UPDATE_KEY_LENS, torch.bfloat16, 1e-2),
     (128, 208, 8, UPDATE_KEY_LENS, torch.float32, 1e-4),
     (5, 64, 4, None, torch.bfloat16, 1e-2),
+    # the siglip_base update's fusion chunk at S=240
+    (128, 240, 8, SIGLIP_FUSION_KEY_LENS * 16, torch.bfloat16, 1e-2),
 ]
 
 
@@ -324,6 +334,11 @@ LN_CASES = [
     (128, 512, torch.bfloat16, torch.bfloat16),
     (40, 512, torch.float32, torch.float32),
     (13, 1024, torch.float32, torch.bfloat16),
+    # preset=siglip_base: the ViT-B rows of 16 frames x 256 tokens at D 768
+    # (bf16 out, the final norm's f32 out) and the fusion's 8 x 240 rows
+    (16 * 256, 768, torch.bfloat16, torch.bfloat16),
+    (16 * 256, 768, torch.bfloat16, torch.float32),
+    (8 * 240, 512, torch.bfloat16, torch.bfloat16),
 ]
 # the edges of the tiling: one row, a ragged block (8 rows a block in the
 # one-pass forward, a row a warp; 16 bf16 rows in its loop, a row a
@@ -675,3 +690,106 @@ def test_train_online_smoke_cli_on_the_card(cuda, tmp_path):
     assert ts.step == 128
     assert next(iter(ts.tower_params.values())).is_cuda
     assert os.path.isfile(os.path.join(tmp_path, "SafeVLA-TPU-ObjectNavType", "step_128", "train_state.pt"))
+
+
+def _secondary_config(backbone):
+    """A small f32 policy with a secondary encoder: the SigLIP ViT (patch 14
+    on 28x42, no CLS) and text tower, or CLIP's ResNet at width 8 on 64x96."""
+    from safevla_tpu_torch.config import ModelConfig
+
+    m = ModelConfig(
+        hidden_size=64, num_tx_layers=2, num_tx_heads=4, goal_dims=64, text_embed_size=64,
+        combiner_layers=1, combiner_heads=4, combiner_ffn_dim=128, dino_compressor_hidden_out_dims=(64, 64),
+        vision_feature_dim=32, image_size=(28, 42), max_steps=16, text_max_tokens=8, compute_dtype="float32",
+    )
+    if backbone == "siglip":
+        return dataclasses.replace(m, vision_backbone="gpu_test_siglip", text_backbone="siglip_base")
+    return dataclasses.replace(m, vision_backbone="gpu_test_clip", vision_feature_dim=256, image_size=(64, 96))
+
+
+def _register_secondary(monkeypatch):
+    import functools
+
+    from safevla_tpu_torch.models import actor_critic, resnet, t5, text_towers, vit
+
+    monkeypatch.setitem(vit.VIT_CONFIGS, "gpu_test_siglip", vit.DinoViTConfig(
+        embed_dim=32, depth=1, num_heads=2, img_height=28, img_width=42, patch_size=14, layerscale=False,
+        use_cls_token=False, dtype=torch.float32))
+    monkeypatch.setitem(resnet.RESNET_CONFIGS, "gpu_test_clip", resnet.ClipResNetConfig(
+        width=8, layers=(1, 1, 1, 1), dtype=torch.float32))
+    monkeypatch.setattr(actor_critic, "T5Config", functools.partial(t5.T5Config, dtype=torch.float32))
+    monkeypatch.setattr(actor_critic, "TextTowerConfig", functools.partial(text_towers.TextTowerConfig,
+                                                                           dtype=torch.float32))
+    # f32 convolutions in f32, not TF32 (cuDNN's default)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backbone", ["siglip", "clip"])
+def test_secondary_encoder_policies_act_on_the_card_as_on_the_cpu(cuda, backbone, monkeypatch):
+    """A small f32 policy with the SigLIP encoders, or with CLIP's ResNet,
+    acts on the card as on the CPU (the serving test's 1e-4), its
+    instructions holding ids past the text tower's 32000 rows."""
+    from safevla_tpu_torch.config import Config, TrainConfig
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+
+    _register_secondary(monkeypatch)
+    m = _secondary_config(backbone)
+    cfg = Config(m, TrainConfig(max_steps=16))
+    agents = {d: InferenceAgent.build(cfg, None, num_streams=2, test_augmentation=False, device=d)
+              for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    for a in agents.values():
+        a.set_instructions(["find the green stove", "go to the bed on the right"])  # ids >= 32000
+    h, w = m.image_size
+    for t in range(3):
+        nav, manip = rng.integers(0, 256, (2, 2, h, w, 3), dtype=np.uint8)
+        out = {}
+        for d, a in agents.items():
+            a.act(nav, manip, np.full(2, int(t > 0)), np.zeros(2, np.int32))
+            out[d] = np.concatenate([np.log(a.last_probs).ravel(), *a.last_values])
+        np.testing.assert_allclose(out["cuda"], out["cpu"], atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_text_tower_clamps_ids_past_its_vocabulary_on_the_card(cuda):
+    """Ids at and past the vocabulary read its last row on the card too (an
+    nn.Embedding lookup would trip a device-side assert)."""
+    from safevla_tpu_torch.models.text_towers import SigLIPTextEncoder, TextTowerConfig
+
+    enc = SigLIPTextEncoder(TextTowerConfig(vocab_size=100, d_model=64, num_layers=2, num_heads=4, max_tokens=8,
+                                            dtype=torch.float32))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():  # every weight set (the module leaves in_proj_weight to its owner's init)
+        for p in enc.parameters():
+            p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+    tokens = torch.tensor([[3, 99, 100, 32127, 1, 0, 0, 0], [5, 150, 7, 1, 0, 0, 0, 0]])
+    mask = tokens != 0
+    with torch.no_grad():
+        want = enc(tokens.clamp(max=99), mask)
+        got = enc.cuda()(tokens.cuda(), mask.cuda())
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)  # f32, card against CPU (this file's 1e-4)
+
+
+@pytest.mark.gpu
+def test_frozen_batch_norm_rounds_once_on_the_card(cuda):
+    """CLIP's BatchNorm on a bf16 channels-last activation: the f32 scale
+    and shift stored straight into bf16 equal the f32 result cast
+    afterwards, bit for bit, and keep the layout."""
+    from safevla_tpu_torch.models.resnet import FrozenBatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    bn = FrozenBatchNorm(256)
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.copy_(torch.randn(256, generator=gen))
+        bn.running_var.copy_(torch.rand(256, generator=gen) + 0.5)
+    bn = bn.to("cuda").requires_grad_(False)
+    x = torch.randn(4, 256, 14, 24, generator=gen).to("cuda", torch.bfloat16)
+    x = x.to(memory_format=torch.channels_last)
+    y = bn(x)
+    scale, shift = bn._scale_shift()
+    assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, torch.addcmul(shift, x, scale).to(torch.bfloat16))
