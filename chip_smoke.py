@@ -50,9 +50,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      window in 2 overlap groups, stage 1, LayerNorm kernels on: one warm-up,
      one timed and one profiled window, each window's launches of every
      kernel against the count the config implies; then the same at the
-     config's default, the async pipeline (`[trainer_async]`: 5 windows,
-     one fill, one warm-up, two timed, one profiled, then the drain; the
-     update's programs on a CUDA stream of their own); the sync trainer's
+     config's default, the async pipeline (`[trainer_async]`: 4 windows,
+     one fill, one timed (the first updated window), one profiled, then the
+     drain; the update's programs on a CUDA stream of their own); the sync trainer's
      final checkpoint kept for:
   7. evaluate: InferenceAgent.build from that checkpoint and from a
      reference-container torch file of its towers, each acting bit-equal to
@@ -100,7 +100,33 @@ Phases (none catches its own failure; any failure exits non-zero):
      2048 channels): the agent's acts as above and one BC step of
      OfflineTrainer with one tower at B=16, T=50 (ms, device ms, idle share,
      peak GiB); the kernels at the phase's new shapes are checked in 2;
-  13. one JSON line of kernels, then the last line
+  13. dp: data parallel on torch.distributed through the port's entry
+     points. 2 ranks in spawned processes, sharing cuda:0 through gloo
+     (NCCL refuses two ranks on one GPU): Learner.update of the small f32
+     policy on a 4 x 8 window split 2 + 2 against the 1-rank update at the
+     reference update's tolerances; at Config() width, phase 5's synthetic
+     32 x 128 window split 16 + 16, stage 1, Learner.update (4 epochs) and
+     Learner.chunked_update (1 epoch) against the 1-rank ones from the same
+     weights (the weight change within a relative L2 of DP_DELTA_REL_TOL,
+     the metrics within DP_METRIC_RTOL), each rank's launches against the
+     count the config implies for its 16 streams; the gradient all-reduce's
+     bytes and ms (2 ranks time-sharing one card through gloo: no scaling
+     figure); `cli.train_online.main(..., "mesh.dp=2")` on both ranks at
+     phase 8's cut, its streams adding a per-stream cost (`with_costs`):
+     async FetchType + discrete (a fill, an updated window, the drain),
+     sync PickupType + mlp (1 window): the step counts the global batch,
+     rank 0 alone writes the checkpoint and logs, both ranks'
+     mean_episode_cost (> 0 once episodes end) and weights bit-equal, each
+     rank's launches against the config's count.
+     Then the same updates through NCCL at world size 1 on the card (and
+     on 2 ranks where the machine shows 2 cards; which of the two ran is
+     printed). The ranks end bit-equal; a rank that fails or hangs past
+     DP_RANK_TIMEOUT_S fails the phase. The ranks run beside phase 10's
+     learning probe (its two processes run a tiny model, no kernel) and are
+     joined after it; the 1-rank update they are held to is phase 5's
+     first update (the same seed weights, window and stage); the small
+     update, the one-epoch chunked update and the NCCL run follow phase 12;
+  14. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -112,10 +138,12 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import json
 import os
 import random
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -172,9 +200,11 @@ ROTATION_BYTES = 128 * 2**20
 # features are stored in bf16, so within one bf16 rounding of them)
 REF_LN_TOL = 1e-4
 TRAINER_WINDOWS = 3  # one warm-up, one timed, one profiled
-# one fill (no update yet), one warm-up, one timed, one profiled; then the drain (two timed
-# windows until the smoke took on the train_online and learning phases)
-ASYNC_WINDOWS = 4
+# one fill (no update yet), one timed (the first updated window: the update's
+# shapes are warm from the training phase), one profiled; then the drain (a
+# warm-up window and two timed ones until the smoke took on the train_online,
+# learning and dp phases)
+ASYNC_WINDOWS = 3
 # the async trainer of the small f32 policy against the hand loop on the
 # default stream (f32 sums in other orders; an update moves a weight by
 # ~1e-4 at most)
@@ -236,6 +266,24 @@ ENC_EVAL_EPISODES = 8
 # 224x384 (2048 channels into the towers' compressor)
 SIGLIP_OVERRIDES = ("preset=siglip_base",)
 CLIP_OVERRIDES = ("model.vision_backbone=clip_rn50", "model.vision_feature_dim=2048")
+# the dp phase: DP_RANKS processes on the one card through gloo (NCCL
+# refuses two ranks on one GPU), each with its rows of every window; then the
+# update through NCCL at world size 1. The full-width bf16 update on 16 + 16
+# streams against the 1-rank update on 32: the decoder's matmuls run over
+# half the rows (other tilings, other bf16 roundings) and the gradients are
+# summed in another order, so the weight change (at most 4 Adam steps of
+# 2e-5 a weight) is held by its relative L2 and the metrics as the chunked
+# update's; the small f32 policy at the reference update's tolerances
+DP_RANKS = 2
+DP_DELTA_REL_TOL = 2e-2
+DP_METRIC_RTOL = CHUNKED_METRIC_RTOL
+DP_RANK_TIMEOUT_S = 420  # a spawned rank group; a hung collective ends the run
+# depth cut to keep the phase near 2 minutes: the chunked update runs one
+# epoch (its ~200 programs an epoch are host-bound: ~8 s each at full
+# width), the CLI an async fill + one updated window + the drain, and one
+# sync window
+DP_CHUNKED_REPEATS = 1
+DP_ONLINE_ASYNC_WINDOWS, DP_ONLINE_SYNC_WINDOWS = 2, 1
 
 
 def log(*args):
@@ -306,18 +354,24 @@ def device_rows(prof):
     return sum(r[1] for r in rows), rows
 
 
-def device_ms_per_call(fn, iters: int = 20) -> float:
+def device_ms_per_call(fn, iters: int = 20, tries: int = 3) -> float:
     """Device time of one fn() (all its kernels), from the profiler: where a
     kernel is shorter than its wrapper's host cost, back-to-back CUDA-event
-    timing (`cuda_ms`) measures the host; this measures the card. None when
-    the profiler saw no device time."""
+    timing (`cuda_ms`) measures the host; this measures the card. A
+    profiled run in which the profiler saw no device time (it misses a
+    whole run now and then, as in `kernels_per_call`) is taken again, up to
+    `tries` times; None if it never saw any."""
     fn()
     torch.cuda.synchronize()
-    with device_profiler() as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return device_rows(prof)[0] / iters or None
+    for _ in range(tries):
+        with device_profiler() as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms = device_rows(prof)[0]
+        if ms:
+            return ms / iters
+    return None
 
 
 def kernels_per_call(fn, calls: int = 4, tries: int = 3) -> float:
@@ -1352,9 +1406,11 @@ def train(fa):
     """Learner.update at the full default width on a synthetic rollout
     window of the sync trainer's shape: a warm-up with the LayerNorm kernels
     on, then timed updates with them off and on in turns (TRAIN_FLAGS);
-    returns its numbers and the warm-up's (metrics, new tower weights), the
-    update from the seed's weights that `chunked_check` holds the chunked
-    update to."""
+    returns its numbers and the warm-up's (metrics, new tower weights,
+    initial tower weights on the CPU, the window's encoded instructions and
+    mask on the CPU), the update from the seed's weights that
+    `chunked_check` holds the chunked update to, and the dp phase its ranks'
+    update."""
     from safevla_tpu_torch.algo.learner import Learner
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
@@ -1395,7 +1451,8 @@ def train(fa):
         if i == 0:
             first_ms = dt * 1e3
             first = ({k: float(v) for k, v in metrics.items()},
-                     [p.detach().float().clone() for p in ts.tower_params.values()])
+                     [p.detach().float().clone() for p in ts.tower_params.values()],
+                     [w.float().cpu() for w in weights0], (text.cpu(), mask.cpu()))
         else:
             times[flag].append(dt * 1e3)
         got = {k: v - before[k] for k, v in kernel_counts(fa, ln).items()}
@@ -1733,7 +1790,7 @@ def chunked_check(fa, reference):
     launches = kernel_counts(fa, ln)
     want = chunked_update_launches(cfg, learner, b, t)
     assert launches == want, f"chunked update launches {launches}, expected {want}"
-    (m_u, w_u), m_c = reference, {k: float(v) for k, v in metrics.items()}
+    (m_u, w_u, *_), m_c = reference, {k: float(v) for k, v in metrics.items()}
     weight_diff = max((a - p.detach().float()).abs().max().item() for a, p in zip(w_u, ts.tower_params.values()))
     metric_rel = {k: abs(m_c[k] - m_u[k]) / max(abs(m_u[k]), 1e-12) for k in m_u}
     res = {"max_weight_abs_diff": weight_diff, "metric_rel_diff": metric_rel, "metric_rtol": CHUNKED_METRIC_RTOL,
@@ -1748,8 +1805,8 @@ def chunked_check(fa, reference):
 def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
     """OnlineTrainer(Config()) with its default async pipeline at full width
     (the sync trainer phase's 32 streams x 128 steps, stage 1), LayerNorm
-    kernels on, over `windows` windows: 1 fill (no update yet), 1 warm-up,
-    the timed ones, 1 profiled, then the drain of the last update. A window
+    kernels on, over `windows` windows: 1 fill (no update yet), the timed
+    ones, 1 profiled, then the drain of the last update. A window
     runs from one collect to the next: its acts and the previous window's
     update (pumped during its collect, the rest enqueued after it). Per
     window: wall, env frames/s, rollout s, StageTimer sections and the
@@ -1835,7 +1892,7 @@ def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
             "update_step": step, "total": metrics["total"], "lagrange_multiplier": metrics["lagrange_multiplier"],
         })
         log(f"[trainer_async] {json.dumps(windows_out[-1])}")
-    timed = windows_out[2:-1]
+    timed = windows_out[1:-1]
     wall = float(np.median([w["wall_s"] for w in timed]))
     res = {
         "streams": b, "steps": t, "overlap_groups": groups, "episode_steps": TRAINER_EPISODE_STEPS,
@@ -2271,11 +2328,12 @@ def online_argv(out_dir, task_type, critic_type, windows, async_pipeline=True):
             f"train.total_steps={total}"]
 
 
-def online_run(fa, ln, argv, windows, device="cuda"):
+def online_run(fa, ln, argv, windows, device="cuda", profile=True, stats=None):
     """`cli.train_online.main(argv)` in this process, its OnlineTrainer
     subclassed to record an event at the start of each collect and at each
     log (the time and the kernels launched since the previous event), the
-    logged metrics, and, on the card, the last window under the profiler
+    logged metrics, each collect's stats into `stats` when given, and, on
+    the card and with `profile`, the last window under the profiler
     (async: its collect, which pumps the previous window's update; sync:
     its collect and update). Returns (the TrainState, the trainer, events,
     logs, the profiler or None, the profiled window's end)."""
@@ -2311,10 +2369,12 @@ def online_run(fa, ln, argv, windows, device="cuda"):
 
             def timed_collect(*a, **kw):
                 event("collect")
-                if cuda and sum(k == "collect" for k, _, _ in events) == windows:
+                if profile and cuda and sum(k == "collect" for k, _, _ in events) == windows:
                     box["p"] = box["prof"] = device_profiler()
                     box["p"].__enter__()
                 out = collect(*a, **kw)
+                if stats is not None:
+                    stats.append(out[1])
                 if "p" in box and self.async_pipeline:
                     stop_profile()
                 return out
@@ -2333,6 +2393,25 @@ def online_run(fa, ln, argv, windows, device="cuda"):
     return ts, box["trainer"], events, logs, box.get("prof"), box.get("end")
 
 
+def online_rates(cfg, tr, async_pipeline):
+    """Kernel launches of one act and of one update of an `online_run`'s
+    trainer, from the config: the ViT's and the packed fusion layers'
+    attention and the LayerNorms per act; async, a chunked update (its
+    chunks from every rank's streams), sync, an update of this rank's
+    streams."""
+    t, model = cfg.ppo.num_steps, cfg.model
+    vit_depth = tr.policy.vit.cfg.depth
+    per_act = {"attention_fwd": vit_depth + model.num_towers * (model.combiner_layers - 1), "attention_bwd": 0,
+               "layer_norm_fwd": ln_launches_per_act(vit_depth, model), "layer_norm_bwd": 0}
+    if async_pipeline:
+        per_update = chunked_update_launches(cfg, tr.learner, cfg.train.num_train_processes, t)
+    else:
+        fwd, bwd = update_launches(cfg, tr.pool.num_streams, t)
+        ln_fwd, ln_bwd = update_ln_launches(cfg, tr.pool.num_streams, t)
+        per_update = {"attention_fwd": fwd, "attention_bwd": bwd, "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
+    return per_act, per_update
+
+
 def online_windows(events, tr, cfg, fa_counts_keys, async_pipeline, cuda, prof_end=None):
     """Per window of an `online_run`: wall, env frames/s and the kernel
     launches, asserted (on the card) against the count the config implies:
@@ -2341,17 +2420,10 @@ def online_windows(events, tr, cfg, fa_counts_keys, async_pipeline, cuda, prof_e
     sync, the window's own update. The profiled (last) window's wall ends at
     `prof_end`, its synchronise before the profiler stops (async: after its
     collect, so the drain is not in it)."""
-    b, t, model = cfg.train.num_train_processes, cfg.ppo.num_steps, cfg.model
-    vit_depth, groups = tr.policy.vit.cfg.depth, tr.runner.n_groups
+    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+    groups = tr.runner.n_groups
     assert groups == ONLINE_GROUPS  # the rollout shapes the kernels were checked at
-    per_act = {"attention_fwd": vit_depth + model.num_towers * (model.combiner_layers - 1), "attention_bwd": 0,
-               "layer_norm_fwd": ln_launches_per_act(vit_depth, model), "layer_norm_bwd": 0}
-    if async_pipeline:
-        per_update = chunked_update_launches(cfg, tr.learner, b, t)
-    else:
-        fwd, bwd = update_launches(cfg, b, t)
-        ln_fwd, ln_bwd = update_ln_launches(cfg, b, t)
-        per_update = {"attention_fwd": fwd, "attention_bwd": bwd, "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
+    per_act, per_update = online_rates(cfg, tr, async_pipeline)
     starts = [j for j, (kind, _, _) in enumerate(events) if kind == "collect"]
     out = []
     for i, j in enumerate(starts):
@@ -2951,6 +3023,421 @@ def encoders(fa, ln, device="cuda"):
     return res
 
 
+def weights_digest(tensors) -> str:
+    """sha256 of the tensors' f32 bytes: equal digests, bit-equal weights."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_small(mesh=None):
+    """Learner.update of the small f32 policy (head dim 64: the kernels run)
+    at stage 1 on a 4 x 8 window (fusion_chunk 8: the chunks run), on the
+    mesh's rows of it (all of it without a mesh), on the card: (metrics,
+    new tower weights on the CPU, step)."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.parallel import shard_batch
+
+    cfg = Config(dataclasses.replace(small_model_config(), fusion_chunk=8))
+    m = cfg.model
+    rng = np.random.default_rng(11)
+    text = torch.from_numpy(rng.standard_normal((3, m.text_max_tokens, m.text_embed_size), dtype=np.float32))
+    mask = torch.arange(m.text_max_tokens)[None, :] < torch.tensor([[3], [8], [5]])
+    batch = synthetic_batch(m, 4, 8, text, mask, seed=12)
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    batch = shard_batch(mesh, batch) if mesh is not None else batch
+    learner = Learner(SafeVLAPolicy(m, device=dev, generator=torch.Generator().manual_seed(7)), cfg, mesh)
+    ts, metrics = learner.update(learner.init(), batch, MEAN_EPISODE_COST, 1)
+    return {k: float(v) for k, v in metrics.items()}, [p.detach().cpu() for p in ts.tower_params.values()], ts.step
+
+
+def dp_updates(fa, ln, kinds, mesh=None, text=None):
+    """`train`'s update at Config() width (stage 1, the synthetic 32 x 128
+    window, the seed's weights) and/or Learner.chunked_update (one epoch,
+    DP_CHUNKED_REPEATS) from the same weights, on the mesh's rows of the
+    window (all of it without a mesh). `text`: the window's (encoded
+    instructions, mask); None encodes INSTRUCTIONS with this policy's T5.
+    Per kind: metrics, the new tower weights (CPU), wall, and the kernel
+    launches, asserted against the count the config implies for this
+    rank's streams. Returns (the initial tower weights (CPU), the text, the
+    results)."""
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.parallel import shard_batch
+    from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
+
+    cfg = Config()
+    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
+    dev = mesh.device if mesh is not None else torch.device("cuda")
+    policy = SafeVLAPolicy(cfg.model, device=dev, generator=torch.Generator().manual_seed(cfg.train.seed))
+    if text is None:
+        tokenizer = InstructionTokenizer(cfg.model.text_backbone, cfg.model.text_max_tokens)
+        tokens, mask = (torch.from_numpy(a).to(dev) for a in tokenizer.encode_batch(INSTRUCTIONS))
+        with torch.no_grad():
+            text = (policy.encode_text(tokens, mask), mask)
+    batch = synthetic_batch(cfg.model, b, t, text[0].to(dev), text[1].to(dev), seed=cfg.train.seed)
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    b_local = batch["rewards"].shape[0]
+    params = list(policy.towers.parameters())
+    w0 = [p.detach().clone() for p in params]
+    out = {}
+    for kind in kinds:
+        with torch.no_grad():
+            for p, w in zip(params, w0):
+                p.copy_(w)
+        if kind == "chunked":
+            cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, update_repeats=DP_CHUNKED_REPEATS))
+        learner = Learner(policy, cfg, mesh)
+        ts = learner.init()
+        torch.cuda.synchronize(dev)
+        reset_kernel_counts(fa, ln)
+        t0 = time.perf_counter()
+        run = learner.update if kind == "update" else learner.chunked_update
+        ts, metrics = run(ts, batch, MEAN_EPISODE_COST, 1)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = kernel_counts(fa, ln)
+        if kind == "update":
+            fwd, bwd = update_launches(cfg, b_local, t)
+            ln_fwd, ln_bwd = update_ln_launches(cfg, b_local, t)
+            want = {"attention_fwd": fwd, "attention_bwd": bwd, "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
+        else:
+            want = chunked_update_launches(cfg, learner, b, t)
+        assert launches == want, f"{kind} on {b_local} of {b} streams: launches {launches}, expected {want}"
+        assert ts.step == b * t, ts.step
+        values = {k: float(v) for k, v in metrics.items()}
+        assert all(np.isfinite(list(values.values()))), values
+        out[kind] = {"metrics": values, "weights": [p.detach().float().cpu() for p in params],
+                     "wall_ms": wall * 1e3, "launches": launches, "streams": b_local,
+                     "epochs": cfg.ppo.update_repeats}
+    return [w.float().cpu() for w in w0], (text[0].cpu(), text[1].cpu()), out
+
+
+def dp_all_reduce_ms(mesh, n, reps=5):
+    """ms of the learner's gradient all-reduce (`Mesh.all_reduce_mean_`) of
+    n f32 values, the mean of `reps` after two warm-ups (every rank takes
+    part)."""
+    buf = torch.ones(n, device=mesh.device)
+    for _ in range(2):
+        mesh.all_reduce_mean_([buf])
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mesh.all_reduce_mean_([buf])
+    torch.cuda.synchronize(mesh.device)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def with_costs(factory):
+    """Stream i's tasks add a cost of 1 at each step where i + steps taken
+    is a multiple of 10 (FakeController's scenes give none), so finished
+    episodes have costs that depend on their stream, and the episode-cost
+    window (gathered from every rank, in the 1-rank order) and the λ ascent
+    it drives differ if any rank's episodes are lost or reordered. Sparse,
+    so the discounted cost returns stay inside the HL-Gauss critic's
+    support (-5 .. 15): a return beyond it by more than a few sigma gives
+    that critic a NaN target, in the JAX package as here."""
+
+    def make(stream_id):
+        sampler = factory(stream_id)
+        next_task = sampler.next_task
+
+        def costly_task(*a, **kw):
+            task = next_task(*a, **kw)
+            if task is not None:
+                step = task.step
+
+                def costly_step(action):
+                    res = step(action)
+                    extra = float((stream_id + task.num_steps_taken()) % 10 == 0)
+                    return dataclasses.replace(res, cost=res.cost + extra)
+
+                task.step = costly_step
+            return task
+
+        sampler.next_task = costly_task
+        return sampler
+
+    return make
+
+
+def dp_cli(fa, ln, mesh, name, task_type, critic_type, async_pipeline, windows, out_root):
+    """`cli.train_online.main` on this rank at Config() width, 8 streams x 64
+    steps (`train_online_phase`'s cut) on the mesh (mesh.dp), its streams
+    costing `with_costs`: the step count (the global batch), the run's
+    launches against the config's count for this rank's streams, each
+    window's mean_episode_cost and episodes completed, the final weights'
+    digest and the files this rank wrote with torch.save."""
+    from safevla_tpu_torch import launch
+
+    out_dir = os.path.join(out_root, name)
+    argv = online_argv(out_dir, task_type, critic_type, windows, async_pipeline) + [f"mesh.dp={mesh.dp}"]
+    written, stats = [], []
+    save = torch.save
+
+    def counted(obj, f, *a, **kw):
+        written.append(str(f))
+        return save(obj, f, *a, **kw)
+
+    factory = launch.make_fake_sampler_factory
+    torch.save = counted
+    launch.make_fake_sampler_factory = lambda *a, **kw: with_costs(factory(*a, **kw))
+    reseed_hosts(123)
+    t0 = time.perf_counter()
+    try:
+        ts, tr, events, logs, _, _ = online_run(fa, ln, argv, windows, str(mesh.device), profile=False, stats=stats)
+    finally:
+        torch.save = save
+        launch.make_fake_sampler_factory = factory
+    torch.cuda.synchronize(mesh.device)
+    run_s = time.perf_counter() - t0
+    cfg = tr.cfg
+    b, t, groups = cfg.train.num_train_processes, cfg.ppo.num_steps, tr.runner.n_groups
+    assert tr.learner.mesh.shape == mesh.shape and tr.pool.num_streams == b // mesh.dp and groups == ONLINE_GROUPS
+    assert ts.step == windows * b * t, ts.step
+    launches = {k: sum(c[k] for _, _, c in events) for k in kernel_counts(fa, ln)}
+    per_act, per_update = online_rates(cfg, tr, async_pipeline)
+    acts = groups * (windows * t + 1)  # the first window also primes each group
+    want = {k: acts * per_act[k] + windows * per_update[k] for k in per_act}
+    assert launches == want, f"dp {name}: launches {launches}, expected {want}"
+    for _, metrics in logs:
+        assert all(np.isfinite([v for v in metrics.values() if isinstance(v, float)])), metrics
+    return {"step": ts.step, "streams": tr.pool.num_streams, "stream_ids": tr.pool.stream_ids, "run_s": run_s,
+            "launches": launches, "mean_episode_cost": [st["mean_episode_cost"] for st in stats],
+            "episodes_completed": [st["episodes_completed"] for st in stats],
+            "logs": len(logs), "written": written, "weights": weights_digest(ts.tower_params.values()),
+            "ckpt": os.path.join(out_dir, cfg.train.tag, f"step_{ts.step}", "train_state.pt")}
+
+
+def dp_rank(rank, world, port, work, backend, device, jobs):
+    """One rank of the dp phase, in a process of its own: joins the group
+    (SAFEVLA_* env, `backend`, `device`), runs `jobs` and writes its results
+    to work/rank<r>.json (rank 0 also its new tower weights, rank0_<kind>.pt)."""
+    os.environ.update(SAFEVLA_COORDINATOR=f"127.0.0.1:{port}", SAFEVLA_NUM_PROCESSES=str(world),
+                      SAFEVLA_PROCESS_ID=str(rank), LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from safevla_tpu_torch.ops import flash_attention as fa
+    from safevla_tpu_torch.ops import layer_norm as ln
+    from safevla_tpu_torch.parallel import make_mesh
+    from safevla_tpu_torch.parallel.distributed import initialize_multihost, shutdown_multihost
+
+    info = initialize_multihost(backend=backend, device=device, timeout_s=DP_RANK_TIMEOUT_S)
+    mesh = make_mesh(dp=world)
+    out = {"info": info, "device": str(mesh.device), "backend": backend}
+    if "small" in jobs:
+        metrics, weights, step = dp_small(mesh)
+        out["small"] = {"metrics": metrics, "digest": weights_digest(weights), "step": step}
+        if rank == 0:
+            torch.save(weights, os.path.join(work, "rank0_small.pt"))
+    if "updates" in jobs:
+        text = torch.load(os.path.join(work, "text.pt"))
+        _, _, upd = dp_updates(fa, ln, ("update", "chunked"), mesh, (text["text"], text["mask"]))
+        for kind, res in upd.items():
+            weights = res.pop("weights")
+            res["digest"] = weights_digest(weights)
+            if rank == 0:
+                torch.save(weights, os.path.join(work, f"rank0_{kind}.pt"))
+            out[kind] = res
+        n = sum(w.numel() for w in weights)
+        out["all_reduce"] = {"values": n, "bytes": 4 * n, "ms": dp_all_reduce_ms(mesh, n)}
+    if "cli" in jobs:
+        out["cli"] = {}
+        for name, task_type, critic_type, async_pipeline, windows in (
+            ("async", "FetchType", "discrete", True, DP_ONLINE_ASYNC_WINDOWS),
+            ("sync", "PickupType", "mlp", False, DP_ONLINE_SYNC_WINDOWS),
+        ):
+            out["cli"][name] = dp_cli(fa, ln, mesh, name, task_type, critic_type, async_pipeline, windows,
+                                      os.path.join(work, "online"))
+            log(f"[dp rank {rank}] cli {name}: {json.dumps({k: v for k, v in out['cli'][name].items() if k != 'written'})}")
+    shutdown_multihost()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+class DpRanks:
+    """`world` ranks of `dp_rank` in spawned processes, started; `join()`
+    returns their results in rank order. A rank that fails, or that is
+    still running DP_RANK_TIMEOUT_S after the start (a hung collective),
+    fails the phase: every rank is killed first."""
+
+    def __init__(self, world, work, backend, device, jobs):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        self.work, self.t0 = work, time.perf_counter()
+        self.procs = [ctx.Process(target=dp_rank, args=(r, world, port, work, backend, device, jobs))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+        self.deadline = time.time() + DP_RANK_TIMEOUT_S
+
+    def join(self):
+        try:
+            for p in self.procs:
+                p.join(max(self.deadline - time.time(), 1))
+            hung = [r for r, p in enumerate(self.procs) if p.is_alive()]
+            assert not hung, f"dp ranks {hung} still running after {DP_RANK_TIMEOUT_S} s"
+            failed = [(r, p.exitcode) for r, p in enumerate(self.procs) if p.exitcode != 0]
+            assert not failed, f"dp ranks failed (rank, exit code): {failed}"
+        finally:
+            for p in self.procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+        self.wall_s = time.perf_counter() - self.t0
+        results = []
+        for r in range(len(self.procs)):
+            with open(os.path.join(self.work, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+        return results
+
+
+def delta_rel_l2(got, want, w0):
+    """||(got - w0) - (want - w0)|| / ||want - w0|| over every tensor."""
+    num = sum(float(((g - w) ** 2).sum()) for g, w in zip(got, want))
+    den = sum(float(((w - o) ** 2).sum()) for w, o in zip(want, w0))
+    return (num / den) ** 0.5
+
+
+DP_WORK = os.path.join("output", "chip_smoke", "dp")
+
+
+def dp_start(first_update):
+    """The dp phase's ranks, started: DP_RANKS processes sharing cuda:0
+    through gloo, on `train`'s window (its encoded instructions, written
+    for them). The smoke runs them beside the learning probe (two host-bound
+    processes of a tiny model, no kernel) and joins them after it."""
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    os.makedirs(DP_WORK)
+    text, mask = first_update[3]
+    torch.save({"text": text, "mask": mask}, os.path.join(DP_WORK, "text.pt"))
+    return DpRanks(DP_RANKS, DP_WORK, "gloo", "cuda:0", ("small", "updates", "cli"))
+
+
+def dp(fa, ln, ranks, ranks_wall_s, first_update):
+    """The dp phase (the module docstring, phase 13): the joined ranks'
+    results against the 1-rank runs on the whole windows (`train`'s first
+    update; the small f32 policy's update and the one-epoch chunked update,
+    run here), then the same update through NCCL on the card."""
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.parallel import make_mesh
+    from safevla_tpu_torch.parallel.distributed import initialize_multihost, shutdown_multihost
+
+    ln_kernels(True)
+    attention_kernels(True)
+    work, card, cfg = DP_WORK, card_line(), Config()
+    # the 1-rank runs on the whole windows: train()'s first update is the
+    # update's reference (the same seed weights, window and stage)
+    t0 = time.perf_counter()
+    m_first, w_first, w0, text = first_update
+    small_ref = dp_small()
+    _, _, ref = dp_updates(fa, ln, ("chunked",), None, text)
+    ref["update"] = {"metrics": m_first, "weights": [w.cpu() for w in w_first]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[dp] the 1-rank references in {time.perf_counter() - t0:.1f} s")
+
+    res = {"card": card, "ranks": DP_RANKS, "backend": "gloo", "device": "cuda:0", "ranks_wall_s": ranks_wall_s,
+           "ranks_beside": "the learning phase's two processes"}
+    assert [r["info"]["process_index"] for r in ranks] == list(range(DP_RANKS))
+    for key in ("small", "update", "chunked"):  # the ranks end bit-equal
+        assert len({r[key]["digest"] for r in ranks}) == 1, f"dp {key}: the ranks' weights differ"
+        assert len({json.dumps(r[key]["metrics"], sort_keys=True) for r in ranks}) == 1, key
+    m_ref, w_ref, _ = small_ref
+    got = ranks[0]["small"]
+    w_dp = torch.load(os.path.join(work, "rank0_small.pt"))
+    small_metric_err = max(abs(got["metrics"][k] - m_ref[k]) / (1.0 + abs(m_ref[k])) for k in m_ref)
+    small_weight_err = max((a - b).abs().max().item() for a, b in zip(w_dp, w_ref))
+    assert got["step"] == 32 and got["metrics"].keys() == m_ref.keys()
+    assert small_metric_err <= REF_UPDATE_METRIC_TOL, f"dp small update metrics differ by {small_metric_err}"
+    assert small_weight_err <= REF_UPDATE_WEIGHT_TOL, f"dp small update weights differ by {small_weight_err}"
+    res["small_f32"] = {"metric_rel_err": small_metric_err, "weight_abs_err": small_weight_err}
+    for kind in ("update", "chunked"):
+        got, want = ranks[0][kind], ref[kind]
+        w_dp = torch.load(os.path.join(work, f"rank0_{kind}.pt"))
+        rel = delta_rel_l2(w_dp, want["weights"], w0)
+        metric_rel = {k: abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-12)
+                      for k in want["metrics"]}
+        bad = {k: v for k, v in metric_rel.items() if v > DP_METRIC_RTOL}
+        assert rel <= DP_DELTA_REL_TOL, f"dp {kind}: weight change differs by a relative L2 of {rel}"
+        assert not bad and metric_rel["lagrange_multiplier"] <= 1e-6, f"dp {kind} metrics: {bad}"
+        res[kind] = {"delta_rel_l2": rel, "max_weight_abs_diff": max((a - b).abs().max().item()
+                                                                   for a, b in zip(w_dp, want["weights"])),
+                     "metric_rel_diff": metric_rel, "wall_ms_ranks": [r[kind]["wall_ms"] for r in ranks],
+                     "launches_per_rank": got["launches"], "streams_per_rank": got["streams"],
+                     "epochs": got["epochs"]}
+    repeats = cfg.ppo.update_repeats
+    ar = ranks[0]["all_reduce"]
+    res["all_reduce"] = {"label": f"{DP_RANKS} ranks time-sharing one card through gloo", "card": card,
+                         "values": ar["values"], "bytes_per_all_reduce": ar["bytes"],
+                         "all_reduces_per_update": repeats, "bytes_per_update": ar["bytes"] * repeats,
+                         "ms_per_all_reduce": ar["ms"], "ms_per_update": ar["ms"] * repeats}
+    for name in ("async", "sync"):
+        runs = [r["cli"][name] for r in ranks]
+        assert len({json.dumps(c["mean_episode_cost"]) for c in runs}) == 1, f"dp cli {name}: episode costs differ"
+        assert len({c["weights"] for c in runs}) == 1, f"dp cli {name}: the ranks' weights differ"
+        assert runs[0]["written"] and not any(c["written"] for c in runs[1:]), f"dp cli {name}: writers"
+        assert runs[0]["logs"] > 0 and not any(c["logs"] for c in runs[1:]), f"dp cli {name}: loggers"
+        assert os.path.isfile(runs[0]["ckpt"]), runs[0]["ckpt"]
+        assert sorted(i for c in runs for i in c["stream_ids"]) == list(range(ONLINE_STREAMS))
+        assert name == "sync" or max(runs[0]["mean_episode_cost"]) > 0, runs[0]["mean_episode_cost"]
+        res[f"cli_{name}"] = {"step": runs[0]["step"], "run_s": [c["run_s"] for c in runs],
+                              "mean_episode_cost": runs[0]["mean_episode_cost"],
+                              "episodes_completed": runs[0]["episodes_completed"],
+                              "stream_ids": [c["stream_ids"] for c in runs],
+                              "launches_per_rank": [c["launches"] for c in runs],
+                              "checkpoint_writes": [len(c["written"]) for c in runs]}
+    launches = {k: sum(r[kind]["launches"][k] for r in ranks for kind in ("update", "chunked"))
+                + sum(c["launches"][k] for r in ranks for c in r["cli"].values()) for k in kernel_counts(fa, ln)}
+    assert all(v > 0 for v in launches.values()), f"dp: a kernel never launched in a rank: {launches}"
+    res["launches"] = launches
+    log(f"[dp] {card}: 2 gloo ranks on cuda:0 vs 1 rank: {json.dumps(res)}")
+
+    # NCCL on the card: the same update through the dp code at world size 1
+    # (and on 2 ranks where the machine shows 2 cards)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, backend="nccl", device="cuda:0", timeout_s=DP_RANK_TIMEOUT_S)
+    try:
+        mesh = make_mesh(dp=1)
+        _, _, nccl = dp_updates(fa, ln, ("update",), mesh, text)
+        n = sum(w.numel() for w in w0)
+        nccl_ms = dp_all_reduce_ms(mesh, n)
+    finally:
+        shutdown_multihost()
+    rel = delta_rel_l2(nccl["update"]["weights"], ref["update"]["weights"], w0)
+    assert rel <= DP_DELTA_REL_TOL, f"nccl world 1 update: weight change differs by a relative L2 of {rel}"
+    res_nccl = {"ran": "nccl, world size 1 (cuda:0)", "delta_rel_l2": rel, "ms_per_all_reduce": nccl_ms,
+                "bytes_per_all_reduce": 4 * n, "wall_ms": nccl["update"]["wall_ms"],
+                "launches": nccl["update"]["launches"]}
+    if torch.cuda.device_count() >= 2:
+        two = DpRanks(2, work, "nccl", "cuda", ("updates",)).join()
+        assert [r["device"] for r in two] == ["cuda:0", "cuda:1"], [r["device"] for r in two]
+        assert len({r["update"]["digest"] for r in two}) == 1
+        w_dp = torch.load(os.path.join(work, "rank0_update.pt"))
+        res_nccl["two_cards"] = {"delta_rel_l2": delta_rel_l2(w_dp, ref["update"]["weights"], w0),
+                                 "ms_per_all_reduce": two[0]["all_reduce"]["ms"]}
+        assert res_nccl["two_cards"]["delta_rel_l2"] <= DP_DELTA_REL_TOL, res_nccl["two_cards"]
+        res_nccl["ran"] += "; nccl, 2 ranks on cuda:0 and cuda:1"
+    else:
+        res_nccl["ran"] += f"; nccl on 2 ranks not run: this machine shows {torch.cuda.device_count()} card"
+    log(f"[dp] {card}: {res_nccl['ran']}: {json.dumps(res_nccl)}")
+    res["nccl"] = res_nccl
+    shutil.rmtree(work, ignore_errors=True)
+    return res
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -3136,8 +3623,11 @@ def main() -> int:
     phase_done("train_online")
     critic_heads = critics()
     phase_done("critics")
+    dp_ranks = dp_start(first_update)  # beside the learning probe, joined after it
     learned = learning()
     phase_done("learning")
+    dp_ranks_out = dp_ranks.join()
+    phase_done("dp ranks")
     ref_offline = reference_offline()
     bc, bc_trainer, bc_state, bc_aug = offline(fa, ln)
     bc_plain = offline_plain_check(fa, ln, bc_trainer, bc_aug)
@@ -3146,6 +3636,8 @@ def main() -> int:
     phase_done("offline")
     enc = encoders(fa, ln)
     phase_done("encoders")
+    dp_res = dp(fa, ln, dp_ranks_out, dp_ranks.wall_s, first_update)
+    phase_done("dp")
 
     # 7. results
     window_launches = {
@@ -3186,7 +3678,8 @@ def main() -> int:
              "evaluate": evaluation["launches"]["attention_fwd"],
              "offline": bc["launches"]["attention_fwd"],
              "train_online": online_path["launches"]["attention_fwd"],
-             "encoders": enc["launches"]["attention_fwd"]},
+             "encoders": enc["launches"]["attention_fwd"],
+             "dp": dp_res["launches"]["attention_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
@@ -3195,7 +3688,8 @@ def main() -> int:
             {"training": training["launches"]["attention_bwd"], "trainer": window_launches["attention_bwd"],
              "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"],
              "train_online": online_path["launches"]["attention_bwd"],
-             "encoders": enc["launches"]["attention_bwd"]},
+             "encoders": enc["launches"]["attention_bwd"],
+             "dp": dp_res["launches"]["attention_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -3209,7 +3703,8 @@ def main() -> int:
              "evaluate": evaluation["launches"]["layer_norm_fwd"],
              "offline": bc["launches"]["layer_norm_fwd"],
              "train_online": online_path["launches"]["layer_norm_fwd"],
-             "encoders": enc["launches"]["layer_norm_fwd"]},
+             "encoders": enc["launches"]["layer_norm_fwd"],
+             "dp": dp_res["launches"]["layer_norm_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -3220,7 +3715,8 @@ def main() -> int:
              "trainer_async": async_launches["layer_norm_bwd"],
              "offline": bc["launches"]["layer_norm_bwd"],
              "train_online": online_path["launches"]["layer_norm_bwd"],
-             "encoders": enc["launches"]["layer_norm_bwd"]},
+             "encoders": enc["launches"]["layer_norm_bwd"],
+             "dp": dp_res["launches"]["layer_norm_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
@@ -3233,6 +3729,8 @@ def main() -> int:
         assert k["launches_evaluate"] > 0, k["name"]
     for k in kernels:  # the encoders phase runs every kernel (its update and its BC step the backwards)
         assert k["launches_encoders"] > 0, k["name"]
+    for k in kernels:  # and the dp phase, in each rank and through NCCL
+        assert k["launches_dp"] > 0 and k["launches_dp_nccl"] > 0, k["name"]
     online_frames = " / ".join(f"{p['windows'][-2]['env_frames_per_s']:.1f}"
                                for p in online_path["passes"].values())
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -3258,6 +3756,9 @@ def main() -> int:
         f"{enc['siglip_train_online']['windows'][-1]['env_frames_per_s']:.1f} env frames/s, its checkpoint "
         f"bit-equal {enc['siglip_train_online']['evaluate']['bit_equal']}; clip_rn50 "
         f"{enc['clip_serving']['ms_per_act_mean']:.1f} ms/act, BC step {enc['clip_bc_step']['ms_per_step']:.1f} ms, "
+        f"dp: 2 gloo ranks vs 1 rank, weight change rel L2 {dp_res['update']['delta_rel_l2']:.3g} (update) / "
+        f"{dp_res['chunked']['delta_rel_l2']:.3g} (chunked), small f32 weights {dp_res['small_f32']['weight_abs_err']:.3g}; "
+        f"{dp_res['nccl']['ran']}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

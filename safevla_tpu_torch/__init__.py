@@ -20,7 +20,10 @@ environment stack (`envs`, `tasks`); evaluation with checkpoint restore
 behaviour cloning (`training.offline.OfflineTrainer.fit`, `cli.train_offline`);
 and online training from its command line (`cli.train_online`, with the
 sampler factories of `launch`) on every task family of the JAX package
-(`tasks`) with the linear, mlp and HL-Gauss discrete critics. The packed-qkv
+(`tasks`) with the linear, mlp and HL-Gauss discrete critics; and
+data-parallel training over torch.distributed ranks, one process per GPU
+(`parallel`: the `("dp", "mdl")` mesh, `MeshConfig`, the `mesh=` branches
+of the learner, runner, trainers and `cli.train_online`). The packed-qkv
 flash-attention forward and backward and the row
 LayerNorm forward and backward are hand-written CUDA kernels (`csrc/{flash_attention_fwd,flash_attention_bwd,
 layer_norm}.cu`, built at first use by `ops/_build.py`).

@@ -26,12 +26,25 @@ The chunk-granular decomposition of the JAX learner (the async pipeline's
 that yields after each one. The JAX package's split (one-epoch) programs have
 no counterpart here: its chunked path uses only their prepare step, which is
 `_prepare`, shared with `update`.
+
+Data parallel (`mesh`, JAX `algo/learner.py`'s mesh branches): every rank
+holds the replicated state (rank 0's weights and Adam moments broadcast at
+`init`) and its own rows of the (B, T) window, and each reduction JAX's
+sharded programs make over the global batch is a collective here: the
+advantages' mean and std (count and sum, then the centred sum of squares),
+the gradients (one all-reduce mean over one flat f32 buffer per apply,
+before the clip: each loss is a mean over equal rank shards, so the mean of
+the rank gradients is the gradient of the global loss), the last epoch's
+loss metrics (all-reduced means), and the step count and chunk sizes, which
+count the global B. The chunked update all-reduces once per apply, on the
+stream the apply runs on; JAX's chunk programs each return replicated
+gradients, whose sum is the same value.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, NamedTuple, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -47,6 +60,7 @@ from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.ops.gae import dual_gae
 from safevla_tpu_torch.ops.hl_gauss import HLGauss
+from safevla_tpu_torch.parallel.mesh import Mesh
 
 
 @dataclass
@@ -104,24 +118,32 @@ def stage_spec_from_config(stage_cfg, ppo) -> StageSpec:
 
 
 class Learner:
-    def __init__(self, policy: SafeVLAPolicy, cfg: Config):
+    def __init__(self, policy: SafeVLAPolicy, cfg: Config, mesh: Optional[Mesh] = None):
         self.policy = policy
         self.cfg = cfg
+        self.mesh = mesh
+        self.dp = mesh.dp if mesh is not None else 1
         self.device = policy.device
         self.stage_specs = tuple(stage_spec_from_config(s, cfg.ppo) for s in cfg.train.stages)
 
     def init(self) -> TrainState:
         """Train state over the policy's current tower weights (the policy was
-        filled from its generator, or by `load_jax_params`)."""
+        filled from its generator, or by `load_jax_params`). On a mesh, rank
+        0's tower weights and Adam moments go to every rank, and the ranks
+        are checked to hold the same towers and frozen encoders."""
         self.policy.towers.requires_grad_(True)
         self.policy.vit.requires_grad_(False)
         self.policy.t5.requires_grad_(False)
         params = dict(self.policy.towers.named_parameters())
+        opt_state = adam_init(list(params.values()))
+        if self.mesh is not None:
+            frozen = [*self.policy.vit.state_dict().values(), *self.policy.t5.state_dict().values()]
+            self.mesh.replicate(list(params.values()) + opt_state.mu + opt_state.nu, frozen)
         lag = self.cfg.lagrange
         return TrainState(
             tower_params=params,
             frozen_params={"vit": self.policy.vit.state_dict(), "t5": self.policy.t5.state_dict()},
-            opt_state=adam_init(list(params.values())),
+            opt_state=opt_state,
             lagrange=init_lagrange(
                 lag.cost_limit, lag.multiplier_init, lag.multiplier_lr,
                 lag.multiplier_upper_bound, device=self.device,
@@ -218,9 +240,19 @@ class Learner:
         mb["old_values"] = batch["values"][:, :-1]
         mb["old_c_values"] = batch["c_values"][:, :-1]
         if ppo.normalize_advantage:
-            for k in ("advantages", "c_advantages"):
-                a = mb[k]
-                mb[k] = (a - a.mean()) / (a.std(correction=0) + 1e-8)  # jnp's std: ddof 0
+            keys = ("advantages", "c_advantages")
+            if self.mesh is None:
+                for k in keys:
+                    a = mb[k]
+                    mb[k] = (a - a.mean()) / (a.std(correction=0) + 1e-8)  # jnp's std: ddof 0
+            else:  # the global mean and std (ddof 0), in jnp's two passes
+                n = torch.tensor(float(mb[keys[0]].numel()), device=self.device)
+                sums = self.mesh.all_reduce_sum(torch.stack([torch.stack([mb[k].sum(), n]) for k in keys]))
+                mean = sums[:, 0] / sums[:, 1]
+                sq = torch.stack([((mb[k] - mean[i]) ** 2).sum() for i, k in enumerate(keys)])
+                std = torch.sqrt(self.mesh.all_reduce_sum(sq) / sums[:, 1])
+                for i, k in enumerate(keys):
+                    mb[k] = (mb[k] - mean[i]) / (std[i] + 1e-8)
 
         # 2. lambda ascent (only in stages with the Lagrangian loss)
         lagrange = train_state.lagrange
@@ -229,8 +261,14 @@ class Learner:
         return mb, lagrange, multiplier_value(lagrange)
 
     def _finish(self, train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t):
-        """The returned state and the last epoch's metrics (0-d tensors)."""
+        """The returned state and the last epoch's metrics (0-d tensors); `b`
+        is the global stream count. On a mesh the loss metrics are their
+        means over the ranks (the norms are global already)."""
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if self.mesh is not None:
+            keys = [k for k in metrics if k not in ("grad_norm", "weight_norm")]
+            vals = self.mesh.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
+            metrics.update(zip(keys, vals / self.mesh.world_size))
         metrics["lagrange_multiplier"] = lam
         metrics["mean_episode_cost"] = torch.as_tensor(
             mean_episode_cost, dtype=torch.float32, device=self.device
@@ -246,8 +284,11 @@ class Learner:
 
     def _apply(self, params, grads, opt_state, metrics) -> AdamState:
         """Global-norm clip and one Adam step of `params` in place; the norms
-        go into `metrics`."""
+        go into `metrics`. On a mesh the gradients are first replaced by
+        their mean over the ranks (one collective, on the current stream)."""
         with torch.no_grad():
+            if self.mesh is not None:
+                self.mesh.all_reduce_mean_(grads)
             clipped, metrics["grad_norm"] = clip_by_global_norm(grads, self.cfg.ppo.max_grad_norm)
             metrics["weight_norm"] = global_norm(params)
         return adam_step(params, clipped, opt_state, self.cfg.ppo.lr)
@@ -273,6 +314,7 @@ class Learner:
             grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
             opt_state = self._apply(params, grads, opt_state, metrics)
         b, t = batch["rewards"].shape
+        b *= self.dp
         return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
 
     # ------------------------------------------------------------------
@@ -281,8 +323,9 @@ class Learner:
     # ------------------------------------------------------------------
     def chunk_sizes(self, b: int, t: int) -> Tuple[int, int]:
         """(fwd_chunk_t, bwd_chunk_t): time steps per chunk program for a
-        (b, t) window. cfg.model.async_fusion_chunk (None: fusion_chunk; 0:
-        the whole window) counts flat samples; a chunk takes all b streams x
+        (b, t) window of b streams over every rank (JAX's chunk programs
+        take all B, sharded). cfg.model.async_fusion_chunk (None:
+        fusion_chunk; 0: the whole window) counts flat samples; a chunk takes all b streams x
         chunk_t steps, chunk_t the next divisor of t upward of knob / b; the
         backward's is the largest divisor of t not above half of it."""
         cfg_chunk = self.cfg.model.async_fusion_chunk
@@ -299,8 +342,8 @@ class Learner:
         return chunk_t, bwd_chunk_t
 
     def chunked_program_count(self, b: int, t: int) -> int:
-        """Programs `iter_chunked_update` yields for a (b, t) window; the async
-        trainer pumps ceil(count / T) of them per env step."""
+        """Programs `iter_chunked_update` yields for a (b, t) window (b: every
+        rank's streams); the async trainer pumps ceil(count / T) of them per env step."""
         chunk_t, bwd_chunk_t = self.chunk_sizes(b, t)
         return 1 + self.cfg.ppo.update_repeats * (t // chunk_t + t // bwd_chunk_t + 2)
 
@@ -334,8 +377,8 @@ class Learner:
         with another copy of them while this runs (`acting_copy`)."""
         stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        b, t = batch["prev_actions"].shape
-        chunk_t, bwd_chunk_t = self.chunk_sizes(b, t)
+        b, t = batch["prev_actions"].shape  # this rank's streams
+        chunk_t, bwd_chunk_t = self.chunk_sizes(b * self.dp, t)
         mb, lagrange, lam = self._prepare(train_state, batch, mean_episode_cost, stage)
         yield
         params = list(train_state.tower_params.values())
@@ -374,7 +417,7 @@ class Learner:
             opt_state = self._apply(params, grads, opt_state, metrics)
             del obs_buf, d_obs, g_dec, g_acc, grads
             yield
-        return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
+        return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b * self.dp, t)
 
     def chunked_update(self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int):
         """`iter_chunked_update` drained at once: the synchronous entry point

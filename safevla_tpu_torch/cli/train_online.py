@@ -14,9 +14,19 @@ trains on the CPU, as the tests do). `--smoke` builds the JAX CLI's tiny
 model (with the critic type asked for) on 4 streams x 8 steps. Only
 `--fake-env` (FakeController streams) runs: the AI2-THOR controller is not
 ported yet (ROADMAP Queue 1 item 12), and without `--fake-env` the run
-raises NotImplementedError before it builds anything. The port runs on one
-card and keeps no compile cache, so the JAX CLI's mesh and cache set-up have
-no counterpart.
+raises NotImplementedError before it builds anything.
+
+On N GPUs, one process per GPU (JAX's `mesh` branch, cli/train_online.py:74):
+
+    torchrun --nproc-per-node N -m safevla_tpu_torch.cli.train_online \
+        --fake-env mesh.dp=N ...
+
+or N processes with SAFEVLA_COORDINATOR=host:port SAFEVLA_NUM_PROCESSES=N
+SAFEVLA_PROCESS_ID=<rank>. When the environment names more than one process
+the CLI joins the group (`parallel.initialize_multihost`, NCCL on the card,
+gloo on the CPU), builds the mesh from `mesh.dp` / `mesh.mdl` and trains
+data-parallel; only rank 0 writes the logs and the checkpoints. The port
+keeps no compile cache, so the JAX CLI's cache set-up has no counterpart.
 """
 
 from __future__ import annotations
@@ -24,6 +34,11 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+
+def _process_count() -> int:
+    """The processes the environment names (the SAFEVLA_* variables or torchrun's)."""
+    return int(os.environ.get("SAFEVLA_NUM_PROCESSES") or os.environ.get("WORLD_SIZE") or 1)
 
 
 def main(argv=None, device="cuda"):
@@ -42,8 +57,12 @@ def main(argv=None, device="cuda"):
     parser.add_argument("overrides", nargs="*", help="config overrides key=value")
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from safevla_tpu_torch.config import Config, apply_overrides
     from safevla_tpu_torch.launch import make_fake_sampler_factory, make_thor_sampler_factory
+    from safevla_tpu_torch.parallel.distributed import initialize_multihost, is_primary_host, shutdown_multihost
+    from safevla_tpu_torch.parallel.mesh import make_mesh
     from safevla_tpu_torch.training.online import OnlineTrainer
     from safevla_tpu_torch.utils.wandb_logging import WandbLogger
 
@@ -86,20 +105,31 @@ def main(argv=None, device="cuda"):
             else cfg.train.num_train_processes
         )
 
-    out = os.path.join(cfg.train.output_dir, cfg.train.tag)
-    logger = WandbLogger(output_dir=out, config={"overrides": args.overrides})
-    trainer = OnlineTrainer(
-        cfg,
-        factory,
-        num_workers=num_workers,
-        log_fn=lambda m, s: logger.log(m, s),
-        device=device,
-    )
+    # a caller that joined the group already (a test's rank) keeps it
+    joined = _process_count() > 1 and not dist.is_initialized()
+    if joined:
+        initialize_multihost(device=device)
+    mesh = make_mesh(dp=cfg.mesh.dp, mdl=cfg.mesh.mdl) if dist.is_initialized() else None
     try:
-        return trainer.train(max_wall_seconds=args.max_wall_seconds)
+        out = os.path.join(cfg.train.output_dir, cfg.train.tag)
+        logger = WandbLogger(output_dir=out, config={"overrides": args.overrides}) if is_primary_host() else None
+        trainer = OnlineTrainer(
+            cfg,
+            factory,
+            num_workers=num_workers,
+            log_fn=lambda m, s: logger.log(m, s),  # called on the primary rank only
+            device=device,
+            mesh=mesh,
+        )
+        try:
+            return trainer.train(max_wall_seconds=args.max_wall_seconds)
+        finally:
+            trainer.close()
+            if logger is not None:
+                logger.finish()
     finally:
-        trainer.close()
-        logger.finish()
+        if joined:
+            shutdown_multihost()
 
 
 if __name__ == "__main__":

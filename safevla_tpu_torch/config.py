@@ -4,10 +4,8 @@ the rollout runner, the online trainers, the evaluator and the offline
 
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
 `LagrangeConfig`, `TrainingStageConfig`, `TrainConfig`, `OfflineConfig`,
-`EvalConfig` and `Config` (its data roots included), with identical
-defaults, and of `apply_overrides` (with its presets). The JAX config's
-`mesh` section has no counterpart (the port runs on one card): an override
-of one of its keys is an unknown key here.
+`MeshConfig`, `EvalConfig` and `Config` (its data roots included), with
+identical defaults, and of `apply_overrides` (with its presets).
 """
 
 from __future__ import annotations
@@ -179,6 +177,15 @@ class OfflineConfig:
 
 
 @dataclass
+class MeshConfig:
+    """Device mesh layout. dp shards the sampler/batch axis over the ranks
+    (`parallel/mesh.py`: one process per GPU on torch.distributed)."""
+
+    dp: int = -1  # -1: use all ranks
+    mdl: int = 1  # model axis kept for future TP; size 1 for this policy scale
+
+
+@dataclass
 class EvalConfig:
     num_workers: int = 8
     seed: int = 123
@@ -196,6 +203,7 @@ class Config:
     ppo: PPOConfig = field(default_factory=PPOConfig)
     lagrange: LagrangeConfig = field(default_factory=LagrangeConfig)
     offline: OfflineConfig = field(default_factory=OfflineConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     # data roots (env-var fallbacks mirror the reference's

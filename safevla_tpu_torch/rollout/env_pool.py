@@ -137,7 +137,11 @@ class EnvPool:
         max_restarts: int = 10,
         step_timeout_s: Optional[float] = 300.0,
         startup_timeout_s: Optional[float] = 600.0,
+        stream_ids: Optional[List[int]] = None,
     ):
+        """`stream_ids`: the global id each stream's sampler is built with
+        (`sampler_factory(stream_ids[i])`; default 0 .. num_streams - 1). A
+        data-parallel rank builds its own rows of the run's streams."""
         # liveness defense: a worker that HANGS (alive but unresponsive — the
         # classic stuck-Unity failure the reference guards with SIGALRM,
         # online_evaluator.py:43-57, and a 1200s THOR server timeout) is
@@ -147,6 +151,9 @@ class EnvPool:
         self.max_restarts = max_restarts
         self.restarts = 0
         self.num_streams = num_streams
+        self.stream_ids = list(range(num_streams)) if stream_ids is None else list(stream_ids)
+        if len(self.stream_ids) != num_streams:
+            raise ValueError(f"{len(self.stream_ids)} stream ids for {num_streams} streams")
         self.use_processes = (num_workers or 0) > 0
         self._streams: List[_InlineStream] = []
         self._conns = []
@@ -166,7 +173,7 @@ class EnvPool:
                 parent, child = ctx.Pipe()
                 p = ctx.Process(
                     target=_worker_main,
-                    args=(child, sampler_factory, i),
+                    args=(child, sampler_factory, self.stream_ids[i]),
                     daemon=True,
                 )
                 p.start()
@@ -179,7 +186,7 @@ class EnvPool:
                 self.last_steps[i] = first
         else:
             for i in range(num_streams):
-                s = _InlineStream(sampler_factory, i)
+                s = _InlineStream(sampler_factory, self.stream_ids[i])
                 self._streams.append(s)
                 self.last_steps[i] = s.reset()
 
@@ -199,7 +206,7 @@ class EnvPool:
         parent, child = self._ctx.Pipe()
         p = self._ctx.Process(
             target=_worker_main,
-            args=(child, self._sampler_factory, i),
+            args=(child, self._sampler_factory, self.stream_ids[i]),
             daemon=True,
         )
         p.start()

@@ -38,8 +38,24 @@ Differences from the JAX runner:
     acting copy of the policy (`SafeVLAPolicy.acting_copy`: towers of its
     own, the frozen encoders shared), since the learner steps its towers in
     place while the rollout acts; JAX acts with an immutable pytree.
-Not ported yet: the multi-device mesh and the merged action fetch
-(`SAFEVLA_MERGED_FETCH=1` raises NotImplementedError).
+Data parallel (`mesh`, JAX's mesh branches): each rank steps and acts for
+its own rows of every stream group, JAX's P("dp") layout of the group's
+(G, ...) leaves: rank r (dp_index d) owns the streams g*G + d*G/dp ...
+g*G + (d+1)*G/dp - 1 of group g (`rank_stream_ids`), its pool built over
+those global stream ids, so seeds and tasks are the 1-rank run's. The group
+count follows JAX's rule (`stream_groups`: halved until the group width
+tiles dp). The window's batch holds the rank's streams group by group; the
+update is a mean over streams, whose order it does not depend on. Each group
+step draws the whole group's uniforms and keeps the rank's rows, so the
+actions equal the 1-rank run's; the augmentation is drawn alike on every
+rank. Finished episodes are gathered from every rank once per window (over
+the host group) and appended in the 1-rank order (time step, group, stream),
+so the episode-cost window, and the λ ascent it drives, and the episode
+metrics are the same on every rank. Each rank keeps its own frame bank (JAX
+replicates one; the content is the same).
+
+Not ported yet: the merged action fetch (`SAFEVLA_MERGED_FETCH=1` raises
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -56,6 +72,7 @@ import torch
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.constants import rgb_norm_constants
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+from safevla_tpu_torch.parallel.mesh import Mesh
 from safevla_tpu_torch.preprocessing.augment import (
     apply_augment,
     identity_augment_params,
@@ -71,6 +88,7 @@ from safevla_tpu_torch.utils.profiling import StageTimer
     _EXPERT_PICKUP,
 ) = range(9)
 _N_COLS = 9
+OVERLAP_GROUPS = 2  # the stream groups a runner pipelines by default
 # batch keys taken from the stored columns
 _COL_KEYS = {
     "prev_actions": _PREV,
@@ -180,6 +198,29 @@ class DeviceFrameBank:
         return out
 
 
+def stream_groups(num_streams: int, overlap_groups: int, dp: int = 1):
+    """(n_groups, G): JAX's rule. The streams split into `overlap_groups`
+    groups (one if that does not divide them); on a mesh the group count
+    halves until the group width G tiles dp, and a G that does not raises."""
+    if num_streams % overlap_groups != 0:
+        overlap_groups = 1
+    n_groups = max(1, overlap_groups)
+    if dp > 1:
+        while n_groups > 1 and (num_streams // n_groups) % dp != 0:
+            n_groups //= 2
+        if (num_streams // n_groups) % dp != 0:
+            raise ValueError(f"num_streams={num_streams} must be divisible by dp={dp}")
+    return n_groups, num_streams // n_groups
+
+
+def rank_stream_ids(num_streams: int, n_groups: int, dp: int, dp_index: int) -> List[int]:
+    """The global ids of the streams a rank steps, group by group: the
+    dp_index-th 1/dp of each group's rows."""
+    g_width = num_streams // n_groups
+    local = g_width // dp
+    return [g * g_width + dp_index * local + j for g in range(n_groups) for j in range(local)]
+
+
 class RolloutRunner:
     def __init__(
         self,
@@ -191,22 +232,30 @@ class RolloutRunner:
         text_table_slots: int = 16,
         episode_cost_window: int = 100,
         frame_bank_slots: int = 96,
-        overlap_groups: int = 2,
+        overlap_groups: int = OVERLAP_GROUPS,
         use_frame_bank: Optional[bool] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.policy = policy
         self.cfg = cfg
         self.device = policy.device
         self.pool = env_pool
-        self.B = env_pool.num_streams
+        self.mesh = mesh
+        self.dp = mesh.dp if mesh is not None else 1
+        # B and G count every rank's streams, `local` this rank's: the pool's
+        # streams, Gl = G / dp of each group
+        self.B = env_pool.num_streams * self.dp
         self.tokenizer = tokenizer or InstructionTokenizer(
             cfg.model.text_backbone, cfg.model.text_max_tokens
         )
         self.E = text_table_slots
-        if self.B % overlap_groups != 0:
-            overlap_groups = 1
-        self.n_groups = max(1, overlap_groups)
-        self.G = self.B // self.n_groups
+        self.n_groups, self.G = stream_groups(self.B, overlap_groups, self.dp)
+        self.Gl = self.G // self.dp
+        self.local = env_pool.num_streams
+        if mesh is not None:
+            want = rank_stream_ids(self.B, self.n_groups, self.dp, mesh.dp_index)
+            if env_pool.stream_ids != want:
+                raise ValueError(f"the pool's streams {env_pool.stream_ids} are not the rank's {want}")
         if os.environ.get("SAFEVLA_MERGED_FETCH", "0") == "1" and self.n_groups > 1:
             raise NotImplementedError("the merged action fetch (SAFEVLA_MERGED_FETCH=1) is not ported yet")
 
@@ -229,26 +278,28 @@ class RolloutRunner:
 
         L = cfg.model.text_max_tokens
         D = cfg.model.text_embed_size
-        self.states = [self.policy.init_state(self.G, L) for _ in range(self.n_groups)]
+        self.states = [self.policy.init_state(self.Gl, L) for _ in range(self.n_groups)]
         # bf16 tables: the fusion adapter consumes bf16 anyway, and the
         # update-time per-step gather moves half the bytes
         self.text_tables = [
-            torch.zeros((self.G, self.E, L, D), dtype=torch.bfloat16, device=self.device)
+            torch.zeros((self.Gl, self.E, L, D), dtype=torch.bfloat16, device=self.device)
             for _ in range(self.n_groups)
         ]
         self.text_mask_tables = [
-            torch.zeros((self.G, self.E, L), dtype=torch.bool, device=self.device)
+            torch.zeros((self.Gl, self.E, L), dtype=torch.bool, device=self.device)
             for _ in range(self.n_groups)
         ]
-        self.cur_slot = np.zeros(self.B, np.int32)
-        self.instructions = [""] * self.B
+        self.cur_slot = np.zeros(self.local, np.int32)
+        self.instructions = [""] * self.local
         self._text_initialized = False
 
-        self.prev_action = np.zeros(self.B, np.int32)
+        self.prev_action = np.zeros(self.local, np.int32)
         self.episode_costs = deque(maxlen=episode_cost_window)
         self.episode_metrics: List[Dict[str, Any]] = []
-        self.running_episode_cost = np.zeros(self.B, np.float64)
-        self.steps_in_current_house = np.zeros(self.B, np.int64)
+        # the window's finished episodes: (t, group, global row, cost, metrics)
+        self._finished: List[tuple] = []
+        self.running_episode_cost = np.zeros(self.local, np.float64)
+        self.steps_in_current_house = np.zeros(self.local, np.int64)
 
         # per group: the bootstrap act of the last window (next window's t=0)
         self._pending: List[Optional[tuple]] = [None] * self.n_groups
@@ -262,10 +313,11 @@ class RolloutRunner:
 
     # ------------------------------------------------------------------
     def _lo(self, g: int) -> int:
-        return g * self.G
+        """Group g's first row among this rank's streams."""
+        return g * self.Gl
 
     def _hi(self, g: int) -> int:
-        return (g + 1) * self.G
+        return (g + 1) * self.Gl
 
     # ------------------------------------------------------------------
     # device step
@@ -273,16 +325,19 @@ class RolloutRunner:
     def _draw_actions(self, logits: torch.Tensor, global_step: int) -> torch.Tensor:
         """One sampled action per stream: a Gumbel-max draw from the runner's
         device generator. `global_step` counts device steps since the
-        runner was built (the JAX runner folds it into its key)."""
-        u = torch.rand(logits.shape, generator=self._action_gen, device=logits.device)
+        runner was built (the JAX runner folds it into its key). The whole
+        group's uniforms are drawn, and this rank's rows kept."""
+        u = torch.rand((self.G, logits.shape[-1]), generator=self._action_gen, device=logits.device)
+        if self.mesh is not None:
+            u = u[self.mesh.rows(self.G)]
         u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
         return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
 
     @torch.no_grad()
     def _device_step(self, g: int, t: int, offset: int, storage, packed: np.ndarray):
-        """Group g's act on (t, offset) of `storage`; packed (G, 9) int32
+        """Group g's act on (t, offset) of `storage`; packed (Gl, 9) int32
         per-stream columns. Returns (action fetch, values, cost values)."""
-        G = self.G
+        G = self.Gl
         cols = _to_device(packed, self.device)
         if self.use_frame_bank:
             ids = torch.cat([cols[:, _NAV_ID], cols[:, _MANIP_ID]])
@@ -310,7 +365,7 @@ class RolloutRunner:
     def _alloc_storage(self, T: int) -> Dict[str, torch.Tensor]:
         gh, gw = self.cfg.model.vision_grid
         Dv = self.cfg.model.vision_feature_dim
-        dev, B = self.device, self.B
+        dev, B = self.device, self.local
         return {
             "dino_nav": torch.zeros((T, B, gh, gw, Dv), dtype=torch.bfloat16, device=dev),
             "dino_manip": torch.zeros((T, B, gh, gw, Dv), dtype=torch.bfloat16, device=dev),
@@ -382,7 +437,7 @@ class RolloutRunner:
         mask_d = _to_device(mask, self.device)
         hidden = self.policy.encode_text(_to_device(tokens, self.device), mask_d)
         self.states[g] = dataclasses.replace(self.states[g], text_hidden=hidden, text_mask=mask_d)
-        rows = torch.arange(self.G, device=self.device)
+        rows = torch.arange(self.Gl, device=self.device)
         slots = _to_device(self.cur_slot[lo:hi].astype(np.int64), self.device)
         self.text_tables[g][rows, slots] = hidden.to(torch.bfloat16)
         self.text_mask_tables[g][rows, slots] = mask_d
@@ -390,7 +445,7 @@ class RolloutRunner:
     def _pack(self, g: int) -> np.ndarray:
         cur = self._cur[g]
         lo, hi = self._lo(g), self._hi(g)
-        cols = np.empty((self.G, _N_COLS), np.int32)
+        cols = np.empty((self.Gl, _N_COLS), np.int32)
         cols[:, _PREV] = self.prev_action[lo:hi]
         cols[:, _NOT_RESET] = (~cur["new_episode"]).astype(np.int32)
         cols[:, _OIH] = cur["oih"]
@@ -431,10 +486,9 @@ class RolloutRunner:
             costs[t, bi] = s.cost
             self.running_episode_cost[bi] += s.cost
             if s.done:
-                self.episode_costs.append(self.running_episode_cost[bi])
+                row = self.pool.stream_ids[bi]  # the stream's global id
+                self._finished.append((t, g, row, self.running_episode_cost[bi], s.metrics))
                 self.running_episode_cost[bi] = 0.0
-                if s.metrics:
-                    self.episode_metrics.append(s.metrics)
                 if s.new_episode:
                     self.steps_in_current_house[bi] = 0
         self.prev_action[lo:hi] = actions_host
@@ -464,9 +518,9 @@ class RolloutRunner:
         if storage["actions"].shape[0] != T:
             raise ValueError(f"the window length changed from {storage['actions'].shape[0]} to {T}")
         self._next_storage = None
-        rewards = np.zeros((T, self.B), np.float32)
-        costs = np.zeros((T, self.B), np.float32)
-        masks = np.ones((T + 1, self.B), np.float32)
+        rewards = np.zeros((T, self.local), np.float32)
+        costs = np.zeros((T, self.local), np.float32)
+        masks = np.ones((T + 1, self.local), np.float32)
         wall_t0 = time.time()
 
         # prime: every group gets an in-flight device step for t=0 (the last
@@ -506,6 +560,7 @@ class RolloutRunner:
             boot_cv.append(self._pending[g][2])
 
         wall = time.time() - wall_t0
+        self._record_episodes()
 
         # window-boundary batch assembly, timed apart from the rollout wall
         assemble_t0 = time.time()
@@ -543,6 +598,18 @@ class RolloutRunner:
             **self.timer.summary(),
         }
         return batch, stats
+
+    def _record_episodes(self) -> None:
+        """The window's finished episodes, every rank's on a mesh, into the
+        episode-cost window and the episode metrics in the 1-rank order:
+        time step, group, stream."""
+        finished, self._finished = self._finished, []
+        if self.mesh is not None:
+            finished = [e for part in self.mesh.gather_objects(finished) for e in part]
+        for _, _, _, cost, metrics in sorted(finished, key=lambda e: e[:3]):
+            self.episode_costs.append(cost)
+            if metrics:
+                self.episode_metrics.append(metrics)
 
     def pop_metrics(self) -> List[Dict[str, Any]]:
         out = self.episode_metrics

@@ -25,6 +25,18 @@ Differences from the JAX package, each by design:
     host allocator once their copies have run;
   * metrics stay device tensors through the epoch and are read once at its
     end, as JAX reads them (no host synchronisation per step).
+
+Data parallel (`mesh`, JAX's: the batch over dp, the state replicated):
+each rank steps on its rows of every batch (`fit` takes them from the host
+batch every rank reads), rank 0's weights and AdamW moments are broadcast at
+`init_state`, and the gradients are all-reduced (one flat buffer) before the
+step. The BC loss is a masked mean, so the global loss is sum(nll * valid)
+over every rank's rows / sum(valid) over every rank's, not a mean of the
+rank means (which differs when the ranks hold unequal counts of valid
+targets): each rank's loss is its own sum over the global count, scaled by
+the rank count, and the accuracy and the eval step's loss take the same
+global sums. `fit` gathers the eval predictions for F1, and logs and
+checkpoints from the primary rank.
 """
 
 from __future__ import annotations
@@ -42,6 +54,8 @@ from safevla_tpu_torch.algo.optim import AdamState, adamw_init, adamw_step, glob
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.constants import rgb_norm_constants
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+from safevla_tpu_torch.parallel.distributed import is_primary_host
+from safevla_tpu_torch.parallel.mesh import Mesh
 from safevla_tpu_torch.preprocessing.augment import (
     apply_augment,
     identity_augment_params,
@@ -80,14 +94,32 @@ def _accuracy(logits, targets):
     return preds, valid, acc
 
 
+def _global_masked_means(mesh: Mesh, logits, targets, ignore_index: int = -1):
+    """The masked loss and accuracy over every rank's rows: (this rank's
+    loss, whose rank-mean gradient is the global loss's gradient; the global
+    loss; the global accuracy; preds; valid). One all-reduce of (sum of nll,
+    valid count, correct count); each sum is counted mdl times over the
+    ranks, the ratios are not."""
+    valid = targets != ignore_index
+    safe_targets = torch.where(valid, targets, 0).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll_sum = torch.sum(-torch.gather(logp, -1, safe_targets[..., None])[..., 0] * valid)
+    preds = torch.argmax(logits.detach(), dim=-1)
+    sums = torch.stack([nll_sum.detach(), valid.sum().float(), ((preds == targets) * valid).sum().float()])
+    sums = mesh.all_reduce_sum(sums)
+    count = torch.clamp(sums[1], min=1)
+    return nll_sum * mesh.world_size / count, sums[0] / count, sums[2] / count, preds, valid
+
+
 class OfflineTrainer:
     """BC on one device (`device="cuda"` by default; "cpu" runs the kernels'
     plain versions). The policy is built from a generator seeded with
     cfg.train.seed, with cfg.model as given (the CLI sets num_towers=1)."""
 
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, mesh: Optional[Mesh] = None, device="cuda"):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.policy = SafeVLAPolicy(
             cfg.model, device=self.device, generator=torch.Generator().manual_seed(cfg.train.seed)
         )
@@ -104,15 +136,19 @@ class OfflineTrainer:
     def init_state(self, generator: Optional[torch.Generator] = None) -> BCTrainState:
         """A train state over the policy's tower weights (refilled from
         `generator` first when one is given), fresh AdamW moments, step and
-        epoch 0."""
+        epoch 0; on a mesh, rank 0's weights and moments on every rank."""
         if generator is not None:
             self.policy.init_params(generator)
         self.policy.towers.requires_grad_(True)
         params = dict(self.policy.towers.named_parameters())
+        opt_state = adamw_init(list(params.values()))
+        if self.mesh is not None:
+            frozen = [*self.policy.vit.state_dict().values(), *self.policy.t5.state_dict().values()]
+            self.mesh.replicate(list(params.values()) + opt_state.mu + opt_state.nu, frozen)
         return BCTrainState(
             tower_params=params,
             frozen_params={"vit": self.policy.vit.state_dict(), "t5": self.policy.t5.state_dict()},
-            opt_state=adamw_init(list(params.values())),
+            opt_state=opt_state,
             step=0,
             epoch=0,
         )
@@ -200,6 +236,9 @@ class OfflineTrainer:
 
     def _bc_loss(self, batch, aug):
         logits = self._forward(batch, aug)
+        if self.mesh is not None:
+            loss, bc_loss, acc, _, _ = _global_masked_means(self.mesh, logits, batch["actions"])
+            return loss, {"bc_loss": bc_loss, "accuracy": acc}
         loss = cross_entropy_ignore_index(logits, batch["actions"])
         _, _, acc = _accuracy(logits.detach(), batch["actions"])
         return loss, {"bc_loss": loss.detach(), "accuracy": acc}
@@ -212,6 +251,8 @@ class OfflineTrainer:
         # a leaf the loss does not reach (the critic head) gets no gradient:
         # optax still counts and decays it (adamw_step takes None as zeros)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        if self.mesh is not None:  # every rank leaves out the same leaves
+            self.mesh.all_reduce_mean_([g for g in grads if g is not None])
         with torch.no_grad():
             metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
         opt_state = adamw_step(params, grads, state.opt_state, self.lr)
@@ -220,8 +261,11 @@ class OfflineTrainer:
     @torch.no_grad()
     def _eval_step(self, state: BCTrainState, batch):
         logits = self._forward(batch, identity_augment_params())
-        loss = cross_entropy_ignore_index(logits, batch["actions"])
-        preds, valid, acc = _accuracy(logits, batch["actions"])
+        if self.mesh is not None:
+            _, loss, acc, preds, valid = _global_masked_means(self.mesh, logits, batch["actions"])
+        else:
+            loss = cross_entropy_ignore_index(logits, batch["actions"])
+            preds, valid, acc = _accuracy(logits, batch["actions"])
         return {"val_loss": loss, "val_accuracy": acc, "preds": preds, "valid": valid}
 
     # ------------------------------------------------------------------
@@ -365,7 +409,7 @@ class OfflineTrainer:
                 else identity_augment_params()
             )
             metrics: Dict[str, torch.Tensor] = {}
-            for pb in self.prepared_batches(train_batches()):
+            for pb in self.prepared_batches(map(self._rank_rows, train_batches())):
                 state, metrics = self._bc_step(state, self.attach_text(pb), aug)
                 n += 1
             log = {k: float(v) for k, v in metrics.items()}  # the epoch's one device read
@@ -375,13 +419,17 @@ class OfflineTrainer:
             if val_batches is not None:
                 preds_all, targets_all, losses = [], [], []
                 sample_rows = None
-                for host_batch in val_batches():
+                for host_batch in map(self._rank_rows, val_batches()):
                     ev = self._eval_step(state, self.prepare_batch(host_batch))
                     preds_all.append(ev["preds"].cpu().numpy())
                     targets_all.append(np.asarray(host_batch["actions"]))
                     losses.append(float(ev["val_loss"]))
-                    if sample_rows is None and logger is not None:
+                    if sample_rows is None and logger is not None and is_primary_host():
                         sample_rows = self.sample_prediction_rows(host_batch, preds_all[-1], out_dir)
+                if self.mesh is not None:  # every dp shard's rows, once each
+                    parts = self.mesh.gather_objects((preds_all, targets_all))[:: self.mesh.mdl]
+                    preds_all = [p for part, _ in parts for p in part]
+                    targets_all = [t for _, part in parts for t in part]
                 if losses:
                     preds = np.concatenate([p.ravel() for p in preds_all])
                     targets = np.concatenate([t.ravel() for t in targets_all])
@@ -396,6 +444,17 @@ class OfflineTrainer:
                     )
 
             state = dataclasses.replace(state, epoch=state.epoch + 1)
-            log_fn(log, state.step)
-            save_checkpoint(out_dir, state, state.step)
+            if is_primary_host():
+                log_fn(log, state.step)
+            save_checkpoint(out_dir, state, state.step)  # the primary rank's alone
+            if self.mesh is not None:
+                self.mesh.barrier()
         return state
+
+    def _rank_rows(self, host_batch: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's rows of a host batch (every value is per row); the
+        whole batch without a mesh."""
+        if self.mesh is None:
+            return host_batch
+        rows = self.mesh.rows(len(host_batch["instructions"]))
+        return {k: v[rows] for k, v in host_batch.items()}

@@ -19,8 +19,15 @@ default (`cfg.train.async_pipeline`, True as in JAX), sync when asked.
   priority (`_Streams`; JAX gets the same order from its FIFO dispatch); on
   the CPU the same generator is pumped inline.
 
-Multi-device meshes are not ported yet. `il_ckpt_path` imports a reference
-torch checkpoint into the towers (`models/convert.py::load_reference_checkpoint`).
+Data parallel (`mesh`, JAX's `mesh=`): one process per rank, each with a
+pool of its own rows of the run's streams (`rollout/runner.py::
+rank_stream_ids`, built by their global ids), the learner and the runner on
+the mesh. Step counts, the async pump and logs count the global streams.
+Only the primary rank writes checkpoints (`utils/checkpoint.py`) and calls
+`log_fn`; every rank waits at a barrier after a save, so none runs ahead
+of one, and a resume reads the same file on every rank. The wall-clock
+stop is agreed by all ranks. `il_ckpt_path` imports a reference torch
+checkpoint into the towers (`models/convert.py::load_reference_checkpoint`).
 """
 
 from __future__ import annotations
@@ -39,8 +46,10 @@ from safevla_tpu_torch.algo.learner import Learner, TrainState
 from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.models.convert import load_reference_checkpoint
+from safevla_tpu_torch.parallel.distributed import is_primary_host
+from safevla_tpu_torch.parallel.mesh import Mesh
 from safevla_tpu_torch.rollout.env_pool import EnvPool
-from safevla_tpu_torch.rollout.runner import RolloutRunner
+from safevla_tpu_torch.rollout.runner import OVERLAP_GROUPS, RolloutRunner, rank_stream_ids, stream_groups
 from safevla_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     resolve_checkpoint_path,
@@ -123,10 +132,10 @@ class _Streams:
 
 
 class OnlineTrainer:
-    """Trains a policy built on `device` with weights from a generator
-    seeded with cfg.train.seed; the learner and the runner take the
-    policy's device. With the async pipeline the runner acts with
-    `act_policy`, a copy of the towers (sync: the policy itself)."""
+    """Trains a policy built on `device` (on a mesh: the rank's device) with
+    weights from a generator seeded with cfg.train.seed; the learner and
+    the runner take the policy's device. With the async pipeline the runner
+    acts with `act_policy`, a copy of the towers (sync: the policy itself)."""
 
     def __init__(
         self,
@@ -136,24 +145,47 @@ class OnlineTrainer:
         log_fn: Optional[Callable[[Dict[str, Any], int], None]] = None,
         async_pipeline: Optional[bool] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
         # None = follow the config (async by default, as in JAX)
         self.async_pipeline = cfg.train.async_pipeline if async_pipeline is None else async_pipeline
         self.policy = SafeVLAPolicy(
-            cfg.model, device=device, generator=torch.Generator().manual_seed(cfg.train.seed)
+            cfg.model, device=mesh.device if mesh is not None else device,
+            generator=torch.Generator().manual_seed(cfg.train.seed),
         )
-        self.learner = Learner(self.policy, cfg)
-        self.pool = EnvPool(
-            sampler_factory, num_streams=cfg.train.num_train_processes, num_workers=num_workers
-        )
+        self.learner = Learner(self.policy, cfg, mesh)
+        self.num_streams = cfg.train.num_train_processes  # every rank's
+        dp, dp_index = (mesh.dp, mesh.dp_index) if mesh is not None else (1, 0)
+        n_groups, _ = stream_groups(self.num_streams, OVERLAP_GROUPS, dp)
+        ids = rank_stream_ids(self.num_streams, n_groups, dp, dp_index)
+        self.pool = EnvPool(sampler_factory, num_streams=len(ids), num_workers=num_workers, stream_ids=ids)
         self.act_policy = self.policy.acting_copy() if self.async_pipeline else self.policy
-        self.runner = RolloutRunner(self.act_policy, cfg, self.pool, seed=cfg.train.seed)
+        self.runner = RolloutRunner(self.act_policy, cfg, self.pool, seed=cfg.train.seed, mesh=mesh)
         self._streams: Optional[_Streams] = None  # made at the first async run
         self.log_fn = log_fn or self._default_log
         self.episode_accum = MetricAccumulator()
         self.output_dir = os.path.join(cfg.train.output_dir, cfg.train.tag)
         os.makedirs(self.output_dir, exist_ok=True)
+
+    def _log(self, metrics: Dict[str, Any], step: int):
+        if is_primary_host():
+            self.log_fn(metrics, step)
+
+    def _save(self, ts: TrainState, step: int, final: bool = False) -> None:
+        """The checkpoint (written by the primary rank alone); on a mesh every
+        rank waits here until it is on disk."""
+        path = save_checkpoint(self.output_dir, ts, step)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        if is_primary_host():
+            print(f"saved {'final ' if final else ''}checkpoint {path}")
+
+    def _out_of_time(self, t_start: float, max_wall_seconds: Optional[float]) -> bool:
+        """The wall-clock stop, the same on every rank."""
+        late = bool(max_wall_seconds) and time.time() - t_start > max_wall_seconds
+        return self.mesh.any(late) if self.mesh is not None and max_wall_seconds else late
 
     @staticmethod
     def _default_log(metrics: Dict[str, Any], step: int):
@@ -216,27 +248,25 @@ class OnlineTrainer:
                 **roll_stats,
                 "update_seconds": update_seconds,
                 "total_fps": (step_now - step0) / max(time.time() - t_start, 1e-9)
-                if step_now == step0 + cfg.ppo.num_steps * self.pool.num_streams
+                if step_now == step0 + cfg.ppo.num_steps * self.num_streams
                 else None,
             }
             ep_means = self.episode_accum.means()
             if ep_means:
                 log.update({f"ep/{k}": v for k, v in ep_means.items()})
-            self.log_fn({k: v for k, v in log.items() if v is not None}, step_now)
+            self._log({k: v for k, v in log.items() if v is not None}, step_now)
 
             if step_now - last_save >= cfg.train.save_interval:
-                path = save_checkpoint(self.output_dir, ts, step_now)
+                self._save(ts, step_now)
                 last_save = step_now
-                print(f"saved checkpoint {path}")
 
-            if max_wall_seconds and time.time() - t_start > max_wall_seconds:
+            if self._out_of_time(t_start, max_wall_seconds):
                 break
         # force a final save: a wall-clock or total-steps exit otherwise loses
         # up to save_interval steps of fully computed updates
         step_now = int(ts.step)
         if step_now > last_save:
-            path = save_checkpoint(self.output_dir, ts, step_now)
-            print(f"saved final checkpoint {path}")
+            self._save(ts, step_now, final=True)
         return ts
 
     # ------------------------------------------------------------------
@@ -264,7 +294,7 @@ class OnlineTrainer:
         cfg = self.cfg
         ts = train_state if train_state is not None else self.init_state()
         total = total_steps if total_steps is not None else cfg.train.total_steps
-        T, B = cfg.ppo.num_steps, self.pool.num_streams
+        T, B = cfg.ppo.num_steps, self.num_streams
         # programs per env step, so that the whole update is enqueued in-window
         pump_k = max(1, -(-self.learner.chunked_program_count(B, T) // T))
         if self._streams is None:
@@ -309,15 +339,14 @@ class OnlineTrainer:
                 self.episode_accum.add(m)
             log.update({f"ep/{k}": v for k, v in self.episode_accum.means().items()})
             log["total_fps"] = step / max(time.time() - t_start, 1e-9)
-            self.log_fn(log, step)
+            self._log(log, step)
 
         def save(upd, step: int) -> None:
             nonlocal last_save
             if upd["done"] is not None:  # the weights are the update's once it has run
                 upd["done"].synchronize()
-            path = save_checkpoint(self.output_dir, ts, step)
+            self._save(ts, step)
             last_save = step
-            print(f"saved checkpoint {path}")
 
         def finish(upd) -> TrainState:
             """The update's remaining programs enqueued; its state."""
@@ -361,7 +390,7 @@ class OnlineTrainer:
                     ),
                     "stage": stage, "done": None, "seconds": 0.0,
                 }
-                if max_wall_seconds and time.time() - t_start > max_wall_seconds:
+                if self._out_of_time(t_start, max_wall_seconds):
                     break
             # drain: the update in flight is applied, so the returned state
             # has learned from every collected window, and saved

@@ -34,6 +34,7 @@ from torch import nn
 from safevla_tpu_torch.algo.lagrange import LagrangeState
 from safevla_tpu_torch.algo.learner import TrainState
 from safevla_tpu_torch.algo.optim import AdamState
+from safevla_tpu_torch.parallel.distributed import is_primary_host
 
 _FILE = "train_state.pt"
 _PARAMS_FILE = "params.pt"
@@ -89,9 +90,16 @@ def save_checkpoint(path: str, state, step: int) -> str:
     """Write `state` under `path/step_<step>`; returns that directory. A
     TrainState or a BCTrainState goes to `train_state.pt`, a params mapping
     (subtree name -> state dict) to `params.pt`. The directory appears whole
-    or not at all (written aside, then renamed)."""
+    or not at all (written aside, then renamed).
+
+    On a multi-process run only rank 0 writes (the state is replicated;
+    ranks racing on one directory would corrupt it): the others return the
+    directory at once. SAFEVLA_SAVE_ON_ALL_HOSTS=1 makes every rank write,
+    for hosts with private disks (the JAX package's switch)."""
     path = os.path.abspath(path)
     ckpt_dir = os.path.join(path, f"step_{step}")
+    if not is_primary_host() and not os.environ.get("SAFEVLA_SAVE_ON_ALL_HOSTS"):
+        return ckpt_dir
     os.makedirs(path, exist_ok=True)
     if isinstance(state, TrainState):
         name, payload = _FILE, _train_state_payload(state)

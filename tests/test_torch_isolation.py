@@ -25,6 +25,7 @@ def test_importing_the_port_loads_no_jax():
     mods = list(_port_modules())
     assert "safevla_tpu_torch.ops.flash_attention" in mods
     assert {f"safevla_tpu_torch.models.{m}" for m in ("text_towers", "resnet", "visual_encoders")} <= set(mods)
+    assert {f"safevla_tpu_torch.parallel.{m}" for m in ("mesh", "distributed")} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

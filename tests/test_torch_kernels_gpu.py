@@ -793,3 +793,47 @@ def test_frozen_batch_norm_rounds_once_on_the_card(cuda):
     scale, shift = bn._scale_shift()
     assert y.dtype == torch.bfloat16 and y.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(y, torch.addcmul(shift, x, scale).to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_update_as_one(cuda, tmp_path):
+    """Learner.update of a small f32 policy (head dim 64: the kernels run) on
+    2 gloo ranks sharing cuda:0, each with its half of a 4 x 8 window,
+    against the 1-rank update of the whole window on the card: metrics at
+    1e-4, the step the global batch, the weights at 1e-5 but where Adam's
+    step went another way. The GEMMs run over 2 rows a rank against 4, so
+    f32 sums fall in another order, and a weight whose gradient is zero up
+    to that rounding in an epoch may take its step (lr * m / sqrt(v)) the
+    other way, as tests/test_torch_offline.py allows for AdamW's first step:
+    beyond 1e-5 in under 0.01% of the weights, and never by more than the
+    epochs' reach, 2 * update_repeats * lr."""
+    import torch_parallel_ranks as ranks
+    from safevla_tpu_torch.algo.learner import Learner
+    from safevla_tpu_torch.config import ModelConfig
+
+    vit_kw = dict(embed_dim=128, depth=2, num_heads=2, img_height=28, img_width=42)
+    model = dict(hidden_size=128, num_tx_layers=2, num_tx_heads=2, goal_dims=128, text_embed_size=128,
+                 combiner_layers=3, combiner_heads=2, combiner_ffn_dim=256, dino_compressor_hidden_out_dims=(128, 128),
+                 vision_backbone="gpu_small", vision_feature_dim=128, image_size=(28, 42), max_steps=8,
+                 text_max_tokens=8, compute_dtype="float32", fusion_chunk=8)
+    payload = {"model": {**dataclasses.asdict(ModelConfig()), **model}, "vit": "gpu_small", "vit_kw": vit_kw,
+               "seed": 7, "cost": 3.0, "stage": 1, "overrides": {"ppo": {"normalize_advantage": True}},
+               "device": "cuda:0", "backend": "gloo", "dp": 2, "mdl": 1, "kinds": ["update"]}
+    payload["batch"] = ranks.window(payload["model"], 4, 8, seed=12)
+    got = ranks.run_ranks("learner_update", 2, payload, tmp_path, timeout=300)
+    ranks._register_vit(payload)
+    cfg = ranks._config(payload)
+    learner = Learner(ranks.seeded_policy(cfg, payload, torch.device("cuda")), cfg)
+    ts, metrics = learner.update(learner.init(), payload["batch"], 3.0, 1)
+    want = ranks._update_result(learner, ts, metrics)
+    reach = 2 * cfg.ppo.update_repeats * cfg.ppo.lr
+    for r in got:
+        assert r["update"]["step"] == want["step"] == 32
+        for k, v in want["metrics"].items():
+            assert abs(r["update"]["metrics"][k] - v) <= 1e-4 * (1 + abs(v)), k
+        diffs = {f"{t}.{k}": np.abs(r["update"]["towers"][t][k] - v)
+                 for t, sd in enumerate(want["towers"]) for k, v in sd.items()}
+        beyond = sum(int((d > 1e-5).sum()) for d in diffs.values())
+        assert beyond < 1e-4 * sum(d.size for d in diffs.values()), beyond
+        worst = max(diffs, key=lambda k: diffs[k].max())
+        assert diffs[worst].max() <= reach, (worst, diffs[worst].max())

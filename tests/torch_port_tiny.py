@@ -76,9 +76,10 @@ def port_policy(mcfg, params_np):
     return load_jax_params(policy, params_np)
 
 
-def rollout_batch(mcfg, seed=0, text_layout="table"):
-    """A (B, T) window with episode boundaries (stream 0 restarts at t=5,
+def rollout_batch(mcfg, seed=0, text_layout="table", b=B):
+    """A (b, T) window with episode boundaries (stream 0 restarts at t=5,
     stream 2 at t=3): traj_idx, not_reset, masks and time_step agree."""
+    B = b
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.normal(size=shape).astype(np.float32)
     gh, gw = mcfg.vision_grid
