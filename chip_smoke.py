@@ -17,7 +17,8 @@ Phases (none catches its own failure; any failure exits non-zero):
      path's shapes (the ViT on 1600 frames: attention B=1600 and LayerNorm
      over 716,800 rows; the fusion's chunks of 100 samples); head dims 384
      and 512 (the sliced design), 70,000 batch rows and 65,536 heads (the
-     launch split), forward and backward; times of the
+     launch split), forward and backward; the dp phase's per-rank shapes
+     where none of these holds them (`dp_kernel_shapes`); times of the
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA-event ms, host µs to enqueue a call, profiler device
      ms); the LayerNorm backward's kernels per call, and its two designs
@@ -43,16 +44,17 @@ Phases (none catches its own failure; any failure exits non-zero):
      1: one warm-up (LayerNorm kernels on), then timed updates with the
      kernels off and on in turns, one profiled update (kernels on), the launch counts of every update
      against the count the config implies; Learner.chunked_update (the async
-     pipeline's update) against the warm-up update, from the same weights;
+     pipeline's update) against Learner.update, one epoch each (the chunked
+     update's programs are host-bound), from the seed's weights;
   6. trainer: OnlineTrainer(cfg, sampler_factory, num_workers=0,
      async_pipeline=False).train() at the full default width on 32
-     FakeController streams at 224x384 (episodes of 100 steps), 128 steps per
+     FakeController streams at 224x384 (episodes of 100 steps), 64 steps per
      window in 2 overlap groups, stage 1, LayerNorm kernels on: one warm-up,
      one timed and one profiled window, each window's launches of every
      kernel against the count the config implies; then the same at the
      config's default, the async pipeline (`[trainer_async]`: 4 windows,
-     one fill, one timed (the first updated window), one profiled, then the
-     drain; the update's programs on a CUDA stream of their own); the sync trainer's
+     one fill, one warm-up, one timed, one profiled, then the drain; the
+     update's programs on a CUDA stream of their own); the sync trainer's
      final checkpoint kept for:
   7. evaluate: InferenceAgent.build from that checkpoint and from a
      reference-container torch file of its towers, each acting bit-equal to
@@ -75,7 +77,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      one update), and the discrete chunked_update against update;
   10. learning: tests/test_learning.py's ConstrainedBandit probe through the
      port's trainer on the card, sync and async, held to its dynamics
-     criteria (`check_dynamics`);
+     criteria (`check_dynamics`), in two processes of their own; beside
+     them (and beside the dp phase's ranks) the parent runs 3 and 9, which
+     time nothing, so the order of the run is 1, 2, 4-8, 3, 9, 10-13;
   11. offline: one BC step of the small f32 policy with one tower on the
      card against the CPU; OfflineTrainer at Config() with one tower, B=16,
      T=50 (uint8 224x384 frames of both cameras, every batch through
@@ -117,7 +121,8 @@ Phases (none catches its own failure; any failure exits non-zero):
      sync PickupType + mlp (1 window): the step counts the global batch,
      rank 0 alone writes the checkpoint and logs, both ranks'
      mean_episode_cost (> 0 once episodes end) and weights bit-equal, each
-     rank's launches against the config's count.
+     rank's launches against the config's count; every shape these runs
+     give the kernels (their streams per rank asserted) is checked in 2.
      Then the same updates through NCCL at world size 1 on the card (and
      on 2 ranks where the machine shows 2 cards; which of the two ran is
      printed). The ranks end bit-equal; a rank that fails or hangs past
@@ -200,11 +205,9 @@ ROTATION_BYTES = 128 * 2**20
 # features are stored in bf16, so within one bf16 rounding of them)
 REF_LN_TOL = 1e-4
 TRAINER_WINDOWS = 3  # one warm-up, one timed, one profiled
-# one fill (no update yet), one timed (the first updated window: the update's
-# shapes are warm from the training phase), one profiled; then the drain (a
-# warm-up window and two timed ones until the smoke took on the train_online,
-# learning and dp phases)
-ASYNC_WINDOWS = 3
+# one fill (no update yet), one warm-up, one timed, one profiled; then the drain (two timed
+# windows until the smoke took on the train_online and learning phases)
+ASYNC_WINDOWS = 4
 # the async trainer of the small f32 policy against the hand loop on the
 # default stream (f32 sums in other orders; an update moves a weight by
 # ~1e-4 at most)
@@ -212,7 +215,10 @@ ASYNC_REF_TOL = 1e-5
 # chunked_update vs update at full width in bf16: the fusion runs over other
 # batch sizes (64 / 32 samples against 128), so bf16 roundings fall elsewhere
 CHUNKED_METRIC_RTOL = 2e-2
-TRAINER_STREAMS, TRAINER_STEPS, TRAINER_GROUPS = 32, 128, 2
+# the trainer phases: the sync bench's 32 streams in 2 overlap groups (the
+# rollout's and the update's kernel shapes), their windows cut from its 128
+# steps to 64 to keep the smoke inside its time limit on slower hosts
+TRAINER_STREAMS, TRAINER_STEPS, TRAINER_GROUPS = 32, 64, 2
 TRAINER_EPISODE_STEPS = 100
 # the tiny config on the card vs the CPU, f32 everywhere: the tests' 1e-4
 # (tests/test_torch_serving_slice.py)
@@ -280,8 +286,8 @@ DP_METRIC_RTOL = CHUNKED_METRIC_RTOL
 DP_RANK_TIMEOUT_S = 420  # a spawned rank group; a hung collective ends the run
 # depth cut to keep the phase near 2 minutes: the chunked update runs one
 # epoch (its ~200 programs an epoch are host-bound: ~8 s each at full
-# width), the CLI an async fill + one updated window + the drain, and one
-# sync window
+# width; `chunked_check` runs one epoch too, against an update of one), the
+# CLI an async fill + one updated window + the drain, and one sync window
 DP_CHUNKED_REPEATS = 1
 DP_ONLINE_ASYNC_WINDOWS, DP_ONLINE_SYNC_WINDOWS = 2, 1
 
@@ -376,20 +382,23 @@ def device_ms_per_call(fn, iters: int = 20, tries: int = 3) -> float:
 
 def kernels_per_call(fn, calls: int = 4, tries: int = 3) -> float:
     """Device activities (kernels, copies, sets) per fn(), from the profiler
-    over `calls` calls. A profiled run in which it saw no device activity
-    at all (it misses a whole run now and then) is taken again, up to
-    `tries` times; 0 if it never saw any."""
+    over `calls` calls. A profiled run in which it saw no device activity,
+    or a count that is not a multiple of `calls` (it misses a whole run, or
+    some of a run's events, now and then: every call of fn launches the
+    same work), is taken again, up to `tries` times; the last run's count
+    per call if none was whole."""
     fn()
     torch.cuda.synchronize()
+    n = 0
     for _ in range(tries):
         with device_profiler() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         n = sum(n for _, _, n in device_rows(prof)[1])
-        if n:
-            return n / calls
-    return 0.0
+        if n and n % calls == 0:
+            break
+    return n / calls
 
 
 def timings(kernel, plain, library, plain_iters: int = 50, iters: int = 50) -> dict:
@@ -685,6 +694,59 @@ LN_OFFLINE_SHAPES = [
     ("fusion_offline", 100 * 208, 512, torch.bfloat16, torch.bfloat16),
     ("fusion_offline_cls", 100, 512, torch.bfloat16, torch.bfloat16),
 ]
+
+
+def dp_kernel_shapes(fusion_kl):
+    """The shapes the dp phase's ranks give the kernels, each rank on its
+    B / DP_RANKS streams, from the config: the update's fusion chunks (of
+    this rank's samples), the async update's chunks (their steps from every
+    rank's streams, `chunk_sizes`; their samples this rank's) at Config()
+    and at the CLI's 8 x 64, and the CLI rollout's acts (the ViT on both
+    cameras of this rank's share of a group, the fusion on its samples).
+    -> (attention forward, attention backward: (name, b, s, heads,
+    key_lens); LayerNorm forward: (name, rows, D, x dtype, out dtype);
+    LayerNorm backward: (name, rows, D))."""
+    from safevla_tpu_torch.algo.learner import chunk_sizes
+    from safevla_tpu_torch.config import Config
+
+    cfg = Config()
+    bf16, f32 = torch.bfloat16, torch.float32
+    kl = lambda n: [fusion_kl[i % len(fusion_kl)] for i in range(n)]
+    fusion = []  # (name, samples, whether the backward runs there)
+    for tag, b, t in (("", cfg.train.num_train_processes, cfg.ppo.num_steps), ("_online", ONLINE_STREAMS, ONLINE_STEPS)):
+        local = b // DP_RANKS
+        n = local * t
+        chunk = min(cfg.model.fusion_chunk or n, n)
+        while n % chunk:
+            chunk -= 1
+        chunk_t, bwd_chunk_t = chunk_sizes(cfg, b, t)
+        fusion += [(f"dp{tag}_update", chunk, True), (f"dp{tag}_embed_chunk", local * chunk_t, False),
+                   (f"dp{tag}_bwd_chunk", local * bwd_chunk_t, True)]
+    g = ONLINE_STREAMS // ONLINE_GROUPS // DP_RANKS
+    attn = [("dp_online_vit", 2 * g, 448, 6, [433] * (2 * g))]
+    attn += [(name, n, 208, 8, kl(n)) for name, n, _ in [("dp_online_fusion", g, False)] + fusion]
+    attn_bwd = [(name, n, 208, 8, kl(n)) for name, n, bwd in fusion if bwd]
+    ln_fwd = [("dp_online_vit", 2 * g * 448, 384, bf16, bf16), ("dp_online_vit_final", 2 * g * 448, 384, bf16, f32)]
+    for name, n, _ in [("dp_online_fusion", g, False)] + fusion:
+        ln_fwd += [(name, n * 208, 512, bf16, bf16), (f"{name}_cls", n, 512, bf16, bf16)]
+    ln_bwd = [shape for name, n, bwd in fusion if bwd for shape in ((name, n * 208, 512), (f"{name}_cls", n, 512))]
+    return attn, attn_bwd, ln_fwd, ln_bwd
+
+
+def check_unchecked(checked, shapes, shape_key, result_key, check):
+    """`check(*shape)` at each of `shapes` that no result in `checked` holds
+    (the same key; a new result is appended there); -> {shape name: the
+    name of the result that holds it}."""
+    held = {result_key(r): r["shape"] for r in checked}
+    out = {}
+    for shape in shapes:
+        k = shape_key(shape)
+        if k not in held:
+            res = check(*shape)
+            checked.append(res)
+            held[k] = res["shape"]
+        out[shape[0]] = held[k]
+    return out
 
 
 def _ln_inputs(r, d, dtype, gen):
@@ -1408,9 +1470,8 @@ def train(fa):
     on, then timed updates with them off and on in turns (TRAIN_FLAGS);
     returns its numbers and the warm-up's (metrics, new tower weights,
     initial tower weights on the CPU, the window's encoded instructions and
-    mask on the CPU), the update from the seed's weights that
-    `chunked_check` holds the chunked update to, and the dp phase its ranks'
-    update."""
+    mask on the CPU), the update from the seed's weights that the dp phase
+    holds its ranks' update to; `chunked_check` takes the window's text."""
     from safevla_tpu_torch.algo.learner import Learner
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
@@ -1520,8 +1581,9 @@ def train(fa):
 
 
 def trainer_config():
-    """The sync bench's shape (`bench.py`): the default Config() at full
-    width, 32 streams x 128 steps, stage 1 from the first step, one final
+    """The sync bench's shape (`bench.py`) at half its window: the default
+    Config() at full width, 32 streams x TRAINER_STEPS (bench.py: 128)
+    steps, stage 1 from the first step, one final
     checkpoint (under the git-ignored output/)."""
     from safevla_tpu_torch.config import Config
 
@@ -1756,57 +1818,43 @@ def chunked_update_launches(cfg, learner, b, t):
             "layer_norm_fwd": chunks * norms, "layer_norm_bwd": bwd * norms}
 
 
-def chunked_check(fa, reference):
-    """Learner.chunked_update at the full default width in bf16, on `train`'s
-    synthetic 32 x 128 window at stage 1 from the seed's weights, against
-    `reference`, `train`'s first Learner.update from the same weights and
-    batch (its metrics and new tower weights): the largest weight difference
-    and the metrics' relative differences (held to CHUNKED_METRIC_RTOL), the
-    chunked update's wall, and its launches against the count its chunks
-    imply."""
-    from safevla_tpu_torch.algo.learner import Learner
+def chunked_check(fa, ln, text):
+    """Learner.chunked_update at the full default width in bf16 against
+    Learner.update, one epoch each (DP_CHUNKED_REPEATS), from the seed's
+    weights on `train`'s synthetic 32 x 128 window at stage 1 (`dp_updates`;
+    `text`: the window's encoded instructions and mask): the largest weight
+    difference and the metrics' relative differences (held to
+    CHUNKED_METRIC_RTOL), the chunked update's wall, and both runs' launches
+    (asserted against the counts the config implies). -> (its numbers, the
+    chunked update's results, which the dp phase holds its ranks' to)."""
+    from safevla_tpu_torch.algo.learner import chunk_sizes
     from safevla_tpu_torch.config import Config
-    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
-    from safevla_tpu_torch.ops import layer_norm as ln
-    from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
 
+    ln_kernels(True)
+    attention_kernels(True)
     cfg = Config()
-    b, t = cfg.train.num_train_processes, cfg.ppo.num_steps
-    policy = SafeVLAPolicy(cfg.model, generator=torch.Generator().manual_seed(cfg.train.seed))
-    learner = Learner(policy, cfg)
-    ts = learner.init()
-    tokenizer = InstructionTokenizer(cfg.model.text_backbone, cfg.model.text_max_tokens)
-    tokens, mask = (torch.from_numpy(a).cuda() for a in tokenizer.encode_batch(INSTRUCTIONS))
-    with torch.no_grad():
-        text = policy.encode_text(tokens, mask)
-    batch = synthetic_batch(cfg.model, b, t, text, mask, seed=cfg.train.seed)
-    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
-    torch.cuda.synchronize()
-    reset_kernel_counts(fa, ln)
-    t0 = time.perf_counter()
-    ts, metrics = learner.chunked_update(ts, batch, MEAN_EPISODE_COST, 1)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernel_counts(fa, ln)
-    want = chunked_update_launches(cfg, learner, b, t)
-    assert launches == want, f"chunked update launches {launches}, expected {want}"
-    (m_u, w_u, *_), m_c = reference, {k: float(v) for k, v in metrics.items()}
-    weight_diff = max((a - p.detach().float()).abs().max().item() for a, p in zip(w_u, ts.tower_params.values()))
+    t = cfg.ppo.num_steps
+    chunk_t, bwd_chunk_t = chunk_sizes(cfg, cfg.train.num_train_processes, t)
+    _, _, out = dp_updates(fa, ln, ("update", "chunked"), text=text, update_epochs=DP_CHUNKED_REPEATS)
+    (m_u, w_u), (m_c, w_c) = ((out[k]["metrics"], out[k]["weights"]) for k in ("update", "chunked"))
+    weight_diff = max((a - c).abs().max().item() for a, c in zip(w_u, w_c))
     metric_rel = {k: abs(m_c[k] - m_u[k]) / max(abs(m_u[k]), 1e-12) for k in m_u}
-    res = {"max_weight_abs_diff": weight_diff, "metric_rel_diff": metric_rel, "metric_rtol": CHUNKED_METRIC_RTOL,
-           "chunked_update_wall_ms": wall * 1e3, "programs": learner.chunked_program_count(b, t),
-           "chunked_launches": launches, "metrics_update": m_u, "metrics_chunked": m_c}
+    res = {"epochs": DP_CHUNKED_REPEATS, "max_weight_abs_diff": weight_diff, "metric_rel_diff": metric_rel,
+           "metric_rtol": CHUNKED_METRIC_RTOL, "chunked_update_wall_ms": out["chunked"]["wall_ms"],
+           "update_wall_ms": out["update"]["wall_ms"],
+           "programs": 1 + DP_CHUNKED_REPEATS * (t // chunk_t + t // bwd_chunk_t + 2),
+           "chunked_launches": out["chunked"]["launches"], "metrics_update": m_u, "metrics_chunked": m_c}
     log(f"[train] chunked_update vs update, full width bf16: {json.dumps(res)}")
     bad = {k: v for k, v in metric_rel.items() if v > CHUNKED_METRIC_RTOL and k != "lagrange_multiplier"}
     assert not bad and metric_rel["lagrange_multiplier"] <= 1e-6, f"chunked vs update metrics: {bad}"
-    return res
+    return res, out["chunked"]
 
 
 def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
     """OnlineTrainer(Config()) with its default async pipeline at full width
-    (the sync trainer phase's 32 streams x 128 steps, stage 1), LayerNorm
-    kernels on, over `windows` windows: 1 fill (no update yet), the timed
-    ones, 1 profiled, then the drain of the last update. A window
+    (the sync trainer phase's 32 streams x TRAINER_STEPS, stage 1), LayerNorm
+    kernels on, over `windows` windows: 1 fill (no update yet), 1 warm-up,
+    the timed ones, 1 profiled, then the drain of the last update. A window
     runs from one collect to the next: its acts and the previous window's
     update (pumped during its collect, the rest enqueued after it). Per
     window: wall, env frames/s, rollout s, StageTimer sections and the
@@ -1892,7 +1940,7 @@ def trainer_async(fa, cfg=None, device="cuda", windows=ASYNC_WINDOWS):
             "update_step": step, "total": metrics["total"], "lagrange_multiplier": metrics["lagrange_multiplier"],
         })
         log(f"[trainer_async] {json.dumps(windows_out[-1])}")
-    timed = windows_out[1:-1]
+    timed = windows_out[2:-1]
     wall = float(np.median([w["wall_s"] for w in timed]))
     res = {
         "streams": b, "steps": t, "overlap_groups": groups, "episode_steps": TRAINER_EPISODE_STEPS,
@@ -2721,18 +2769,24 @@ def learning_run(async_pipeline: bool, device="cuda"):
     return series, time.perf_counter() - t0
 
 
-def learning(device="cuda"):
-    """The probe on the card, sync and async, each held to its dynamics
-    criteria (`check_dynamics`). The two runs are independent and host-bound
-    (the probe's model is tiny: hidden 64, head dim 16, so no kernel runs;
-    this tests the optimiser on the card), so they run side by side in two
-    spawned processes, which the pool joins before this returns."""
+def learning_start(device="cuda"):
+    """The probe on the card, sync and async, started: the two runs are
+    independent and host-bound (the probe's model is tiny: hidden 64, head
+    dim 16, so no kernel runs; this tests the optimiser on the card), so
+    they run side by side in two spawned processes. -> (the pool, the
+    runs' futures) for `learning`."""
     import concurrent.futures
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(2, mp_context=multiprocessing.get_context("spawn"))
+    return pool, {mode: pool.submit(learning_run, mode == "async", device) for mode in ("sync", "async")}
+
+
+def learning(started):
+    """The probe's runs (`learning_start`) joined, each held to its
+    dynamics criteria (`check_dynamics`)."""
+    pool, futures = started
     with pool:
-        futures = {mode: pool.submit(learning_run, mode == "async", device) for mode in ("sync", "async")}
         runs = {mode: future.result() for mode, future in futures.items()}
     res = {}
     for mode, (series, wall) in runs.items():
@@ -3054,11 +3108,12 @@ def dp_small(mesh=None):
     return {k: float(v) for k, v in metrics.items()}, [p.detach().cpu() for p in ts.tower_params.values()], ts.step
 
 
-def dp_updates(fa, ln, kinds, mesh=None, text=None):
+def dp_updates(fa, ln, kinds, mesh=None, text=None, update_epochs=None):
     """`train`'s update at Config() width (stage 1, the synthetic 32 x 128
-    window, the seed's weights) and/or Learner.chunked_update (one epoch,
-    DP_CHUNKED_REPEATS) from the same weights, on the mesh's rows of the
-    window (all of it without a mesh). `text`: the window's (encoded
+    window, the seed's weights; `update_epochs`, None: the config's) and/or
+    Learner.chunked_update (one epoch, DP_CHUNKED_REPEATS) from the same
+    weights, on the mesh's rows of the window (all of it without a mesh).
+    `text`: the window's (encoded
     instructions, mask); None encodes INSTRUCTIONS with this policy's T5.
     Per kind: metrics, the new tower weights (CPU), wall, and the kernel
     launches, asserted against the count the config implies for this
@@ -3091,9 +3146,9 @@ def dp_updates(fa, ln, kinds, mesh=None, text=None):
         with torch.no_grad():
             for p, w in zip(params, w0):
                 p.copy_(w)
-        if kind == "chunked":
-            cfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, update_repeats=DP_CHUNKED_REPEATS))
-        learner = Learner(policy, cfg, mesh)
+        epochs = DP_CHUNKED_REPEATS if kind == "chunked" else update_epochs or cfg.ppo.update_repeats
+        kcfg = dataclasses.replace(cfg, ppo=dataclasses.replace(cfg.ppo, update_repeats=epochs))
+        learner = Learner(policy, kcfg, mesh)
         ts = learner.init()
         torch.cuda.synchronize(dev)
         reset_kernel_counts(fa, ln)
@@ -3104,18 +3159,17 @@ def dp_updates(fa, ln, kinds, mesh=None, text=None):
         wall = time.perf_counter() - t0
         launches = kernel_counts(fa, ln)
         if kind == "update":
-            fwd, bwd = update_launches(cfg, b_local, t)
-            ln_fwd, ln_bwd = update_ln_launches(cfg, b_local, t)
+            fwd, bwd = update_launches(kcfg, b_local, t)
+            ln_fwd, ln_bwd = update_ln_launches(kcfg, b_local, t)
             want = {"attention_fwd": fwd, "attention_bwd": bwd, "layer_norm_fwd": ln_fwd, "layer_norm_bwd": ln_bwd}
         else:
-            want = chunked_update_launches(cfg, learner, b, t)
+            want = chunked_update_launches(kcfg, learner, b, t)
         assert launches == want, f"{kind} on {b_local} of {b} streams: launches {launches}, expected {want}"
         assert ts.step == b * t, ts.step
         values = {k: float(v) for k, v in metrics.items()}
         assert all(np.isfinite(list(values.values()))), values
         out[kind] = {"metrics": values, "weights": [p.detach().float().cpu() for p in params],
-                     "wall_ms": wall * 1e3, "launches": launches, "streams": b_local,
-                     "epochs": cfg.ppo.update_repeats}
+                     "wall_ms": wall * 1e3, "launches": launches, "streams": b_local, "epochs": epochs}
     return [w.float().cpu() for w in w0], (text[0].cpu(), text[1].cpu()), out
 
 
@@ -3324,11 +3378,14 @@ def dp_start(first_update):
     return DpRanks(DP_RANKS, DP_WORK, "gloo", "cuda:0", ("small", "updates", "cli"))
 
 
-def dp(fa, ln, ranks, ranks_wall_s, first_update):
+def dp(fa, ln, ranks, ranks_wall_s, first_update, chunked_ref, kernel_shapes):
     """The dp phase (the module docstring, phase 13): the joined ranks'
     results against the 1-rank runs on the whole windows (`train`'s first
-    update; the small f32 policy's update and the one-epoch chunked update,
-    run here), then the same update through NCCL on the card."""
+    update, `chunked_check`'s one-epoch chunked update `chunked_ref`, and
+    the small f32 policy's update, run here), then the same update through
+    NCCL on the card.
+    `kernel_shapes`: where phase 2 held the kernels at the ranks' shapes
+    (`dp_kernel_shapes`, whose streams per rank are asserted here)."""
     from safevla_tpu_torch.config import Config
     from safevla_tpu_torch.parallel import make_mesh
     from safevla_tpu_torch.parallel.distributed import initialize_multihost, shutdown_multihost
@@ -3336,19 +3393,19 @@ def dp(fa, ln, ranks, ranks_wall_s, first_update):
     ln_kernels(True)
     attention_kernels(True)
     work, card, cfg = DP_WORK, card_line(), Config()
-    # the 1-rank runs on the whole windows: train()'s first update is the
-    # update's reference (the same seed weights, window and stage)
+    # the 1-rank runs on the whole windows: train()'s first update and
+    # chunked_check's chunked update are the references (the same seed
+    # weights, window and stage)
     t0 = time.perf_counter()
     m_first, w_first, w0, text = first_update
     small_ref = dp_small()
-    _, _, ref = dp_updates(fa, ln, ("chunked",), None, text)
-    ref["update"] = {"metrics": m_first, "weights": [w.cpu() for w in w_first]}
+    ref = {"chunked": chunked_ref, "update": {"metrics": m_first, "weights": [w.cpu() for w in w_first]}}
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[dp] the 1-rank references in {time.perf_counter() - t0:.1f} s")
 
     res = {"card": card, "ranks": DP_RANKS, "backend": "gloo", "device": "cuda:0", "ranks_wall_s": ranks_wall_s,
-           "ranks_beside": "the learning phase's two processes"}
+           "ranks_beside": "the learning phase's two processes", "kernel_shapes": kernel_shapes}
     assert [r["info"]["process_index"] for r in ranks] == list(range(DP_RANKS))
     for key in ("small", "update", "chunked"):  # the ranks end bit-equal
         assert len({r[key]["digest"] for r in ranks}) == 1, f"dp {key}: the ranks' weights differ"
@@ -3364,6 +3421,7 @@ def dp(fa, ln, ranks, ranks_wall_s, first_update):
     res["small_f32"] = {"metric_rel_err": small_metric_err, "weight_abs_err": small_weight_err}
     for kind in ("update", "chunked"):
         got, want = ranks[0][kind], ref[kind]
+        assert got["streams"] == cfg.train.num_train_processes // DP_RANKS, got["streams"]  # dp_kernel_shapes
         w_dp = torch.load(os.path.join(work, f"rank0_{kind}.pt"))
         rel = delta_rel_l2(w_dp, want["weights"], w0)
         metric_rel = {k: abs(got["metrics"][k] - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-12)
@@ -3390,6 +3448,7 @@ def dp(fa, ln, ranks, ranks_wall_s, first_update):
         assert runs[0]["logs"] > 0 and not any(c["logs"] for c in runs[1:]), f"dp cli {name}: loggers"
         assert os.path.isfile(runs[0]["ckpt"]), runs[0]["ckpt"]
         assert sorted(i for c in runs for i in c["stream_ids"]) == list(range(ONLINE_STREAMS))
+        assert all(c["streams"] == ONLINE_STREAMS // DP_RANKS for c in runs)  # dp_kernel_shapes
         assert name == "sync" or max(runs[0]["mean_episode_cost"]) > 0, runs[0]["mean_episode_cost"]
         res[f"cli_{name}"] = {"step": runs[0]["step"], "run_s": [c["run_s"] for c in runs],
                               "mean_episode_cost": runs[0]["mean_episode_cost"],
@@ -3591,25 +3650,37 @@ def main() -> int:
     ln_fwd += [check_layer_norm(ln, *shape, gen) for shape in LN_OFFLINE_SHAPES]
     ln_bwd += [check_layer_norm_bwd(ln, name, r, d, gen) for name, r, d, dt, _ in LN_OFFLINE_SHAPES
                if dt == torch.bfloat16 and name.startswith("fusion")]
+    # the dp phase's shapes (each rank on its B / DP_RANKS streams), where no
+    # check above holds them already
+    dp_attn, dp_attn_bwd, dp_ln_fwd, dp_ln_bwd = dp_kernel_shapes(fusion_kl)
+    attn_key = lambda sh: (sh[1], sh[2], sh[3], 64, tuple(sorted(set(sh[4]))))
+    attn_res_key = lambda r: (r["qkv"][0], r["qkv"][1], r["heads"], r["head_dim"], tuple(r["key_lens"]))
+    dp_shapes = {
+        "attention_fwd": check_unchecked(shapes, dp_attn, attn_key, attn_res_key,
+                                         lambda *sh: check_attention(fa, *sh, gen)),
+        "attention_bwd": check_unchecked(bwd_shapes, dp_attn_bwd, attn_key, attn_res_key,
+                                         lambda *sh: check_attention_bwd(fa, *sh, gen)),
+        "layer_norm_fwd": check_unchecked(ln_fwd, dp_ln_fwd, lambda sh: (sh[1], sh[2], str(sh[3]), str(sh[4])),
+                                          lambda r: (r["rows"], r["dim"], r["dtype"], r["out_dtype"]),
+                                          lambda *sh: check_layer_norm(ln, *sh, gen)),
+        "layer_norm_bwd": check_unchecked(ln_bwd, dp_ln_bwd, lambda sh: sh[1:], lambda r: (r["rows"], r["dim"]),
+                                          lambda *sh: check_layer_norm_bwd(ln, *sh, gen)),
+    }
+    log(f"[kernels] the dp phase's shapes, each held by: {json.dumps(dp_shapes)}")
     for res in ln_bwd:  # one cooperative kernel a call, dgamma / dbeta included
         assert res["kernels_per_call"] == 1, f"layer_norm_bwd {res['shape']}: {res['kernels_per_call']} kernels"
 
     phase_done = lambda name: log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
     phase_done("kernels vs plain")
 
-    # 3. reference on a small input; 4. serving, 5. training and 6. the
-    # trainer at full width, each path's kernel counts reset just before it
-    ref_diff = reference_check()
-    ref_update = reference_update()
-    ref_trainer = reference_trainer()
-    ref_tiny = reference_tiny(fa, ln)
-    ref_async = reference_async(fa, ln)
-    phase_done("reference")
+    # 4. serving, 5. training and 6. the trainer at full width, each path's
+    # kernel counts reset just before it (3., the reference on small inputs,
+    # runs beside the learning probe below: it times nothing)
     serving = serve(fa, ln_on=False)
     serving_ln = serve(fa, ln_on=True)
     phase_done("serving")
     training, first_update = train(fa)
-    chunked = chunked_check(fa, first_update)
+    chunked, chunked_ref = chunked_check(fa, ln, first_update[3])
     phase_done("training")
     kept = {}
     online = trainer(fa, keep=kept)
@@ -3621,10 +3692,19 @@ def main() -> int:
     phase_done("evaluate")
     online_path = train_online_phase(fa, ln)
     phase_done("train_online")
+    # the learning probe and the dp phase's ranks, started, and beside them
+    # the phases that time nothing: the reference on small inputs, the critics
+    dp_ranks = dp_start(first_update)
+    learning_runs = learning_start()
+    ref_diff = reference_check()
+    ref_update = reference_update()
+    ref_trainer = reference_trainer()
+    ref_tiny = reference_tiny(fa, ln)
+    ref_async = reference_async(fa, ln)
+    phase_done("reference")
     critic_heads = critics()
     phase_done("critics")
-    dp_ranks = dp_start(first_update)  # beside the learning probe, joined after it
-    learned = learning()
+    learned = learning(learning_runs)
     phase_done("learning")
     dp_ranks_out = dp_ranks.join()
     phase_done("dp ranks")
@@ -3636,7 +3716,7 @@ def main() -> int:
     phase_done("offline")
     enc = encoders(fa, ln)
     phase_done("encoders")
-    dp_res = dp(fa, ln, dp_ranks_out, dp_ranks.wall_s, first_update)
+    dp_res = dp(fa, ln, dp_ranks_out, dp_ranks.wall_s, first_update, chunked_ref, dp_shapes)
     phase_done("dp")
 
     # 7. results

@@ -60,7 +60,7 @@ from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.ops.gae import dual_gae
 from safevla_tpu_torch.ops.hl_gauss import HLGauss
-from safevla_tpu_torch.parallel.mesh import Mesh
+from safevla_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, world_size
 
 
 @dataclass
@@ -115,6 +115,27 @@ def stage_spec_from_config(stage_cfg, ppo) -> StageSpec:
         else:
             raise ValueError(f"Unknown loss name in pipeline stage: {name!r}")
     return StageSpec(action, value, c_value, imitation, use_lagrange)
+
+
+def chunk_sizes(cfg: Config, b: int, t: int) -> Tuple[int, int]:
+    """(fwd_chunk_t, bwd_chunk_t): time steps per chunk program for a (b, t)
+    window of b streams over every rank (JAX's chunk programs take all B,
+    sharded). cfg.model.async_fusion_chunk (None: fusion_chunk; 0: the whole
+    window) counts flat samples; a chunk takes all b streams x chunk_t
+    steps, chunk_t the next divisor of t upward of knob / b; the backward's
+    is the largest divisor of t not above half of it."""
+    cfg_chunk = cfg.model.async_fusion_chunk
+    if cfg_chunk is None:
+        cfg_chunk = cfg.model.fusion_chunk
+    n = b * t
+    chunk_flat = min(cfg_chunk or n, n)
+    chunk_t = max(1, min(-(-chunk_flat // b), t))
+    while t % chunk_t:
+        chunk_t += 1
+    bwd_chunk_t = max(chunk_t // 2, 1)
+    while t % bwd_chunk_t:
+        bwd_chunk_t -= 1
+    return chunk_t, bwd_chunk_t
 
 
 class Learner:
@@ -240,19 +261,16 @@ class Learner:
         mb["old_values"] = batch["values"][:, :-1]
         mb["old_c_values"] = batch["c_values"][:, :-1]
         if ppo.normalize_advantage:
+            # the mean and std (ddof 0, jnp's) over the global batch, in jnp's
+            # two passes: every rank holds as many rows (each dp shard on mdl
+            # ranks), so the global count is this rank's times the world size
             keys = ("advantages", "c_advantages")
-            if self.mesh is None:
-                for k in keys:
-                    a = mb[k]
-                    mb[k] = (a - a.mean()) / (a.std(correction=0) + 1e-8)  # jnp's std: ddof 0
-            else:  # the global mean and std (ddof 0), in jnp's two passes
-                n = torch.tensor(float(mb[keys[0]].numel()), device=self.device)
-                sums = self.mesh.all_reduce_sum(torch.stack([torch.stack([mb[k].sum(), n]) for k in keys]))
-                mean = sums[:, 0] / sums[:, 1]
-                sq = torch.stack([((mb[k] - mean[i]) ** 2).sum() for i, k in enumerate(keys)])
-                std = torch.sqrt(self.mesh.all_reduce_sum(sq) / sums[:, 1])
-                for i, k in enumerate(keys):
-                    mb[k] = (mb[k] - mean[i]) / (std[i] + 1e-8)
+            n = mb[keys[0]].numel() * world_size(self.mesh)
+            mean = all_reduce_sum(self.mesh, torch.stack([mb[k].sum() for k in keys])) / n
+            sq = torch.stack([((mb[k] - mean[i]) ** 2).sum() for i, k in enumerate(keys)])
+            std = torch.sqrt(all_reduce_sum(self.mesh, sq) / n)
+            for i, k in enumerate(keys):
+                mb[k] = (mb[k] - mean[i]) / (std[i] + 1e-8)
 
         # 2. lambda ascent (only in stages with the Lagrangian loss)
         lagrange = train_state.lagrange
@@ -262,13 +280,12 @@ class Learner:
 
     def _finish(self, train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t):
         """The returned state and the last epoch's metrics (0-d tensors); `b`
-        is the global stream count. On a mesh the loss metrics are their
-        means over the ranks (the norms are global already)."""
+        is the global stream count. The loss metrics are their means over
+        the ranks (the norms are global already)."""
         metrics = {k: v.detach() for k, v in metrics.items()}
-        if self.mesh is not None:
-            keys = [k for k in metrics if k not in ("grad_norm", "weight_norm")]
-            vals = self.mesh.all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
-            metrics.update(zip(keys, vals / self.mesh.world_size))
+        keys = [k for k in metrics if k not in ("grad_norm", "weight_norm")]
+        vals = all_reduce_sum(self.mesh, torch.stack([metrics[k].float() for k in keys]))
+        metrics.update(zip(keys, vals / world_size(self.mesh)))
         metrics["lagrange_multiplier"] = lam
         metrics["mean_episode_cost"] = torch.as_tensor(
             mean_episode_cost, dtype=torch.float32, device=self.device
@@ -287,8 +304,7 @@ class Learner:
         go into `metrics`. On a mesh the gradients are first replaced by
         their mean over the ranks (one collective, on the current stream)."""
         with torch.no_grad():
-            if self.mesh is not None:
-                self.mesh.all_reduce_mean_(grads)
+            all_reduce_mean_(self.mesh, grads)
             clipped, metrics["grad_norm"] = clip_by_global_norm(grads, self.cfg.ppo.max_grad_norm)
             metrics["weight_norm"] = global_norm(params)
         return adam_step(params, clipped, opt_state, self.cfg.ppo.lr)
@@ -322,24 +338,7 @@ class Learner:
     # a time between the rollout's acts
     # ------------------------------------------------------------------
     def chunk_sizes(self, b: int, t: int) -> Tuple[int, int]:
-        """(fwd_chunk_t, bwd_chunk_t): time steps per chunk program for a
-        (b, t) window of b streams over every rank (JAX's chunk programs
-        take all B, sharded). cfg.model.async_fusion_chunk (None:
-        fusion_chunk; 0: the whole window) counts flat samples; a chunk takes all b streams x
-        chunk_t steps, chunk_t the next divisor of t upward of knob / b; the
-        backward's is the largest divisor of t not above half of it."""
-        cfg_chunk = self.cfg.model.async_fusion_chunk
-        if cfg_chunk is None:
-            cfg_chunk = self.cfg.model.fusion_chunk
-        n = b * t
-        chunk_flat = min(cfg_chunk or n, n)
-        chunk_t = max(1, min(-(-chunk_flat // b), t))
-        while t % chunk_t:
-            chunk_t += 1
-        bwd_chunk_t = max(chunk_t // 2, 1)
-        while t % bwd_chunk_t:
-            bwd_chunk_t -= 1
-        return chunk_t, bwd_chunk_t
+        return chunk_sizes(self.cfg, b, t)
 
     def chunked_program_count(self, b: int, t: int) -> int:
         """Programs `iter_chunked_update` yields for a (b, t) window (b: every

@@ -112,6 +112,24 @@ class Mesh:
         dist.barrier(group=self.cpu_group)
 
 
+# -- reductions over an optional mesh (None: one device, where each is the
+# -- identity), so that a caller has one path with or without a mesh -------
+def all_reduce_sum(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
+    """t summed over the mesh's ranks (in place); t itself without a mesh."""
+    return t if mesh is None else mesh.all_reduce_sum(t)
+
+
+def all_reduce_mean_(mesh: Optional[Mesh], tensors: Sequence[torch.Tensor]) -> None:
+    """Each tensor replaced by its mean over the mesh's ranks (one
+    collective); left as it is without a mesh."""
+    if mesh is not None:
+        mesh.all_reduce_mean_(tensors)
+
+
+def world_size(mesh: Optional[Mesh]) -> int:
+    return 1 if mesh is None else mesh.world_size
+
+
 def _unflatten(flat: torch.Tensor, tensors: Sequence[torch.Tensor]) -> None:
     offset = 0
     with torch.no_grad():

@@ -602,10 +602,11 @@ class RolloutRunner:
     def _record_episodes(self) -> None:
         """The window's finished episodes, every rank's on a mesh, into the
         episode-cost window and the episode metrics in the 1-rank order:
-        time step, group, stream."""
+        time step, group, stream. The mdl ranks of a dp shard step the same
+        streams, so one copy of each shard's episodes is kept."""
         finished, self._finished = self._finished, []
         if self.mesh is not None:
-            finished = [e for part in self.mesh.gather_objects(finished) for e in part]
+            finished = [e for part in self.mesh.gather_objects(finished)[:: self.mesh.mdl] for e in part]
         for _, _, _, cost, metrics in sorted(finished, key=lambda e: e[:3]):
             self.episode_costs.append(cost)
             if metrics:

@@ -55,7 +55,7 @@ from safevla_tpu_torch.config import Config
 from safevla_tpu_torch.constants import rgb_norm_constants
 from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.parallel.distributed import is_primary_host
-from safevla_tpu_torch.parallel.mesh import Mesh
+from safevla_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, world_size
 from safevla_tpu_torch.preprocessing.augment import (
     apply_augment,
     identity_augment_params,
@@ -87,28 +87,21 @@ def cross_entropy_ignore_index(logits, targets, ignore_index: int = -1):
     return torch.sum(nll * valid) / torch.clamp(torch.sum(valid), min=1)
 
 
-def _accuracy(logits, targets):
-    preds = torch.argmax(logits, dim=-1)
-    valid = targets != -1
-    acc = torch.sum((preds == targets) * valid) / torch.clamp(torch.sum(valid), min=1)
-    return preds, valid, acc
-
-
-def _global_masked_means(mesh: Mesh, logits, targets, ignore_index: int = -1):
-    """The masked loss and accuracy over every rank's rows: (this rank's
-    loss, whose rank-mean gradient is the global loss's gradient; the global
-    loss; the global accuracy; preds; valid). One all-reduce of (sum of nll,
-    valid count, correct count); each sum is counted mdl times over the
-    ranks, the ratios are not."""
+def _masked_means(mesh: Optional[Mesh], logits, targets, ignore_index: int = -1):
+    """The masked loss and accuracy over every rank's rows (this device's
+    without a mesh): (this rank's loss, whose rank-mean gradient is the
+    global loss's gradient; the global loss; the global accuracy; preds;
+    valid). One all-reduce of (sum of nll, valid count, correct count); each
+    sum is counted mdl times over the ranks, the ratios are not."""
     valid = targets != ignore_index
     safe_targets = torch.where(valid, targets, 0).long()
     logp = torch.log_softmax(logits, dim=-1)
     nll_sum = torch.sum(-torch.gather(logp, -1, safe_targets[..., None])[..., 0] * valid)
     preds = torch.argmax(logits.detach(), dim=-1)
     sums = torch.stack([nll_sum.detach(), valid.sum().float(), ((preds == targets) * valid).sum().float()])
-    sums = mesh.all_reduce_sum(sums)
+    sums = all_reduce_sum(mesh, sums)
     count = torch.clamp(sums[1], min=1)
-    return nll_sum * mesh.world_size / count, sums[0] / count, sums[2] / count, preds, valid
+    return nll_sum * world_size(mesh) / count, sums[0] / count, sums[2] / count, preds, valid
 
 
 class OfflineTrainer:
@@ -236,12 +229,8 @@ class OfflineTrainer:
 
     def _bc_loss(self, batch, aug):
         logits = self._forward(batch, aug)
-        if self.mesh is not None:
-            loss, bc_loss, acc, _, _ = _global_masked_means(self.mesh, logits, batch["actions"])
-            return loss, {"bc_loss": bc_loss, "accuracy": acc}
-        loss = cross_entropy_ignore_index(logits, batch["actions"])
-        _, _, acc = _accuracy(logits.detach(), batch["actions"])
-        return loss, {"bc_loss": loss.detach(), "accuracy": acc}
+        loss, bc_loss, acc, _, _ = _masked_means(self.mesh, logits, batch["actions"])
+        return loss, {"bc_loss": bc_loss, "accuracy": acc}
 
     def _bc_step(self, state: BCTrainState, batch, aug):
         """One BC step -> (the new state, metrics as 0-d device tensors). The
@@ -251,8 +240,7 @@ class OfflineTrainer:
         # a leaf the loss does not reach (the critic head) gets no gradient:
         # optax still counts and decays it (adamw_step takes None as zeros)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
-        if self.mesh is not None:  # every rank leaves out the same leaves
-            self.mesh.all_reduce_mean_([g for g in grads if g is not None])
+        all_reduce_mean_(self.mesh, [g for g in grads if g is not None])  # the same leaves on every rank
         with torch.no_grad():
             metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
         opt_state = adamw_step(params, grads, state.opt_state, self.lr)
@@ -261,11 +249,7 @@ class OfflineTrainer:
     @torch.no_grad()
     def _eval_step(self, state: BCTrainState, batch):
         logits = self._forward(batch, identity_augment_params())
-        if self.mesh is not None:
-            _, loss, acc, preds, valid = _global_masked_means(self.mesh, logits, batch["actions"])
-        else:
-            loss = cross_entropy_ignore_index(logits, batch["actions"])
-            preds, valid, acc = _accuracy(logits, batch["actions"])
+        _, loss, acc, preds, valid = _masked_means(self.mesh, logits, batch["actions"])
         return {"val_loss": loss, "val_accuracy": acc, "preds": preds, "valid": valid}
 
     # ------------------------------------------------------------------

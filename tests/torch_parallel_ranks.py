@@ -22,6 +22,7 @@ import socket
 import subprocess
 import sys
 import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -282,8 +283,9 @@ def costly(factory):
 
 def trainer_windows(payload):
     """OnlineTrainer.train over the payload's windows (sync), with each
-    collect's actions and stats recorded; on a mesh when the payload's dp is
-    set (this rank of a group), else alone."""
+    collect's actions and stats recorded, the episode-cost window cut to
+    the payload's length; on a mesh when the payload's dp is set (this rank
+    of a group, mdl from the payload), else alone."""
     from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
     from safevla_tpu_torch.parallel import make_mesh
     from safevla_tpu_torch.training.online import OnlineTrainer
@@ -291,13 +293,14 @@ def trainer_windows(payload):
     mesh = None
     if payload["dp"]:
         _join()
-        mesh = make_mesh(dp=payload["dp"])
+        mesh = make_mesh(dp=payload["dp"], mdl=payload.get("mdl", 1))
     _register_vit(payload)
     cfg = _config(payload)
     reseed_hosts(5)
     logs, windows = [], []
     trainer = OnlineTrainer(cfg, costly(make_sampler_factory(max_steps=payload["episode_steps"])), num_workers=0,
                             log_fn=lambda m, s: logs.append((s, m)), device="cpu", mesh=mesh)
+    trainer.runner.episode_costs = deque(maxlen=payload["episode_cost_window"])
     collect = trainer.runner.collect
 
     def recorded(*a, **kw):
