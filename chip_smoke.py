@@ -79,7 +79,7 @@ Phases (none catches its own failure; any failure exits non-zero):
      port's trainer on the card, sync and async, held to its dynamics
      criteria (`check_dynamics`), in two processes of their own; beside
      them (and beside the dp phase's ranks) the parent runs 3 and 9, which
-     time nothing, so the order of the run is 1, 2, 4-8, 3, 9, 10-13;
+     time nothing, so the order of the run is 1, 2, 4-8, 3, 9, 10-14;
   11. offline: one BC step of the small f32 policy with one tower on the
      card against the CPU; OfflineTrainer at Config() with one tower, B=16,
      T=50 (uint8 224x384 frames of both cameras, every batch through
@@ -131,7 +131,23 @@ Phases (none catches its own failure; any failure exits non-zero):
      joined after it; the 1-rank update they are held to is phase 5's
      first update (the same seed weights, window and stage); the small
      update, the one-epoch chunked update and the NCCL run follow phase 12;
-  14. one JSON line of kernels, then the last line
+  14. thor: the AI2-THOR stack on the mock backend of the tests
+     (`tests/torch_thor_mock.py`, loaded by its path; its `ai2thor` and a
+     stand-in for the T5 tokenizer's files in sys.modules for the phase
+     only), at Config() width: (a) `cli.evaluate.main` through its THOR
+     branch (`--houses-dir`, StretchController over LazyJsonHouses) on 2
+     ObjectNav episodes of at most THOR_EPISODE_STEPS steps on the serving
+     streams, the launches per act asserted, ms per act; (b) one more
+     episode with its controller wrapped in RecordingController, acted
+     greedily, then replayed through ReplayController (and the recorded
+     frames) by a fresh agent state over the same weights: every action
+     equal, or the replay raises; (c) one sync trainer window of
+     THOR_STREAMS x ONLINE_STEPS in worker processes with the frames
+     through shared-memory rings and SAFEVLA_MERGED_FETCH=1, then with
+     pipes and the per-group fetch: actions, episode costs and weights
+     bit-equal, both windows' StageTimer action_fetch / env_step /
+     dispatch, env frames/s, beside the card's name and power limit;
+  15. one JSON line of kernels, then the last line
      {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
@@ -143,6 +159,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import gzip
 import hashlib
 import json
 import os
@@ -289,6 +306,16 @@ DP_RANK_TIMEOUT_S = 420  # a spawned rank group; a hung collective ends the run
 # width; `chunked_check` runs one epoch too, against an update of one), the
 # CLI an async fill + one updated window + the drain, and one sync window
 DP_CHUNKED_REPEATS = 1
+# the thor phase: THOR_EPISODES ObjectNav episodes through the evaluation
+# CLI's AI2-THOR branch on the mock backend (tests/torch_thor_mock.py), each
+# at most THOR_EPISODE_STEPS steps (the KV cache cut to match), and one more
+# recorded and replayed; the shm / merged-fetch window of ONLINE_STEPS steps
+# on THOR_STREAMS streams in ONLINE_GROUPS groups: a dp rank's share of the
+# train_online phase's streams, whose rollout and update shapes phase 2 holds
+# for the dp phase (each window starts a worker process a stream: 9-18 s for
+# 8 on the hosts seen, the phase's largest cost)
+THOR_EPISODES, THOR_EPISODE_STEPS = 2, 32
+THOR_STREAMS = ONLINE_STREAMS // DP_RANKS
 DP_ONLINE_ASYNC_WINDOWS, DP_ONLINE_SYNC_WINDOWS = 2, 1
 
 
@@ -3497,6 +3524,348 @@ def dp(fa, ln, ranks, ranks_wall_s, first_update, chunked_ref, kernel_shapes):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the thor phase: the AI2-THOR stack on the mock backend, and the host-side
+# options of the env pool and the runner
+# ---------------------------------------------------------------------------
+
+THOR_MOCK = os.path.join("tests", "torch_thor_mock.py")
+
+
+def load_thor_mock():
+    """`tests/torch_thor_mock.py` (it imports neither package), loaded by its
+    path from the repository root."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_thor_mock", THOR_MOCK)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def thor_backend(mock):
+    """The mock `ai2thor` and the T5 tokenizer's stand-in in sys.modules for
+    the phase, the modules they replace put back after it."""
+    names = ("ai2thor", "ai2thor.controller", "ai2thor.fifo_server", "transformers")
+    saved = {n: sys.modules.get(n) for n in names}
+    mock.install(sys.modules)
+    sys.modules["transformers"] = mock.text_tokenizer()
+    try:
+        yield
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+class CostlyStreams:
+    """`with_costs` over a sampler factory, as an object that env-pool worker
+    processes (forkserver) can be handed."""
+
+    def __init__(self, factory):
+        self.factory = factory
+
+    def __call__(self, stream_id):
+        return with_costs(self.factory)(stream_id)
+
+
+class OneEpisode:
+    """A sampler of one task, then none (its stream ends): what a stream of
+    BatchedEvaluator pulls from."""
+
+    def __init__(self, make_task=None):
+        self.make_task = make_task
+
+    def next_task(self, force_advance_scene=False):
+        make, self.make_task = self.make_task, None
+        return make() if make is not None else None
+
+    def close(self):
+        pass
+
+
+def frame_replay_classes():
+    """RecordingController keeping each snapshot's camera frames beside its
+    trace (the cameras are not part of the recorded surface), and a
+    ReplayController serving them, so a replayed agent sees the frames the
+    recorded one saw."""
+    from safevla_tpu_torch.envs.replay_controller import RecordingController, ReplayController
+
+    class FrameRecorder(RecordingController):
+        def __init__(self, inner, targets):
+            super().__init__(inner, targets)
+            self.camera_frames = []
+
+        def _snapshot(self, action, event):
+            super()._snapshot(action, event)
+            del self.camera_frames[len(self.frames) - 1:]  # a reset clears, a teleport replaces
+            self.camera_frames.append((self.inner.navigation_camera.copy(), self.inner.manipulation_camera.copy()))
+
+    class FrameReplay(ReplayController):
+        def __init__(self, path, camera_frames):
+            super().__init__(path)
+            self.camera_frames = camera_frames
+
+        @property
+        def navigation_camera(self):
+            return self.camera_frames[self.cursor][0]
+
+        @property
+        def manipulation_camera(self):
+            return self.camera_frames[self.cursor][1]
+
+    return FrameRecorder, FrameReplay
+
+
+def thor_evaluate(fa, ln, mock, out_root, device="cuda"):
+    """(a) `cli.evaluate.main` through its AI2-THOR branch (`--houses-dir`,
+    no `--fake-env`) at Config() width on the mock backend: THOR_EPISODES
+    ObjectNav episodes of at most THOR_EPISODE_STEPS steps on the serving
+    streams, random weights from eval.seed; every act's launches against the
+    count per act, the ms per act."""
+    from safevla_tpu_torch.cli import evaluate as eval_cli
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.evaluation import types as eval_types
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+
+    cuda = torch.device(device).type == "cuda"
+    houses = [mock.make_house(seed) for seed in range(2)]
+    houses_dir = os.path.join(out_root, "houses")
+    os.makedirs(houses_dir)
+    with gzip.open(os.path.join(houses_dir, "val.jsonl.gz"), "wt") as f:
+        f.writelines(json.dumps(h) + "\n" for h in houses)
+    rows = mock.objectnav_rows(houses[1], 1, 1) + mock.objectnav_rows(houses[0], 0, THOR_EPISODES)[1:]
+    bench = os.path.join(out_root, "objectnavtype_val.jsonl.gz")
+    with gzip.open(bench, "wt") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    act_s, agents = [], []
+    act = InferenceAgent.act
+
+    def timed_act(self, *a):
+        agents[:] = [self]
+        t = time.perf_counter()
+        out = act(self, *a)  # ends in the action fetch
+        act_s.append(time.perf_counter() - t)
+        return out
+
+    cap = eval_types.MAX_EPISODE_LEN_PER_TASK.get("ObjectNavType")
+    eval_types.MAX_EPISODE_LEN_PER_TASK["ObjectNavType"] = THOR_EPISODE_STEPS
+    InferenceAgent.act = timed_act
+    reseed_hosts(Config().eval.seed)
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    try:
+        results = eval_cli.main(["--benchmark", bench, "--houses-dir", houses_dir, f"eval.num_workers={STREAMS}",
+                                 f"train.output_dir={out_root}"], device=device)
+    finally:
+        eval_types.MAX_EPISODE_LEN_PER_TASK["ObjectNavType"] = cap
+        InferenceAgent.act = act
+    if cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, ln)
+    model, depth = Config().model, agents[0].policy.vit.cfg.depth
+    want = {"attention_fwd": (depth + model.num_towers * (model.combiner_layers - 1)) * len(act_s),
+            "attention_bwd": 0, "layer_norm_fwd": ln_launches_per_act(depth, model) * len(act_s),
+            "layer_norm_bwd": 0}
+    assert launches == want or not cuda, f"thor evaluate launches {launches}, expected {want} ({len(act_s)} acts)"
+    table = results["safety_table"]
+    assert results["num_episodes"] == THOR_EPISODES == len(table), results["num_episodes"]
+    assert {r["sample_id"] for r in table} == {
+        f"task=ObjectNavType,house={r['house_index']},sub_house_id={i}" for i, r in enumerate(rows)}
+    assert all(np.isfinite(float(r["cost"])) and 1 <= r["ep_length"] <= THOR_EPISODE_STEPS + 1 for r in table)
+    assert all(np.isfinite(v) for v in results["aggregate"].values())
+    res = {"episodes": THOR_EPISODES, "streams": STREAMS, "episode_steps_max": THOR_EPISODE_STEPS,
+            "acts": len(act_s), "wall_s": wall, "ms_per_act": wall / len(act_s) * 1e3,
+            "act_ms_mean": float(np.mean(act_s[2:]) * 1e3), "act_ms_median": float(np.median(act_s[2:]) * 1e3),
+            "launches": launches, "safety_table": table,
+            "aggregate": {k: results["aggregate"][k] for k in ("success", "cost", "sel", "spl", "ep_length")
+                          if k in results["aggregate"]}}
+    return res, agents[0].policy
+
+
+def thor_replay(fa, ln, mock, out_root, policy, device="cuda"):
+    """(b) One more ObjectNav episode on the mock backend, its controller
+    wrapped in RecordingController, acted greedily on the serving streams by
+    an agent over (a)'s Config()-width policy; then another agent (a fresh
+    state) over the same policy through ReplayController on that trace and
+    the recorded frames, which raises on the first action that differs from
+    the recording."""
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.constants import ALL_STRETCH_ACTIONS
+    from safevla_tpu_torch.envs.sensors import default_train_sensors
+    from safevla_tpu_torch.envs.thor_controller import StretchController, default_thor_env_args
+    from safevla_tpu_torch.evaluation.agent import InferenceAgent
+    from safevla_tpu_torch.evaluation.evaluator import BatchedEvaluator
+    from safevla_tpu_torch.tasks import REGISTERED_TASKS
+
+    FrameRecorder, FrameReplay = frame_replay_classes()
+    cfg = Config()
+    cfg.model = dataclasses.replace(cfg.model, max_steps=THOR_EPISODE_STEPS)
+    h, w = cfg.model.image_size
+    house = mock.make_house(7)
+    spec = {**mock.objectnav_rows(house, 0, 2)[1], "extras": {}}
+    targets = [o["id"] for o in house["objects"]]
+
+    def task(controller):
+        return REGISTERED_TASKS["ObjectNavType"](
+            controller=controller, task_info=json.loads(json.dumps(spec)),
+            sensors=default_train_sensors(rgb_height=h, rgb_width=w), max_steps=THOR_EPISODE_STEPS,
+            action_names=ALL_STRETCH_ACTIONS, reward_config=None)
+
+    def episode(agent, make_task):
+        builder = lambda queue: (lambda i: OneEpisode(make_task if i == 0 else None))
+        evaluator = BatchedEvaluator(cfg, builder, num_streams=STREAMS, num_workers=0,
+                                     max_episode_len=THOR_EPISODE_STEPS)
+        actions = []
+        act = agent.act
+
+        def logged(*a):
+            out = act(*a)
+            actions.append(int(out[0]))
+            return out
+
+        agent.act = logged
+        res = evaluator.evaluate(agent, [{**spec, "house_index": 0}], "ObjectNavType")
+        return res, actions
+
+    recorder = FrameRecorder(StretchController(**default_thor_env_args()), targets)
+
+    def recorded_task():
+        recorder.reset(json.loads(json.dumps(house)))
+        recorder.teleport_agent(spec["agent_starting_position"], {"x": 0, "y": spec["agent_y_rotation"], "z": 0})
+        return task(recorder)
+
+    assert policy.cfg.max_steps == THOR_EPISODE_STEPS
+    agent = InferenceAgent(cfg, policy, STREAMS, mode="greedy", seed=cfg.eval.seed, test_augmentation=False)
+    reseed_hosts(cfg.eval.seed)
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    live, live_actions = episode(agent, recorded_task)
+    record_s = time.perf_counter() - t0
+    trace = recorder.save(os.path.join(out_root, "thor_trace.jsonl.gz"))
+    replay = FrameReplay(trace, recorder.camera_frames)
+    steps = [ALL_STRETCH_ACTIONS[a] for a in live_actions]
+    assert replay.remaining_actions() == [a for a in steps if a not in ("end", "sub_done")]
+    fresh = InferenceAgent(cfg, policy, STREAMS, mode="greedy", seed=cfg.eval.seed, test_augmentation=False)
+    t0 = time.perf_counter()
+    replayed, replay_actions = episode(fresh, lambda: task(replay))  # raises on a divergent action
+    replay_s = time.perf_counter() - t0
+    launches = kernel_counts(fa, ln)
+    assert replay_actions == live_actions, "the replayed agent acted otherwise"
+    assert replay.cursor == len(replay.frames) - 1, "the replay ended before the trace"
+    return {"episode_steps": len(live_actions), "trace_frames": len(replay.frames), "record_s": record_s,
+            "replay_s": replay_s, "actions_equal": True, "launches": launches,
+            "ep_length": [live["safety_table"][0]["ep_length"], replayed["safety_table"][0]["ep_length"]]}
+
+
+def thor_shm_window(fa, ln, shm: bool, device="cuda"):
+    """(c) One sync trainer window at Config() width, THOR_STREAMS x
+    ONLINE_STEPS in ONLINE_GROUPS overlap groups, FakeController streams
+    with sparse per-stream costs, in worker processes; frames through the
+    shared-memory rings and the merged action fetch (`shm`), or through the
+    pipes with the per-group fetch. Returns the window's actions, episode
+    costs, weights digest, StageTimer sections and env frames/s."""
+    from safevla_tpu_torch.config import Config
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.training.online import OnlineTrainer
+
+    cfg = Config()
+    b, t = THOR_STREAMS, ONLINE_STEPS
+    cfg.train.num_train_processes, cfg.ppo.num_steps = b, t
+    cfg.train.async_pipeline = False
+    cfg.train.stages[0].max_stage_steps = 0
+    cfg.train.output_dir, cfg.train.tag = os.path.join("output", "chip_smoke", "thor"), "shm" if shm else "pipe"
+    cfg.train.save_interval = 10**12
+    os.environ["SAFEVLA_MERGED_FETCH"] = "1" if shm else "0"
+    reseed_hosts(cfg.train.seed)
+    t0 = time.perf_counter()
+    try:
+        tr = OnlineTrainer(cfg, CostlyStreams(make_sampler_factory(max_steps=TRAINER_EPISODE_STEPS // 2,
+                                                                   image_hw=cfg.model.image_size)),
+                           num_workers=b, async_pipeline=False, device=device,
+                           pool_options={"use_shm_frames": shm}, log_fn=lambda m, s: None)
+    finally:
+        os.environ.pop("SAFEVLA_MERGED_FETCH")
+    setup_s = time.perf_counter() - t0
+    assert tr.runner.n_groups == ONLINE_GROUPS and tr.runner._merged_fetch == shm
+    assert all(r is not None for r in tr.pool._rings) == shm
+    collected = {}
+    collect = tr.runner.collect
+
+    def kept(n, *a, **k):
+        batch, stats = collect(n, *a, **k)
+        collected.update(actions=batch["actions"].cpu(), stats=stats)
+        return batch, stats
+
+    tr.runner.collect = kept
+    ln_kernels(True)
+    reset_kernel_counts(fa, ln)
+    t0 = time.perf_counter()
+    ts = tr.train(b * t)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts(fa, ln)
+    timer = tr.runner.timer
+    res = {
+        "transport": "shm rings + merged fetch" if shm else "pipes + per-group fetch",
+        "streams": b, "steps": t, "overlap_groups": ONLINE_GROUPS, "setup_s": setup_s, "wall_s": wall,
+        "rollout_s": collected["stats"]["rollout_seconds"],
+        "env_frames_per_s": collected["stats"]["frames_per_second"],
+        "stage_timer": {k: {"total_s": timer.totals[k], "count": timer.counts[k]}
+                        for k in ("action_fetch", "env_step", "dispatch")},
+        "launches": launches, "final_step": ts.step,
+    }
+    out = (collected["actions"], list(tr.runner.episode_costs),
+           {k: v.detach().cpu().clone() for k, v in ts.tower_params.items()})
+    tr.close()
+    shutil.rmtree(cfg.train.output_dir, ignore_errors=True)
+    return res, out
+
+
+def thor(fa, ln, device="cuda"):
+    """The thor phase: (a) evaluation through the AI2-THOR branch of the
+    evaluation CLI, (b) record and replay of one more episode, (c) a trainer
+    window with the shared-memory frame rings and the merged action fetch
+    against the same window with pipes and the per-group fetch (weights,
+    actions and episode costs bit-equal). The acts run on the serving
+    streams and the window on a dp rank's share of the train_online phase's
+    streams in its groups: shapes phase 2 checks."""
+    mock = load_thor_mock()
+    out_root = os.path.join("output", "chip_smoke", "thor")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    ln_kernels(True)
+    with thor_backend(mock):
+        t0 = time.perf_counter()
+        evaluation, policy = thor_evaluate(fa, ln, mock, out_root, device)
+        log(f"[thor] evaluate {json.dumps({k: v for k, v in evaluation.items() if k != 'safety_table'})}")
+        replay = thor_replay(fa, ln, mock, out_root, policy, device)
+        del policy
+        replay["phase_s"] = time.perf_counter() - t0
+        log(f"[thor] replay {json.dumps(replay)}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    cuda = torch.device(device).type == "cuda"
+    card = card_line() if cuda else "cpu"
+    shm, shm_out = thor_shm_window(fa, ln, shm=True, device=device)
+    pipe, pipe_out = thor_shm_window(fa, ln, shm=False, device=device)
+    for res in (shm, pipe):
+        log(f"[thor] window {card}: {json.dumps(res)}")
+    assert torch.equal(shm_out[0], pipe_out[0]), "actions differ between the transports"
+    assert shm_out[1] == pipe_out[1] and sum(shm_out[1]) > 0, (shm_out[1], pipe_out[1])
+    assert shm_out[2].keys() == pipe_out[2].keys()
+    assert all(torch.equal(shm_out[2][k], pipe_out[2][k]) for k in shm_out[2]), "weights differ"
+    fetches = (shm["stage_timer"]["action_fetch"]["count"], pipe["stage_timer"]["action_fetch"]["count"])
+    assert fetches == (ONLINE_STEPS, ONLINE_STEPS * ONLINE_GROUPS), fetches
+    launches = {k: evaluation["launches"][k] + replay["launches"][k] + shm["launches"][k] + pipe["launches"][k]
+                for k in evaluation["launches"]}
+    assert all(v > 0 for v in launches.values()) or not cuda, f"thor: a kernel never launched: {launches}"
+    return {"evaluate": evaluation, "replay": replay, "shm": shm, "pipe": pipe, "launches": launches,
+            "bit_equal": True, "card": card}
+
+
 def profile_update(learner, ts, batch):
     """Device time of one more update by kernel (torch.profiler, device-side
     events only); the card's idle share follows from the un-profiled time."""
@@ -3718,6 +4087,8 @@ def main() -> int:
     phase_done("encoders")
     dp_res = dp(fa, ln, dp_ranks_out, dp_ranks.wall_s, first_update, chunked_ref, dp_shapes)
     phase_done("dp")
+    thor_res = thor(fa, ln)
+    phase_done("thor")
 
     # 7. results
     window_launches = {
@@ -3759,7 +4130,8 @@ def main() -> int:
              "offline": bc["launches"]["attention_fwd"],
              "train_online": online_path["launches"]["attention_fwd"],
              "encoders": enc["launches"]["attention_fwd"],
-             "dp": dp_res["launches"]["attention_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_fwd"]},
+             "dp": dp_res["launches"]["attention_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_fwd"],
+             "thor": thor_res["launches"]["attention_fwd"]},
             shapes[0], shapes, ATTN_TOL_BF16, design_by_dtype=attention_design,
             launches_per_act=serving["attention_launches_per_act"],
             launches_per_update=training["attention_fwd_launches_per_update"]),
@@ -3769,7 +4141,8 @@ def main() -> int:
              "trainer_async": async_launches["attention_bwd"], "offline": bc["launches"]["attention_bwd"],
              "train_online": online_path["launches"]["attention_bwd"],
              "encoders": enc["launches"]["attention_bwd"],
-             "dp": dp_res["launches"]["attention_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_bwd"]},
+             "dp": dp_res["launches"]["attention_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["attention_bwd"],
+             "thor": thor_res["launches"]["attention_bwd"]},
             bwd, bwd_shapes, BWD_TOL_BF16, design_by_dtype=attention_design,
             launches_per_update=training["attention_bwd_launches_per_update"]),
         # headline numbers at the rollout's ViT shape (24 of the 43 launches
@@ -3784,7 +4157,8 @@ def main() -> int:
              "offline": bc["launches"]["layer_norm_fwd"],
              "train_online": online_path["launches"]["layer_norm_fwd"],
              "encoders": enc["launches"]["layer_norm_fwd"],
-             "dp": dp_res["launches"]["layer_norm_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_fwd"]},
+             "dp": dp_res["launches"]["layer_norm_fwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_fwd"],
+             "thor": thor_res["launches"]["layer_norm_fwd"]},
             ln_fwd[0], ln_fwd, LN_TOL,
             launches_per_act=serving_ln["layer_norm_launches_per_act"],
             launches_per_update=training["layer_norm_fwd_launches_per_update"]),
@@ -3796,7 +4170,8 @@ def main() -> int:
              "offline": bc["launches"]["layer_norm_bwd"],
              "train_online": online_path["launches"]["layer_norm_bwd"],
              "encoders": enc["launches"]["layer_norm_bwd"],
-             "dp": dp_res["launches"]["layer_norm_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_bwd"]},
+             "dp": dp_res["launches"]["layer_norm_bwd"], "dp_nccl": dp_res["nccl"]["launches"]["layer_norm_bwd"],
+             "thor": thor_res["launches"]["layer_norm_bwd"]},
             ln_bwd[0], ln_bwd, LN_TOL,
             launches_per_update=training["layer_norm_bwd_launches_per_update"],
             design="one cooperative kernel: rows, grid barrier, fold of the partial dgamma / dbeta rows",
@@ -3811,6 +4186,8 @@ def main() -> int:
         assert k["launches_encoders"] > 0, k["name"]
     for k in kernels:  # and the dp phase, in each rank and through NCCL
         assert k["launches_dp"] > 0 and k["launches_dp_nccl"] > 0, k["name"]
+    for k in kernels:  # and the thor phase (its trainer windows the backwards)
+        assert k["launches_thor"] > 0, k["name"]
     online_frames = " / ".join(f"{p['windows'][-2]['env_frames_per_s']:.1f}"
                                for p in online_path["passes"].values())
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -3839,6 +4216,10 @@ def main() -> int:
         f"dp: 2 gloo ranks vs 1 rank, weight change rel L2 {dp_res['update']['delta_rel_l2']:.3g} (update) / "
         f"{dp_res['chunked']['delta_rel_l2']:.3g} (chunked), small f32 weights {dp_res['small_f32']['weight_abs_err']:.3g}; "
         f"{dp_res['nccl']['ran']}; "
+        f"thor: {thor_res['evaluate']['act_ms_mean']:.1f} ms/act evaluating on the mock AI2-THOR backend, "
+        f"replay of {thor_res['replay']['episode_steps']} greedy acts equal {thor_res['replay']['actions_equal']}, "
+        f"shm + merged fetch vs pipes {thor_res['shm']['env_frames_per_s']:.1f} / "
+        f"{thor_res['pipe']['env_frames_per_s']:.1f} env frames/s, bit-equal {thor_res['bit_equal']}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -8,8 +8,9 @@ The agent runs on the card (`main(..., device="cpu")` runs it on the CPU,
 as the tests do). `--ckpt` is a directory of the port's checkpoint format, a
 reference torch file, or absent (random init); JAX Orbax checkpoints are
 converted first with `tools/torch_from_orbax.py`. Every task type of
-`tasks.REGISTERED_TASKS` evaluates. Only `--fake-env` runs: the AI2-THOR
-controller and the house stores are not ported yet (ROADMAP Queue 1 item 12).
+`tasks.REGISTERED_TASKS` evaluates. Without `--fake-env` the episodes run
+in AI2-THOR (`StretchController`, which needs `ai2thor`) over the houses of
+`--houses-dir` (or `objaverse_houses_dir`), read from its `val.jsonl.gz`.
 """
 
 from __future__ import annotations
@@ -103,15 +104,25 @@ def main(argv=None, device="cuda"):
         cfg.train.max_steps = max_len
     h, w = cfg.model.image_size
 
-    if not args.fake_env:
-        raise NotImplementedError(
-            "evaluation in AI2-THOR houses (--houses-dir, StretchController, "
-            "LazyJsonHouses) is not ported yet (ROADMAP Queue 1 item 12); pass --fake-env"
+    all_needed = sorted(
+        {int(s["house_index"]) for v in samples_by_task.values() for s in v}
+    )
+    if args.fake_env:
+        controller_type, controller_args = FakeController, {
+            "seed": 0, "image_height": h, "image_width": w,
+        }
+        houses, house_inds = [{"rooms": [{}, {}]}], [0]
+    else:
+        from safevla_tpu_torch.data.stores import LazyJsonHouses
+        from safevla_tpu_torch.envs.thor_controller import StretchController, default_thor_env_args
+
+        assert args.houses_dir or cfg.objaverse_houses_dir
+        houses_store = LazyJsonHouses.from_dir(
+            args.houses_dir or cfg.objaverse_houses_dir, subset="val"
         )
-    controller_type, controller_args = FakeController, {
-        "seed": 0, "image_height": h, "image_width": w,
-    }
-    houses, house_inds = [{"rooms": [{}, {}]}], [0]
+        houses = [houses_store[i] for i in all_needed]
+        house_inds = all_needed
+        controller_type, controller_args = StretchController, default_thor_env_args()
 
     def factory_builder(tasks_queue):
         def factory(stream_id: int):
@@ -154,6 +165,9 @@ def main(argv=None, device="cuda"):
         cfg,
         factory_builder,
         num_streams=cfg.eval.num_workers,
+        # inline streams, in AI2-THOR too: they drain one in-process queue of
+        # episodes (JAX asks for worker processes there, which each would
+        # drain a copy of it)
         num_workers=0,
         video_dir=args.video_dir,
         video_every=args.video_every if args.video_dir else 0,

@@ -11,10 +11,11 @@ Any config leaf is overridable as section.field=value; every task type of
 `tasks.REGISTERED_TASKS` trains, with the `linear`, `mlp` or `discrete`
 (HL-Gauss) critic. The policy trains on the card (`main(..., device="cpu")`
 trains on the CPU, as the tests do). `--smoke` builds the JAX CLI's tiny
-model (with the critic type asked for) on 4 streams x 8 steps. Only
-`--fake-env` (FakeController streams) runs: the AI2-THOR controller is not
-ported yet (ROADMAP Queue 1 item 12), and without `--fake-env` the run
-raises NotImplementedError before it builds anything.
+model (with the critic type asked for) on 4 streams x 8 steps.
+`--fake-env` trains on FakeController streams; without it the streams run
+AI2-THOR (`StretchController`, which needs `ai2thor`) over the task specs of
+`--data-dir` (an Hdf5TaskSpecs directory) and the houses of `--houses-dir`,
+in a worker process each unless `--env-workers` says otherwise.
 
 On N GPUs, one process per GPU (JAX's `mesh` branch, cli/train_online.py:74):
 

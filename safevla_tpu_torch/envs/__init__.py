@@ -1,7 +1,8 @@
 """Host-side environments: the controller interface, the simulator-free
-FakeController, its geometry helpers and the sensors. Copies of
-`safevla_tpu/envs/{controller_base,fake_controller,geometry,sensors}.py`
-(only their imports differ); the AI2-THOR controllers are not ported yet."""
+FakeController, the AI2-THOR StretchController (`ai2thor` imported only when
+one is built), the trace record/replay controllers, the robot state, its
+geometry helpers, the sensors, the bounding-box sensors and Detic. Copies of
+`safevla_tpu/envs/*.py`, whose imports point into the port."""
 
 from safevla_tpu_torch.envs.controller_base import BaseController, Event
 from safevla_tpu_torch.envs.fake_controller import FakeController

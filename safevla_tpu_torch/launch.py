@@ -4,11 +4,9 @@ Copy of `safevla_tpu/launch.py` (the glue the reference spreads across
 `BaseConfig.machine_params` / `task_sampler_args_builder` / `make_sampler_fn`,
 reference training/online/base.py:135-336): load houses and task specs,
 partition them across rollout streams, and build per-stream samplers bound to
-the simulator controller, or to FakeController for simulator-free runs
-(`make_fake_sampler_factory`, what `cli/train_online.py --fake-env` runs).
-The AI2-THOR controller is not ported yet (ROADMAP Queue 1 item 12):
-`make_thor_sampler_factory` raises NotImplementedError before it builds
-anything.
+the AI2-THOR simulator's `StretchController` (`make_thor_sampler_factory`,
+what `cli/train_online.py` runs by default), or to FakeController for
+simulator-free runs (`make_fake_sampler_factory`, `--fake-env`).
 """
 
 from __future__ import annotations
@@ -44,11 +42,11 @@ def partition_specs_by_house(specs) -> Dict[int, List[dict]]:
 
 
 def thor_controller():
-    """(StretchController, default_thor_env_args) of the AI2-THOR simulator."""
-    raise NotImplementedError(
-        "the AI2-THOR controller (StretchController) is not ported yet (ROADMAP Queue 1 "
-        "item 12); train with --fake-env (FakeController streams)"
-    )
+    """(StretchController, default_thor_env_args) of the AI2-THOR simulator;
+    `ai2thor` itself is imported when a controller or its arguments are built."""
+    from safevla_tpu_torch.envs.thor_controller import StretchController, default_thor_env_args
+
+    return StretchController, default_thor_env_args
 
 
 def make_thor_sampler_factory(
@@ -67,22 +65,33 @@ def make_thor_sampler_factory(
     under a root dir as `<root>/<TaskType>` — mixed task types interleave in
     each stream's per-house spec pool (multi-task constrained RL).
     """
-    controller_type, thor_env_args = thor_controller()
-    houses_dir = houses_dir or cfg.objaverse_houses_dir
-    num_streams = cfg.train.num_train_processes
-
     if isinstance(task_spec_dataset_dir, str):
         dataset_dirs = [task_spec_dataset_dir]
     else:
         dataset_dirs = list(task_spec_dataset_dir)
+    return ThorSamplerFactory(cfg, dataset_dirs, houses_dir or cfg.objaverse_houses_dir, mode, max_houses)
 
-    def factory(stream_id: int):
-        houses = LazyJsonHouses.from_dir(houses_dir, subset=mode, max_lines=max_houses)
+
+class ThorSamplerFactory:
+    """`make_thor_sampler_factory`'s factory: an object rather than JAX's
+    closure, so that the env pool's worker processes (forkserver) can be
+    handed it and build their stream's sampler themselves."""
+
+    def __init__(self, cfg: Config, dataset_dirs: List[str], houses_dir: str, mode: str,
+                 max_houses: Optional[int]):
+        self.cfg, self.dataset_dirs, self.houses_dir = cfg, dataset_dirs, houses_dir
+        self.mode, self.max_houses = mode, max_houses
+        self.num_streams = cfg.train.num_train_processes
+
+    def __call__(self, stream_id: int):
+        cfg, mode = self.cfg, self.mode
+        controller_type, thor_env_args = thor_controller()
+        houses = LazyJsonHouses.from_dir(self.houses_dir, subset=mode, max_lines=self.max_houses)
         all_specs: List[dict] = []
-        for d in dataset_dirs:
+        for d in self.dataset_dirs:
             all_specs.extend(
                 Hdf5TaskSpecs.from_dataset_dir(
-                    d, subset=mode, proc_id=stream_id, total_procs=num_streams
+                    d, subset=mode, proc_id=stream_id, total_procs=self.num_streams
                 )
             )
         by_house = partition_specs_by_house(all_specs)
@@ -110,8 +119,6 @@ def make_thor_sampler_factory(
             ),
             prob_randomize_materials=0.8 if mode == "train" else 0.0,
         )
-
-    return factory
 
 
 def make_fake_sampler_factory(

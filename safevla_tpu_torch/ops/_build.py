@@ -62,10 +62,18 @@ def nvcc_path() -> str:
 def library_path(name: str, csrc: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
     """The library of csrc/<name>.cu, named by a digest of the source, every
     shared header csrc/*.cuh (any source may include them) and the flags."""
-    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
-    for header in sorted(csrc.glob("*.cuh")):
+    headers = sorted(csrc.glob("*.cuh"))
+    return digest_path(name, csrc / f"{name}.cu", headers, NVCC_FLAGS, build_dir)
+
+
+def digest_path(name: str, source: Path, headers, flags, build_dir: Path = BUILD_DIR) -> Path:
+    """`build_dir/<name>-<digest>.so`, the digest over the source, the
+    headers (name and content) and the compiler flags: an edited input
+    names another file, so a stale library is never loaded."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    for header in headers:
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 

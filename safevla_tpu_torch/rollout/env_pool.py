@@ -1,7 +1,8 @@
 """Vectorized environment pool: N task samplers stepping in parallel.
 
 Copy of `safevla_tpu/rollout/env_pool.py` (`EnvPool`, `EnvStep`,
-`_InlineStream`, the process workers with their restart and hang defences):
+`_InlineStream`, the process workers with their restart and hang defences,
+the shared-memory frame transport):
 
   * `num_workers > 0`: one OS process per sampler (the AI2-THOR Unity binary
     is single-threaded per controller — processes are required), communicating
@@ -13,14 +14,19 @@ Each stream auto-resets: when an episode ends the worker immediately samples
 the next task and returns the fresh observation plus the new instruction, so
 the device-side rollout never stalls on episode boundaries.
 
-The shared-memory frame ring of the JAX package (`use_shm_frames`,
-`safevla_tpu/native/obs_ring.py`) is not ported yet: asking for it raises
-NotImplementedError, and frames travel in the pickled step.
+With `use_shm_frames=True` and process workers, each stream's camera frames
+travel through a shared-memory ring (`native/obs_ring.py`) that the pool
+creates and owns, and only their shapes through the pickled step; a
+restarted worker reopens its stream's ring. Where the JAX pool quietly falls
+back to pickled frames when the ring's library is missing, this one raises:
+a ring that cannot be built or opened fails the pool's construction.
 """
 
 from __future__ import annotations
 
+import itertools
 import multiprocessing as mp
+import os
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
@@ -89,19 +95,61 @@ class _InlineStream:
         )
 
 
-def _worker_main(conn, sampler_factory: Callable, stream_id: int):
+_FRAME_KEYS = ("rgb_raw", "manipulation_rgb_raw")
+_POOL_IDS = itertools.count()  # ring names stay unique across pools of a process
+
+
+def _detach_frames(step: "EnvStep", ring) -> "EnvStep":
+    """Move camera frames out of the pickled payload into the shm ring."""
+    if ring is None or step is None or step.obs is None:
+        return step
+    import numpy as np
+
+    obs = dict(step.obs)
+    meta = []
+    for key in _FRAME_KEYS:
+        if key in obs:
+            frame = np.ascontiguousarray(obs.pop(key))
+            ring.push(frame)
+            meta.append((key, frame.shape, str(frame.dtype)))
+    obs["__ring_frames__"] = meta
+    step.obs = obs
+    return step
+
+
+def _attach_frames(step: "EnvStep", ring) -> "EnvStep":
+    if ring is None or step is None or step.obs is None:
+        return step
+    import numpy as np
+
+    obs = dict(step.obs)
+    meta = obs.pop("__ring_frames__", [])
+    for key, shape, dtype in meta:
+        data, _ = ring.pop()
+        obs[key] = data.view(np.dtype(dtype)).reshape(shape)
+    step.obs = obs
+    return step
+
+
+def _worker_main(conn, sampler_factory: Callable, stream_id: int, shm_name=None,
+                 shm_slots: int = 8, shm_slot_bytes: int = 0):
     try:
+        ring = None
+        if shm_name is not None:
+            from safevla_tpu_torch.native import ObsRing
+
+            ring = ObsRing(shm_name, shm_slots, shm_slot_bytes, create=False)
         stream = _InlineStream(sampler_factory, stream_id)
         first = stream.reset()
-        conn.send(("ready", first))
+        conn.send(("ready", _detach_frames(first, ring)))
         while True:
             msg = conn.recv()
             cmd = msg[0]
             if cmd == "step":
                 _, action, force_advance = msg
-                conn.send(("step", stream.step(action, force_advance)))
+                conn.send(("step", _detach_frames(stream.step(action, force_advance), ring)))
             elif cmd == "reset":
-                conn.send(("reset", stream.reset(force_advance=msg[1])))
+                conn.send(("reset", _detach_frames(stream.reset(force_advance=msg[1]), ring)))
             elif cmd == "close":
                 stream.sampler.close()
                 conn.send(("closed", None))
@@ -134,6 +182,8 @@ class EnvPool:
         num_workers: Optional[int] = None,
         mp_context: str = "forkserver",
         use_shm_frames: bool = False,
+        shm_slot_bytes: int = 2 * 1024 * 1024,
+        shm_slots: int = 8,
         max_restarts: int = 10,
         step_timeout_s: Optional[float] = 300.0,
         startup_timeout_s: Optional[float] = 600.0,
@@ -158,22 +208,33 @@ class EnvPool:
         self._streams: List[_InlineStream] = []
         self._conns = []
         self._procs = []
+        self._rings: List[Any] = [None] * num_streams
+        self._shm_names: List[Optional[str]] = [None] * num_streams
+        self._shm_slots = shm_slots
+        self._shm_slot_bytes = shm_slot_bytes
         self._sampler_factory = sampler_factory
         self._mp_context = mp_context
         self.last_steps: List[Optional[EnvStep]] = [None] * num_streams
 
-        if use_shm_frames:
-            raise NotImplementedError(
-                "the shared-memory frame ring (use_shm_frames) is not ported yet"
-            )
         if self.use_processes:
+            if use_shm_frames:
+                from safevla_tpu_torch.native import ObsRing
+
+                pool_id = next(_POOL_IDS)
+                self._shm_names = [
+                    f"/safevla_obs_{os.getpid()}_{pool_id}_{i}" for i in range(num_streams)
+                ]
+                # the pool side creates and owns the rings (the consumer)
+                self._rings = [
+                    ObsRing(n, shm_slots, shm_slot_bytes, create=True) for n in self._shm_names
+                ]
             ctx = mp.get_context(mp_context)
             self._ctx = ctx
             for i in range(num_streams):
                 parent, child = ctx.Pipe()
                 p = ctx.Process(
                     target=_worker_main,
-                    args=(child, sampler_factory, self.stream_ids[i]),
+                    args=self._worker_args(child, i),
                     daemon=True,
                 )
                 p.start()
@@ -183,7 +244,7 @@ class EnvPool:
                 tag, first = conn.recv()
                 if tag == "crash":
                     raise RuntimeError(f"env worker {i} crashed at startup: {first[1]}")
-                self.last_steps[i] = first
+                self.last_steps[i] = _attach_frames(first, self._rings[i])
         else:
             for i in range(num_streams):
                 s = _InlineStream(sampler_factory, self.stream_ids[i])
@@ -191,6 +252,12 @@ class EnvPool:
                 self.last_steps[i] = s.reset()
 
     # ------------------------------------------------------------------
+    def _worker_args(self, conn, i: int) -> tuple:
+        return (
+            conn, self._sampler_factory, self.stream_ids[i],
+            self._shm_names[i], self._shm_slots, self._shm_slot_bytes,
+        )
+
     def _restart_worker(self, i: int) -> EnvStep:
         """Respawn a dead worker; returns the fresh episode's first step."""
         if self.restarts >= self.max_restarts:
@@ -203,10 +270,17 @@ class EnvPool:
             self._procs[i].terminate()
         except Exception:
             pass
+        ring = self._rings[i]
+        if ring is not None:
+            # the new worker reopens the stream's ring: drop any frame the
+            # dead one pushed for a step it never reported
+            self._procs[i].join(timeout=5)
+            while ring.size():
+                ring.pop()
         parent, child = self._ctx.Pipe()
         p = self._ctx.Process(
             target=_worker_main,
-            args=(child, self._sampler_factory, self.stream_ids[i]),
+            args=self._worker_args(child, i),
             daemon=True,
         )
         p.start()
@@ -221,6 +295,7 @@ class EnvPool:
         tag, first = parent.recv()
         if tag == "crash":
             raise RuntimeError(f"env worker {i} crashed again at restart: {first[1]}")
+        first = _attach_frames(first, ring)
         # surface the restart as an episode boundary (done + new episode)
         first.done = True
         return first
@@ -257,7 +332,7 @@ class EnvPool:
                 file=sys.stderr,
             )
             return self._restart_worker(i)
-        return payload
+        return _attach_frames(payload, self._rings[i])
 
     def initial_steps(self) -> List[EnvStep]:
         return list(self.last_steps)
@@ -316,6 +391,9 @@ class EnvPool:
                 p.join(timeout=5)
                 if p.is_alive():
                     p.terminate()
+            for r in self._rings:
+                if r is not None:
+                    r.close()
         else:
             for s in self._streams:
                 s.sampler.close()

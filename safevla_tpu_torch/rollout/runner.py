@@ -12,7 +12,12 @@ and its `DeviceFrameBank`, on one device:
   * one small host->device upload per group step (the packed int32 columns,
     from pinned memory, non-blocking) and one device->host action fetch: a
     non-blocking copy into pinned memory and a CUDA event, which the host
-    waits on only when it needs the actions.
+    waits on only when it needs the actions. With `SAFEVLA_MERGED_FETCH=1`
+    (and more than one group, no mesh: JAX's rule) the fetch is merged: each
+    time step concatenates every group's actions on the device once (timed
+    under `dispatch`) and starts one such copy, so the host blocks once per
+    time step (`action_fetch`) instead of once per (group, step). The
+    actions, and so the window, are the same either way.
   * overlap groups: streams split into `overlap_groups` phase-shifted groups;
     while the device computes group A's actions, the host steps group B's
     simulators.
@@ -53,9 +58,6 @@ the host group) and appended in the 1-rank order (time step, group, stream),
 so the episode-cost window, and the λ ascent it drives, and the episode
 metrics are the same on every rank. Each rank keeps its own frame bank (JAX
 replicates one; the content is the same).
-
-Not ported yet: the merged action fetch (`SAFEVLA_MERGED_FETCH=1` raises
-NotImplementedError).
 """
 
 from __future__ import annotations
@@ -256,8 +258,13 @@ class RolloutRunner:
             want = rank_stream_ids(self.B, self.n_groups, self.dp, mesh.dp_index)
             if env_pool.stream_ids != want:
                 raise ValueError(f"the pool's streams {env_pool.stream_ids} are not the rank's {want}")
-        if os.environ.get("SAFEVLA_MERGED_FETCH", "0") == "1" and self.n_groups > 1:
-            raise NotImplementedError("the merged action fetch (SAFEVLA_MERGED_FETCH=1) is not ported yet")
+        # one blocking action fetch per time step instead of one per
+        # (group, step); meaningless at one group, and off with a mesh, as in JAX
+        self._merged_fetch = (
+            os.environ.get("SAFEVLA_MERGED_FETCH", "0") == "1"
+            and mesh is None
+            and self.n_groups > 1
+        )
 
         self._action_gen = torch.Generator(device=self.device).manual_seed(seed)
         self._aug_gen = torch.Generator().manual_seed(seed + 1)
@@ -336,7 +343,8 @@ class RolloutRunner:
     @torch.no_grad()
     def _device_step(self, g: int, t: int, offset: int, storage, packed: np.ndarray):
         """Group g's act on (t, offset) of `storage`; packed (Gl, 9) int32
-        per-stream columns. Returns (action fetch, values, cost values)."""
+        per-stream columns. Returns (actions, values, cost values), all on
+        the device."""
         G = self.Gl
         cols = _to_device(packed, self.device)
         if self.use_frame_bank:
@@ -360,7 +368,7 @@ class RolloutRunner:
         storage["cols"][t, rows] = cols
         storage["actions"][t, rows] = action
         storage["floats"][t, rows] = torch.stack([logp, v.float(), cv.float()], dim=-1)
-        return _ActionFetch(action), v, cv
+        return action, v, cv
 
     def _alloc_storage(self, T: int) -> Dict[str, torch.Tensor]:
         gh, gw = self.cfg.model.vision_grid
@@ -459,7 +467,8 @@ class RolloutRunner:
 
     def _dispatch(self, g: int, t: int, storage) -> tuple:
         """Launch group g's device step at time t; returns its in-flight
-        (action fetch, values, cost values)."""
+        (action fetch, values, cost values), the actions themselves in place
+        of their fetch when the fetch is merged."""
         if self.cfg.train.use_data_augmentation:
             # resample cadence of the reference's per-batch counting: one
             # batch == one step across all groups
@@ -469,7 +478,14 @@ class RolloutRunner:
                 )
             self._aug_steps += 1
         with self.timer.section("dispatch"):
-            return self._device_step(g, t, self._lo(g), storage, self._pack(g))
+            action, v, cv = self._device_step(g, t, self._lo(g), storage, self._pack(g))
+            return (action if self._merged_fetch else _ActionFetch(action)), v, cv
+
+    def _merge(self, inflight) -> _ActionFetch:
+        """Every group's in-flight actions, concatenated on the device, and
+        one fetch of them."""
+        with self.timer.section("dispatch"):
+            return _ActionFetch(torch.cat([a for a, _, _ in inflight]))
 
     def _env_step_group(self, g: int, t: int, actions_host: np.ndarray, rewards, costs):
         lo, hi = self._lo(g), self._hi(g)
@@ -533,11 +549,18 @@ class RolloutRunner:
             else:
                 inflight[g] = self._dispatch(g, 0, storage)
 
+        merged = self._merge(inflight) if self._merged_fetch else None
         for t in range(T):
-            for g in range(self.n_groups):
-                fetch, _, _ = inflight[g]
+            if merged is not None:
                 with self.timer.section("action_fetch"):
-                    actions_host = fetch.result()
+                    all_actions = merged.result()
+            for g in range(self.n_groups):
+                if merged is not None:
+                    actions_host = all_actions[self._lo(g) : self._hi(g)]
+                else:
+                    fetch, _, _ = inflight[g]
+                    with self.timer.section("action_fetch"):
+                        actions_host = fetch.result()
                 self._env_step_group(g, t, actions_host, rewards, costs)
                 if t + 1 < T:
                     masks[t + 1, self._lo(g) : self._hi(g)] = (
@@ -546,6 +569,8 @@ class RolloutRunner:
                     inflight[g] = self._dispatch(g, t + 1, storage)
                 else:
                     inflight[g] = None
+            if merged is not None and t + 1 < T:
+                merged = self._merge(inflight)
             if interleave_fn is not None:
                 interleave_fn(t)
 

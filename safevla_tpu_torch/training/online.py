@@ -135,7 +135,9 @@ class OnlineTrainer:
     """Trains a policy built on `device` (on a mesh: the rank's device) with
     weights from a generator seeded with cfg.train.seed; the learner and
     the runner take the policy's device. With the async pipeline the runner
-    acts with `act_policy`, a copy of the towers (sync: the policy itself)."""
+    acts with `act_policy`, a copy of the towers (sync: the policy itself).
+    `pool_options` go to the env pool (e.g. `use_shm_frames=True` with
+    `num_workers > 0`: camera frames through shared-memory rings)."""
 
     def __init__(
         self,
@@ -146,6 +148,7 @@ class OnlineTrainer:
         async_pipeline: Optional[bool] = None,
         device="cuda",
         mesh: Optional[Mesh] = None,
+        pool_options: Optional[Dict[str, Any]] = None,
     ):
         self.cfg = cfg
         self.mesh = mesh
@@ -160,7 +163,10 @@ class OnlineTrainer:
         dp, dp_index = (mesh.dp, mesh.dp_index) if mesh is not None else (1, 0)
         n_groups, _ = stream_groups(self.num_streams, OVERLAP_GROUPS, dp)
         ids = rank_stream_ids(self.num_streams, n_groups, dp, dp_index)
-        self.pool = EnvPool(sampler_factory, num_streams=len(ids), num_workers=num_workers, stream_ids=ids)
+        self.pool = EnvPool(
+            sampler_factory, num_streams=len(ids), num_workers=num_workers, stream_ids=ids,
+            **(pool_options or {}),
+        )
         self.act_policy = self.policy.acting_copy() if self.async_pipeline else self.policy
         self.runner = RolloutRunner(self.act_policy, cfg, self.pool, seed=cfg.train.seed, mesh=mesh)
         self._streams: Optional[_Streams] = None  # made at the first async run

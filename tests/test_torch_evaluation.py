@@ -17,11 +17,14 @@ checkpoint layout it reads.
   encoders (the format before they were saved) still restores its towers.
 """
 
+import copy
 import dataclasses
 import functools
 import gzip
 import json
 import random
+import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -171,9 +174,100 @@ def test_evaluate_cli_on_fake_env(mcfg, tmp_path, monkeypatch):
     results = eval_cli.main(["--benchmark", str(benches["FetchType"]), "--task-type", "FetchType", *args],
                             device="cpu")
     assert results["task_type"] == "FetchType" and results["num_episodes"] == 2
-    bench = benches["ObjectNavType"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        eval_cli.main(["--benchmark", str(bench)], device="cpu")
+
+
+def test_evaluate_cli_in_thor_houses_matches_jax(mcfg, tmp_path, monkeypatch):
+    """`cli.evaluate --houses-dir` (no `--fake-env`): StretchController on the
+    mock AI2-THOR backend over the houses' `val.jsonl.gz`, in both packages,
+    with the same tiny weights (each package's `InferenceAgent.build` patched
+    to return an agent over them) and the T5 tokenizer's stand-in that the
+    benchmark protocol requires. The per-episode safety table must be
+    identical and every aggregate within 1e-6.
+
+    The JAX CLI steps AI2-THOR streams in worker processes, which cannot
+    work there: its task queue is an in-process `queue.Queue` and its
+    sampler factory a closure that forkserver cannot pickle. Its evaluator is
+    held to inline streams here, as the port's always runs them."""
+    import safevla_tpu.cli.evaluate as jax_cli
+    import safevla_tpu.config as jconfig
+    import safevla_tpu.evaluation.evaluator as jevaluator
+    import safevla_tpu.evaluation.types as jtypes
+    import safevla_tpu.tasks.base as jax_task_base
+    import safevla_tpu.utils.jax_cache as jax_cache
+    import safevla_tpu_torch.tasks.base as task_base
+    import torch_thor_mock as mock
+
+    mock.install(mock.ModuleSetter(monkeypatch))
+    from safevla_tpu.envs import thor_controller as jthor
+    from safevla_tpu_torch.envs import thor_controller as pthor
+
+    for thor in (jthor, pthor):  # render at 28 x 44, cropped to the tiny policy's 28 x 42
+        monkeypatch.setattr(thor, "default_thor_env_args",
+                            functools.partial(thor.default_thor_env_args, height=28, width=44))
+    monkeypatch.setitem(sys.modules, "transformers", mock.text_tokenizer())
+    monkeypatch.setattr(jax_cache, "enable_persistent_cache", lambda *a, **k: "")
+    clock = SimpleNamespace(time=lambda: 1.7e9)
+    monkeypatch.setattr(jax_task_base, "time", clock)
+    monkeypatch.setattr(task_base, "time", clock)
+    for types_mod in (ptypes, jtypes):  # episodes of EPISODE_LEN steps, not the benchmark's 500
+        monkeypatch.setitem(types_mod.MAX_EPISODE_LEN_PER_TASK, "ObjectNavType", EPISODE_LEN)
+
+    houses = [mock.make_house(seed) for seed in (5, 6)]
+    houses_dir = tmp_path / "houses"
+    houses_dir.mkdir()
+    with gzip.open(houses_dir / "val.jsonl.gz", "wt") as f:
+        f.writelines(json.dumps(h) + "\n" for h in houses)
+    bench = tmp_path / "objectnavtype_val.jsonl.gz"
+    with gzip.open(bench, "wt") as f:
+        rows = mock.objectnav_rows(houses[1], 1, 2) + mock.objectnav_rows(houses[0], 0, 2)[1:]
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+
+    params = tiny.random_params(jac.SafeVLAPolicy(mcfg), seed=3)
+    jax_tiny = JaxConfig()
+    jax_tiny.model = mcfg
+    monkeypatch.setattr(jconfig, "Config", lambda: copy.deepcopy(jax_tiny))
+    monkeypatch.setattr(pconfig, "Config", lambda: dataclasses.replace(_port_cfg(mcfg), train=TrainConfig()))
+
+    def jax_build(cls, cfg, ckpt, num_streams, mode, seed, test_augmentation, **kw):
+        return cls(cfg, jax.tree.map(jnp.asarray, params), num_streams, mode, seed, test_augmentation, **kw)
+
+    def port_build(cls, cfg, ckpt, num_streams, mode, seed, test_augmentation, device, **kw):
+        return cls(cfg, tiny.port_policy(mcfg, params), num_streams, mode, seed, test_augmentation, **kw)
+
+    monkeypatch.setattr(JaxAgent, "build", classmethod(jax_build))
+    monkeypatch.setattr(InferenceAgent, "build", classmethod(port_build))
+    monkeypatch.setattr(jevaluator, "BatchedEvaluator", _inline(JaxEvaluator))
+    args = ["--benchmark", str(bench), "--houses-dir", str(houses_dir), "eval.num_workers=2",
+            "eval.test_augmentation=false", f"model.max_steps={mcfg.max_steps}", f"train.output_dir={tmp_path}"]
+    results = {}
+    random.seed(0), np.random.seed(0)
+    results["jax"] = jax_cli.main(args)
+    random.seed(0), np.random.seed(0)
+    results["port"] = eval_cli.main(args, device="cpu")
+
+    got, want = results["port"], results["jax"]
+    assert got["num_episodes"] == want["num_episodes"] == len(rows)
+    assert got["safety_table"] == want["safety_table"]
+    assert {r["sample_id"] for r in got["safety_table"]} == {
+        f"task=ObjectNavType,house={r['house_index']},sub_house_id={i}" for i, r in enumerate(rows)}
+    assert got["aggregate"].keys() == want["aggregate"].keys()
+    for k, v in want["aggregate"].items():
+        assert abs(got["aggregate"][k] - v) <= 1e-6, k
+    # without the T5 tokenizer's files the benchmark protocol refuses to run
+    monkeypatch.delitem(sys.modules, "transformers")
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    with pytest.raises(RuntimeError, match="requires exact"):
+        eval_cli.main(args, device="cpu")
+
+
+def _inline(evaluator_cls):
+    """`evaluator_cls` with its streams stepped inline (num_workers=0)."""
+
+    class Inline(evaluator_cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **{**k, "num_workers": 0})
+
+    return Inline
 
 
 def _acts(agent, steps=3):

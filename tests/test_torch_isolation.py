@@ -26,6 +26,8 @@ def test_importing_the_port_loads_no_jax():
     assert "safevla_tpu_torch.ops.flash_attention" in mods
     assert {f"safevla_tpu_torch.models.{m}" for m in ("text_towers", "resnet", "visual_encoders")} <= set(mods)
     assert {f"safevla_tpu_torch.parallel.{m}" for m in ("mesh", "distributed")} <= set(mods)
+    assert {f"safevla_tpu_torch.envs.{m}" for m in ("thor_controller", "replay_controller", "detic")} <= set(mods)
+    assert "safevla_tpu_torch.native.obs_ring" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -95,3 +97,14 @@ def test_trainer_refuses_missing_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         OnlineTrainer(Config(), make_sampler_factory(), num_workers=0, async_pipeline=False)
+
+
+def test_the_port_has_a_module_for_each_of_jax_but_three():
+    """Every module path of the JAX package has one in the port, but TPU
+    detection, XLA's compile cache and an XLA lowering choice, which eager
+    PyTorch has no use for."""
+    jax_pkg = REPO / "safevla_tpu"
+    jax_only = {
+        str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py") if not (PKG / p.relative_to(jax_pkg)).exists()
+    }
+    assert jax_only == {"utils/platform.py", "utils/jax_cache.py", "models/scan_policy.py"}

@@ -846,3 +846,38 @@ def test_two_gloo_ranks_on_the_card_update_as_one(cuda, tmp_path):
                 assert k in rms and np.all(rms[k][flip] < floor), (k, rms[k][flip].max() / floor * 1e-3)
         worst = max(diffs, key=lambda k: diffs[k].max())
         assert diffs[worst].max() <= reach, (worst, diffs[worst].max())
+
+
+@pytest.mark.gpu
+def test_merged_action_fetch_window_matches_the_per_group_window_on_the_card(cuda, monkeypatch):
+    """`SAFEVLA_MERGED_FETCH=1` on the card (one concat, one pinned copy and
+    one event per time step): two windows of a small policy whose sites take
+    the kernels equal the per-group fetch's windows bit for bit, with one
+    blocking fetch per time step instead of one per (group, step)."""
+    import random
+
+    from safevla_tpu_torch.envs.fake_tasks import make_sampler_factory
+    from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
+    from safevla_tpu_torch.rollout.env_pool import EnvPool
+    from safevla_tpu_torch.rollout.runner import RolloutRunner
+
+    cfg = _small_config("linear")
+    cfg.train.num_train_processes = 4
+    policy = SafeVLAPolicy(cfg.model, device="cuda", generator=torch.Generator().manual_seed(0))
+    runs = {}
+    for merged in ("0", "1"):
+        monkeypatch.setenv("SAFEVLA_MERGED_FETCH", merged)
+        random.seed(3)
+        np.random.seed(3)
+        pool = EnvPool(make_sampler_factory(max_steps=5, image_hw=(28, 42)), num_streams=4, num_workers=0)
+        runner = RolloutRunner(policy, cfg, pool, seed=0, overlap_groups=2)
+        before = fa.attention_qkv.launches
+        runs[merged] = [runner.collect(6)[0] for _ in range(2)], runner.timer.counts["action_fetch"]
+        assert fa.attention_qkv.launches > before
+        assert runner._merged_fetch == (merged == "1")
+        pool.close()
+    (per_group, fetches_pg), (merged, fetches_m) = runs["0"], runs["1"]
+    assert (fetches_pg, fetches_m) == (2 * 6 * 2, 2 * 6)
+    for w in range(2):
+        for k, v in per_group[w].items():
+            assert torch.equal(merged[w][k], v), k

@@ -195,8 +195,44 @@ def test_collect_is_deterministic_given_the_seed(jax_side):
     assert not torch.equal(runs[0][0]["actions"], runs[2][0]["actions"])
 
 
-def test_merged_action_fetch_is_not_ported(jax_side, monkeypatch):
-    mcfg, params = jax_side[:2]
+def test_merged_action_fetch_matches_per_group_and_jax(jax_side, port_side, monkeypatch):
+    """`SAFEVLA_MERGED_FETCH=1`: one blocking fetch per time step (and one
+    device concat, timed as dispatch) instead of one per (group, step). On
+    JAX's draws, both windows equal the per-group windows bit for bit, and
+    the JAX runner's merged windows."""
+    mcfg, params, jbatches = jax_side[:3]
     monkeypatch.setenv("SAFEVLA_MERGED_FETCH", "1")
-    with pytest.raises(NotImplementedError, match="SAFEVLA_MERGED_FETCH"):
-        _port_collect(_port_cfg(mcfg), tiny.port_policy(mcfg, params), windows=0)
+    cfg = _port_cfg(mcfg)
+    _reseed()
+    pool = _pool(EnvPool, make_sampler_factory)
+    runner = RolloutRunner(tiny.port_policy(mcfg, params), cfg, pool, seed=0, overlap_groups=GROUPS)
+    replay = _replay(jbatches)
+    runner._draw_actions = lambda logits, global_step: torch.as_tensor(replay[global_step])
+    merged = [runner.collect(T)[0] for _ in range(2)]
+    pool.close()
+    assert runner._merged_fetch
+    assert runner.timer.counts["action_fetch"] == 2 * T  # per-group: 2 * T * GROUPS
+    assert runner.timer.counts["dispatch"] == 2 * T * (GROUPS + 1) + GROUPS
+
+    with pytest.MonkeyPatch.context() as mp:  # the JAX runner, merged
+        tiny.register_tiny_vit(mp)
+        jpol = jac.SafeVLAPolicy(mcfg)
+        jcfg = JaxConfig()
+        jcfg.model = mcfg
+        jcfg.train.num_train_processes = B
+        jcfg.train.use_data_augmentation = False
+        _reseed()
+        jpool = _pool(JaxEnvPool, jax_sampler_factory)
+        jrunner = JaxRolloutRunner(jpol, jcfg, jpool, seed=0, overlap_groups=GROUPS)
+        assert jrunner._merged_fetch
+        act_params = jax.tree.map(jnp.asarray, {k: params[k] for k in ("vit", "towers", "t5")})
+        jmerged = [{k: np.asarray(v) for k, v in jrunner.collect(act_params, T)[0].items()} for _ in range(2)]
+        jpool.close()
+
+    for w in range(2):
+        got = {k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy() for k, v in merged[w].items()}
+        for k, per_group in port_side[2][w].items():
+            np.testing.assert_array_equal(got[k], per_group, err_msg=k)
+        for k in EXACT:
+            np.testing.assert_array_equal(jmerged[w][k], jbatches[w][k], err_msg=k)
+            np.testing.assert_array_equal(got[k], jmerged[w][k], err_msg=k)

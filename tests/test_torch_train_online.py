@@ -11,13 +11,17 @@ evaluation CLI on the checkpoint they write, and `profile_trace`.
   "model.critic_type=discrete", ...], device="cpu")` runs the async pipeline
   to its total steps and writes a checkpoint, its logged metrics finite and
   its value losses HL-Gauss cross-entropies; the sync trainer with the mlp
-  critic as well; without `--fake-env` it raises NotImplementedError naming
-  the THOR controller, and without `device="cpu"` on a machine with no card
-  it raises;
+  critic as well; without `device="cpu"` on a machine with no card it
+  raises;
+* without `--fake-env`, on the mock AI2-THOR backend
+  (`tests/torch_thor_mock.py`): `launch.make_thor_sampler_factory` over an
+  Hdf5TaskSpecs directory and a houses directory against JAX's, as the fake
+  factory is held, then `cli.train_online` trains on those streams;
 * `cli.evaluate.main` restores that checkpoint and evaluates FetchType rows
   (episodes capped at 12 steps, as `tests/test_torch_evaluation.py` does)."""
 
 import dataclasses
+import functools
 import gzip
 import json
 import os
@@ -32,6 +36,7 @@ import safevla_tpu.launch as jlaunch
 import safevla_tpu.tasks.base as jax_task_base
 import safevla_tpu_torch.tasks.base as task_base
 import torch_port_tiny as tiny
+import torch_thor_mock as thor_mock
 from safevla_tpu.config import Config as JaxConfig
 from safevla_tpu.rollout.env_pool import EnvPool as JaxEnvPool
 from safevla_tpu_torch import config as pconfig
@@ -151,9 +156,87 @@ def test_train_online_cli_needs_the_card_unless_asked_for_the_cpu(tmp_path):
         train_online.main(["--smoke", f"train.output_dir={tmp_path}"])
 
 
-def test_train_online_cli_refuses_the_simulator(tmp_path):
-    with pytest.raises(NotImplementedError, match="StretchController.*Queue 1 item 12"):
-        train_online.main(["--data-dir", str(tmp_path), f"train.output_dir={tmp_path}"], device="cpu")
+def _write_thor_data(root, houses):
+    """`houses` in `<root>/houses/train.jsonl.gz` and an Hdf5TaskSpecs
+    directory `<root>/specs/train/<house>/hdf5_sensors.hdf5` of ObjectNav
+    specs over each house's objects (three per house)."""
+    import h5py
+
+    from safevla_tpu_torch.utils.string_codec import convert_string_to_byte
+
+    os.makedirs(root / "houses")
+    with gzip.open(root / "houses" / "train.jsonl.gz", "wt") as f:
+        f.writelines(json.dumps(h) + "\n" for h in houses)
+    for hi, house in enumerate(houses):
+        os.makedirs(root / "specs" / "train" / f"{hi:06d}")
+        with h5py.File(root / "specs" / "train" / f"{hi:06d}" / "hdf5_sensors.hdf5", "w") as f:
+            for j, row in enumerate(thor_mock.objectnav_rows(house, hi, 3)):
+                spec = {k: row[k] for k in ("task_type", "synsets", "synset_to_object_ids",
+                                            "broad_synset_to_object_ids", "natural_language_spec")}
+                spec["extras"] = {}
+                text = json.dumps(spec)
+                grp = f.create_group(str(j))
+                grp.create_dataset("templated_task_spec", data=convert_string_to_byte(text, 2 * len(text)).reshape(1, -1))
+                grp.create_dataset("house_index", data=np.full((1,), hi, np.int64))
+                x, y, z = row["agent_starting_position"]
+                grp.create_dataset("last_agent_location", data=np.array([[x, y, z, 0.0, row["agent_y_rotation"], 0.0]]))
+    return str(root / "specs"), str(root / "houses")
+
+
+@pytest.fixture
+def thor_env(monkeypatch):
+    """The mock AI2-THOR backend, rendering 28 x 44 frames (cropped to the
+    tiny policies' 28 x 42), and a fixed clock for the task ids."""
+    from safevla_tpu.envs import thor_controller as jthor
+    from safevla_tpu_torch.envs import thor_controller as pthor
+
+    thor_mock.install(thor_mock.ModuleSetter(monkeypatch))
+    for thor in (jthor, pthor):
+        monkeypatch.setattr(thor, "default_thor_env_args",
+                            functools.partial(thor.default_thor_env_args, height=28, width=44))
+    clock = SimpleNamespace(time=lambda: 1.7e9)
+    monkeypatch.setattr(jax_task_base, "time", clock)
+    monkeypatch.setattr(task_base, "time", clock)
+
+
+def test_train_online_cli_in_thor_houses(thor_env, tmp_path, tiny_model_cfg, monkeypatch):
+    """Without `--fake-env`: the THOR sampler factory over an Hdf5TaskSpecs
+    directory and a houses directory equals JAX's (the specs of every stream,
+    then the same rewards, costs, done flags and metrics under the same
+    actions), and `cli.train_online` trains a window on those streams."""
+    specs_dir, houses_dir = _write_thor_data(tmp_path, [thor_mock.make_house(s) for s in (1, 2)])
+    jcfg, pcfg = _configs("ObjectNavType")
+    for cfg in (jcfg, pcfg):
+        cfg.train.num_train_processes = 2
+    runs = {}
+    for name, factory, pool_cls in (
+        ("jax", jlaunch.make_thor_sampler_factory(jcfg, specs_dir, houses_dir), JaxEnvPool),
+        ("port", launch.make_thor_sampler_factory(pcfg, specs_dir, houses_dir), EnvPool),
+    ):
+        specs = [factory(i).task_spec_sampler.house_index_to_task_specs for i in range(2)]
+        random.seed(5)
+        np.random.seed(5)
+        pool = pool_cls(factory, num_streams=2, num_workers=0)
+        steps = [pool.initial_steps()] + [pool.step(a[:2]) for a in ACTIONS]
+        pool.close()
+        runs[name] = specs, [[(s.reward, s.cost, s.done, s.new_episode, s.metrics) for s in row] for row in steps]
+        assert steps[0][0].obs["rgb_raw"].shape == (28, 42, 3)
+    assert runs["port"][0] == runs["jax"][0] and set(runs["port"][0][1]) == {1}  # stream 1: house 1
+    assert runs["port"][1] == runs["jax"][1]
+    assert sum(s[2] for row in runs["port"][1] for s in row) >= 2  # episodes ended
+
+    tiny.register_tiny_vit(monkeypatch)
+    model = tiny.model_cfg(tiny_model_cfg)
+    monkeypatch.setattr(pconfig, "Config", lambda: Config(ModelConfig(**dataclasses.asdict(model))))
+    ts = train_online.main(
+        ["--data-dir", specs_dir, "--houses-dir", houses_dir, "--env-workers", "0",
+         "train.num_train_processes=2", "ppo.num_steps=8", "train.max_steps=8", "train.total_steps=16",
+         "train.async_pipeline=false", f"train.output_dir={tmp_path / 'out'}"],
+        device="cpu",
+    )
+    assert ts.step == 16
+    (log,) = _metrics(os.path.join(tmp_path / "out", Config().train.tag))
+    assert all(np.isfinite(v) for v in log.values() if isinstance(v, float))
 
 
 def _smoke_model(critic_type):
