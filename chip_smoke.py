@@ -22,7 +22,18 @@ Phases (none catches its own failure; any failure exits non-zero):
      kernel, the plain version and one PyTorch library call of the same
      function (CUDA-event ms, host µs to enqueue a call, profiler device
      ms); the LayerNorm backward's kernels per call, and its two designs
-     (one cooperative kernel, two kernels) timed side by side;
+     (one cooperative kernel, two kernels) timed side by side; then
+     exp_attn_bwd: the TPU measurement tool's kernel (csrc/exp_attn_bwd.cu,
+     the attention backward's matmul-only floor, through
+     tools/torch_exp_attn_bwd.py) against its plain version at the tool's
+     shape (B=384, S=201) and at the backward's two update shapes (S=208,
+     240), timed beside the backward kernel, SDPA's backward and the five
+     products as torch.bmm; the tool's `main` run from a count of 0 (its
+     launches are the kernel's in the `kernels` line); the wrappers the port
+     took last from the JAX package's public names (flash_attention,
+     attention, layer_norm_rows, init_kv_cache, gather_cache,
+     DeviceFrameBank.get_slot, native_available) on the card against the
+     CPU;
   3. reference: a small policy (f32 towers and ViT, head dim 64 and feature
      dims of 128, so every kernel runs) on the card against the same weights
      on the CPU, for acts and for one Learner.update; and one collected
@@ -147,8 +158,8 @@ Phases (none catches its own failure; any failure exits non-zero):
      pipes and the per-group fetch: actions, episode costs and weights
      bit-equal, both windows' StageTimer action_fetch / env_step /
      dispatch, env frames/s, beside the card's name and power limit;
-  15. one JSON line of kernels, then the last line
-     {"ok": true, "device": {...}}.
+  15. one JSON line of kernels (the four of the paths, then the tool's),
+     then the last line {"ok": true, "device": {...}}.
 Without CUDA, or outside a checkout of the repository, it exits non-zero
 and prints no result.
 """
@@ -617,6 +628,178 @@ def check_attention_bwd(fa, name, b, s, heads, key_lens, gen, dh=64, iters=50, p
     }
     log(f"[kernels] {json.dumps(res)}")
     return res
+
+
+EXP_ATTN_BWD_TOOL = os.path.join("tools", "torch_exp_attn_bwd.py")
+
+
+def load_exp_attn_bwd_tool():
+    """tools/torch_exp_attn_bwd.py, loaded by its path (it imports no JAX;
+    importing it runs nothing)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_exp_attn_bwd", EXP_ATTN_BWD_TOOL)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def five_bmm(qkv, g, heads):
+    """The matmul-only backward's five products as torch.bmm in bf16, on
+    (B*H, S, Dh) copies of q, k, v and g made here: the yardstick beside the
+    kernel, since no single PyTorch call computes its function (each
+    product's output is rounded to bf16, the 0.001 and 1/sqrt(Dh) scales are
+    left out)."""
+    b, s, three = qkv.shape
+    dh = three // 3 // heads
+    fold = lambda x: x.permute(0, 2, 1, 3).reshape(b * heads, s, dh).contiguous()
+    q, k, v = (fold(x) for x in qkv.view(b, s, 3, heads, dh).unbind(2))
+    gg = fold(g.view(b, s, heads, dh))
+
+    def run():
+        p = torch.bmm(q, k.transpose(1, 2))
+        dp = torch.bmm(gg, v.transpose(1, 2))
+        return torch.bmm(dp, k), torch.bmm(dp.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), gg)
+
+    return run
+
+
+def check_mmonly(fa, tool, name, b, s, heads, key_lens, gen, dh=64, iters=20):
+    """The matmul-only backward kernel (csrc/exp_attn_bwd.cu) against its
+    plain version at one shape (within tool.TOL_REL of the largest |value|,
+    the same bits twice); its times beside row 2's backward kernel on the same
+    inputs (keys masked by key_lens; the mmonly kernel takes all S keys, as
+    the TPU variant does), SDPA's backward and the five products as
+    torch.bmm (`five_bmm`); row 2 / mmonly."""
+    lanes = heads * dh
+    qkv = torch.randn((b, s, 3 * lanes), generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn((b, s, lanes), generator=gen, device="cuda").to(torch.bfloat16)
+    kl = torch.tensor(key_lens, dtype=torch.int32, device="cuda")
+    got, again = tool.mmonly(qkv, g, heads), tool.mmonly(qkv, g, heads)
+    want = tool.mmonly_reference(qkv, g, heads)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.isfinite(got).all(), name
+    assert torch.equal(got, again), f"{name}: the mmonly kernel is not deterministic"
+    diff = (got.float() - want.float()).abs()
+    parts = ("dq", "dk", "dv")
+    per = {part: diff[..., i * lanes : (i + 1) * lanes].max().item() for i, part in enumerate(parts)}
+    magnitude = {part: want[..., i * lanes : (i + 1) * lanes].abs().max().item() for i, part in enumerate(parts)}
+    err, top = diff.max().item(), max(magnitude.values())
+    assert err <= tool.TOL_REL * top, f"{name}: mmonly kernel vs plain max abs err {per} > {tool.TOL_REL} x {top}"
+    kernel = lambda: tool.mmonly(qkv, g, heads)
+    row2 = lambda: fa.attention_qkv_bwd(qkv, heads, kl, g)
+    sdpa = tool.sdpa_backward(qkv, g, kl, heads)
+    bound_ms, bound_by = tool.mmonly_bound(b, s, heads, dh)
+    res = {
+        "shape": name, "qkv": [b, s, 3 * lanes], "heads": heads, "head_dim": dh,
+        "key_lens": sorted(set(key_lens)), "keys_of_mmonly": s,
+        "max_abs_err": err, "max_abs_err_by_part": per, "max_abs_want": magnitude,
+        "tol": f"{tool.TOL_REL} x max |want|",
+        "ms": median3(cuda_ms, kernel, iters=iters),
+        "host_us": median3(host_us, kernel, iters=4 * iters),
+        "device_ms": device_ms_per_call(kernel, iters=iters),
+        "plain_ms": cuda_ms(lambda: tool.mmonly_reference(qkv, g, heads), iters=3, warmup=1),
+        "library_ms": None, "library_host_us": None, "library_device_ms": None,
+        "five_bmm_ms": median3(cuda_ms, five_bmm(qkv, g, heads), iters=iters),
+        "row2_ms": median3(cuda_ms, row2, iters=iters),
+        "row2_device_ms": device_ms_per_call(row2, iters=iters),
+        "sdpa_bwd_ms": median3(cuda_ms, sdpa, iters=iters),
+        "sdpa_bwd_device_ms": device_ms_per_call(sdpa, iters=iters),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    res["row2_over_mmonly"] = res["row2_ms"] / res["ms"]
+    if res["device_ms"] and res["row2_device_ms"]:
+        res["row2_over_mmonly_device"] = res["row2_device_ms"] / res["device_ms"]
+        res["bound_share_device"] = bound_ms / res["device_ms"]
+    log(f"[kernels] exp_attn_bwd_mmonly {json.dumps(res)}")
+    return res
+
+
+def public_names_on_card(fa, ln, gen, fusion_kl):
+    """The wrappers the port took from the JAX package's public names once on
+    the card against their CPU results: flash_attention and attention (the
+    kernel branch in bf16, the dense branch with an arbitrary mask in f32),
+    layer_norm_rows (bf16 forward, f32 gradients), init_kv_cache and
+    gather_cache, DeviceFrameBank.get_slot and native_available."""
+    from safevla_tpu_torch.models.llama_decoder import DecoderConfig, gather_cache, init_kv_cache
+    from safevla_tpu_torch.native.obs_ring import native_available
+    from safevla_tpu_torch.rollout.runner import DeviceFrameBank
+
+    cpu = lambda *ts: [t.cpu() for t in ts]
+    b, s, h, dh = STREAMS, 208, 8, 64
+    q, k, v = (torch.randn((b, s, h, dh), generator=gen, device="cuda").to(torch.bfloat16) for _ in range(3))
+    kl = torch.tensor(fusion_kl[:b], dtype=torch.int32, device="cuda")
+    before = fa.attention_qkv.launches
+    res = {
+        "flash_attention": (fa.flash_attention(q, k, v, kl).cpu().float()
+                            - fa.flash_attention(*cpu(q, k, v, kl)).float()).abs().max().item(),
+        "attention_kernel": (fa.attention(q, k, v, key_lens=kl).cpu().float()
+                             - fa.attention(*cpu(q, k, v), key_lens=kl.cpu()).float()).abs().max().item(),
+    }
+    assert fa.attention_qkv.launches == before + 2, "flash_attention / attention did not launch the kernel"
+    mask = torch.rand((b, s), generator=gen, device="cuda") < 0.7
+    mask[:, 0] = True
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    res["attention_dense_f32"] = (fa.attention(q32, k32, v32, key_mask=mask).cpu()
+                                  - fa.attention(*cpu(q32, k32, v32), key_mask=mask.cpu())).abs().max().item()
+    assert max(res["flash_attention"], res["attention_kernel"]) <= ATTN_TOL_BF16, res
+    assert res["attention_dense_f32"] <= ATTN_TOL_F32, res
+
+    x, gamma, beta = _ln_inputs(b * s, 512, torch.bfloat16, gen)
+    before = ln.layer_norm.launches
+    got = ln.layer_norm_rows(x, gamma, beta)
+    assert ln.layer_norm.launches == before + 1, "layer_norm_rows did not launch the kernel"
+    res["layer_norm_rows_tol_ratio"] = ln_excess(got.cpu(), ln.layer_norm_rows(*cpu(x, gamma, beta)))
+    cot = torch.randn(x.shape, generator=gen, device="cuda")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).float().requires_grad_(True) for t in (x, gamma, beta)]
+        grads[dev] = torch.autograd.grad(ln.layer_norm_rows(*leaves), leaves, cot.to(dev))
+    res["layer_norm_rows_grad_rel"] = max(
+        ((a.cpu() - w).abs().max() / w.abs().max()).item() for a, w in zip(grads["cuda"], grads["cpu"])
+    )
+    assert res["layer_norm_rows_tol_ratio"] <= 1 and res["layer_norm_rows_grad_rel"] <= LN_PARAM_RTOL, res
+
+    cfg = DecoderConfig(max_seq_len=64)
+    cache = init_kv_cache(cfg, b, device="cuda")
+    assert cache["k"].is_cuda and cache["k"].shape == (cfg.n_layers, b, 64, cfg.n_heads, cfg.head_dim)
+    assert not (cache["k"].any() or cache["v"].any())
+    full = {n: torch.randn(c.shape, generator=gen, device="cuda").to(c.dtype) for n, c in cache.items()}
+    keep = torch.tensor([7, 0, 0, 3], device="cuda")
+    got, want = gather_cache(full, keep), gather_cache({n: c.cpu() for n, c in full.items()}, keep.cpu())
+    res["gather_cache_equal"] = all(torch.equal(got[n].cpu(), want[n]) for n in ("k", "v"))
+
+    frames = [np.random.RandomState(i).randint(0, 256, (224, 384, 3), dtype=np.uint8) for i in range(4)]
+    seq = [frames[i] for i in (0, 1, 0, 2, 3, 1, 0)]  # 3 slots: hits and evictions
+    banks = {dev: DeviceFrameBank(3, (224, 384, 3), torch.device(dev)) for dev in ("cuda", "cpu")}
+    slots = {dev: [bank.get_slot(f) for f in seq] for dev, bank in banks.items()}
+    res["get_slot_equal"] = slots["cuda"] == slots["cpu"] and torch.equal(banks["cuda"].bank.cpu(), banks["cpu"].bank)
+    res["native_available"] = native_available()
+    assert res["gather_cache_equal"] and res["get_slot_equal"] and res["native_available"], res
+    log(f"[public_names] {json.dumps(res)}")
+    return res
+
+
+def exp_attn_bwd(fa, ln, gen, update_kl, siglip_kl):
+    """The matmul-only floor of the attention backward (tools/exp_attn_bwd.py's
+    `mmonly` variant, csrc/exp_attn_bwd.cu) against its plain version and
+    timed beside row 2's kernel at the TPU tool's shape and at row 2's two
+    update shapes; then the tool's entry point, `main`, with the kernel's
+    count set to 0 just before it (its path: the package runs the kernel
+    nowhere); then `public_names_on_card`."""
+    tool = load_exp_attn_bwd_tool()
+    tool_kl = np.random.RandomState(0).randint(tool.KL_LOW, tool.S + 1, (tool.B,)).tolist()
+    shapes = [
+        check_mmonly(fa, tool, "exp_attn_bwd_tool", tool.B, tool.S, tool.H, tool_kl, gen, dh=tool.DH),
+        check_mmonly(fa, tool, "fusion_update", 128, 208, 8, update_kl, gen),
+        check_mmonly(fa, tool, "fusion_siglip_update", 128, 240, 8,
+                     [siglip_kl[i % STREAMS] for i in range(128)], gen),
+    ]
+    tool.mmonly.launches = 0
+    assert tool.main() == 0
+    launches = tool.mmonly.launches
+    assert launches > 0, "the tool's run launched no mmonly kernel"
+    return {"shapes": shapes, "launches": launches, "public_names": public_names_on_card(fa, ln, gen, update_kl)}
 
 
 def ln_bound(r, d, nbytes, flops_per_element):
@@ -4041,6 +4224,8 @@ def main() -> int:
 
     phase_done = lambda name: log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
     phase_done("kernels vs plain")
+    exp = exp_attn_bwd(fa, ln, gen, update_kl, siglip_kl)
+    phase_done("exp_attn_bwd")
 
     # 4. serving, 5. training and 6. the trainer at full width, each path's
     # kernel counts reset just before it (3., the reference on small inputs,
@@ -4188,6 +4373,16 @@ def main() -> int:
         assert k["launches_dp"] > 0 and k["launches_dp_nccl"] > 0, k["name"]
     for k in kernels:  # and the thor phase (its trainer windows the backwards)
         assert k["launches_thor"] > 0, k["name"]
+    # the TPU measurement tool's kernel, on no path of the package: its
+    # launches are those of the tool's own run (tools/torch_exp_attn_bwd.py::main)
+    kernels.append(
+        row("exp_attn_bwd_mmonly", "safevla_tpu_torch/csrc/exp_attn_bwd.cu", "tools/exp_attn_bwd.py:36",
+            "tools/exp_attn_bwd.py::bwd_kernel_v, variant mmonly", {"exp_attn_bwd": exp["launches"]},
+            exp["shapes"][0], exp["shapes"], exp["shapes"][0]["tol"],
+            path="tools/torch_exp_attn_bwd.py::main", library="none: no single PyTorch call computes it",
+            row2_over_mmonly={sh["shape"]: sh["row2_over_mmonly"] for sh in exp["shapes"]},
+            five_bmm_ms={sh["shape"]: sh["five_bmm_ms"] for sh in exp["shapes"]})
+    )
     online_frames = " / ".join(f"{p['windows'][-2]['env_frames_per_s']:.1f}"
                                for p in online_path["passes"].values())
     log(f"[summary] reference max diff {ref_diff}, reference update {ref_update}, "
@@ -4220,6 +4415,7 @@ def main() -> int:
         f"replay of {thor_res['replay']['episode_steps']} greedy acts equal {thor_res['replay']['actions_equal']}, "
         f"shm + merged fetch vs pipes {thor_res['shm']['env_frames_per_s']:.1f} / "
         f"{thor_res['pipe']['env_frames_per_s']:.1f} env frames/s, bit-equal {thor_res['bit_equal']}; "
+        f"exp_attn_bwd: row 2 / mmonly {exp['shapes'][0]['row2_over_mmonly']:.3f} at the TPU tool's shape; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

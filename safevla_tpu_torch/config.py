@@ -5,11 +5,13 @@ the rollout runner, the online trainers, the evaluator and the offline
 Copies of `safevla_tpu/config.py::ModelConfig`, `PPOConfig`,
 `LagrangeConfig`, `TrainingStageConfig`, `TrainConfig`, `OfflineConfig`,
 `MeshConfig`, `EvalConfig` and `Config` (its data roots included), with
-identical defaults, and of `apply_overrides` (with its presets).
+identical defaults, and of `apply_overrides` (with its presets),
+`config_from_cli` and `asdict`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import difflib
 import json
 import os
@@ -299,3 +301,14 @@ def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
             raise AttributeError(f"Unknown config key: {key}{suffix}")
         setattr(obj, leaf, _parse_value(raw, getattr(obj, leaf)))
     return cfg
+
+
+def config_from_cli(argv: List[str]) -> Config:
+    """Config() with the `key=value` arguments of argv applied (the others,
+    flags and paths, are skipped)."""
+    return apply_overrides(Config(), [a for a in argv if "=" in a])
+
+
+def asdict(cfg: Config) -> dict:
+    """The configuration as nested plain dicts (dataclasses.asdict)."""
+    return dataclasses.asdict(cfg)

@@ -153,3 +153,17 @@ class LlamaDecoder(nn.Module):
             h = layer.step(h, cache_k[i], cache_v[i], pos, mask)
         return self.output(self.norm(h)).float()
 
+
+def init_kv_cache(
+    cfg: DecoderConfig, batch: int, dtype: torch.dtype | None = None, device=None
+) -> dict:
+    """Zeroed cache {k, v: (L, B, S, H, Dh)} in `dtype` (cfg.dtype when None)."""
+    shape = (cfg.n_layers, batch, cfg.max_seq_len, cfg.n_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=dtype or cfg.dtype, device=device) for name in ("k", "v")}
+
+
+def gather_cache(cache: dict, keep) -> dict:
+    """The cache rows of the samplers `keep` (indices along B), a new cache:
+    the reference's `sampler_select` cache-row surgery (reference
+    model.py:241-247)."""
+    return {"k": cache["k"][:, keep], "v": cache["v"][:, keep]}

@@ -1,5 +1,5 @@
 """Native host code of the port: the shared-memory observation ring."""
 
-from safevla_tpu_torch.native.obs_ring import ObsRing, build_native
+from safevla_tpu_torch.native.obs_ring import ObsRing, build_native, native_available
 
-__all__ = ["ObsRing", "build_native"]
+__all__ = ["ObsRing", "build_native", "native_available"]

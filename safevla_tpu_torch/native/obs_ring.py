@@ -85,6 +85,17 @@ def _load() -> ctypes.CDLL:
     return lib
 
 
+def native_available() -> bool:
+    """Whether the ring's library builds and loads here. Unlike the JAX
+    package nothing falls back on it: `EnvPool(use_shm_frames=True)` still
+    raises where the ring cannot be built or opened."""
+    try:
+        _load()
+    except (OSError, RuntimeError):
+        return False
+    return True
+
+
 class ObsRing:
     """One SPSC shared-memory ring (one per env stream). `create=True` makes
     and owns the named segment (unlinked on close); `create=False` attaches

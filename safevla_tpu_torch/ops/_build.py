@@ -29,8 +29,9 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
-# every kernel source of the port, by name (csrc/<name>.cu)
-SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm")
+# every kernel source of the port, by name (csrc/<name>.cu); exp_attn_bwd is
+# tools/torch_exp_attn_bwd.py's, on no path of the package
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "layer_norm", "exp_attn_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -36,6 +36,9 @@ text, padded ViT tokens).
 
 `dense_attention` is the counterpart of `_xla_attention`: the separate-q/k/v
 path the fusion's last layer (one query row) takes, as it does in JAX.
+`flash_attention` (q, k, v packed into one qkv for `attention_qkv`) and
+`attention` (the dispatcher between it and `dense_attention`) are the JAX
+package's separate-q/k/v entries, on the same kernels.
 """
 
 from __future__ import annotations
@@ -390,6 +393,40 @@ def attention_qkv(
 
 
 attention_qkv.launches = 0  # kernel launches since the last reset (a plain int)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_lens: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Attention over separate q, k, v (B, S, H, Dh) -> (B, S, H, Dh):
+    packed into one (B, S, 3*H*Dh) qkv (one copy) for `attention_qkv`, so
+    it runs (and differentiates) as that does."""
+    b, s, h, d = q.shape
+    qkv = torch.cat([x.reshape(b, s, h * d) for x in (q, k, v)], dim=-1)
+    return attention_qkv(qkv, h, key_lens).reshape(b, s, h, d)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    use_kernel: bool = True,
+    key_mask: torch.Tensor | None = None,
+    key_lens: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The dispatcher of JAX's `attention`: q, k, v (B, S, H, Dh) ->
+    (B, S, H, Dh). `flash_attention` where the kernel's function applies
+    (use_kernel, no key_mask, `kernel_takes(H*Dh, H)`), `dense_attention`
+    elsewhere, with key_lens made a mask. key_mask (B, S) bool is an
+    arbitrary mask; key_lens (B,) int32 a prefix mask; not both."""
+    if key_mask is not None and key_lens is not None:
+        raise ValueError("pass key_mask or key_lens, not both")
+    h, d = q.shape[2], q.shape[3]
+    if use_kernel and key_mask is None and kernel_takes(h * d, h):
+        return flash_attention(q, k, v, key_lens)
+    if key_lens is not None:
+        key_mask = torch.arange(k.shape[1], device=k.device)[None, :] < key_lens.to(k.device)[:, None]
+    return dense_attention(q, k, v, key_mask)
 
 
 def dense_attention(q, k, v, key_mask=None):

@@ -244,6 +244,18 @@ class _LayerNorm(torch.autograd.Function):
         return dx, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None
 
 
+def layer_norm_rows(
+    x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The kernels' (R, D) entry, JAX's `layer_norm_rows`: x two-dimensional
+    with D a multiple of 128 (else ValueError, as the Pallas kernels'
+    geometry raises); the rest is `layer_norm`, its VJP included."""
+    if x.dim() != 2 or not kernel_takes_dim(x.shape[-1]):
+        raise ValueError(f"layer_norm_rows takes (R, D) rows with D a multiple of 128, not {tuple(x.shape)}")
+    return layer_norm(x, gamma, beta, eps, out_dtype)
+
+
 def layer_norm(
     x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-6,
     out_dtype: Optional[torch.dtype] = None,

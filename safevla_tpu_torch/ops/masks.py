@@ -5,6 +5,7 @@ Counterpart of `safevla_tpu/ops/masks.py` (True = attend):
     (reference: allenact_dino_transformer.py:398-402)
   * rollout path: attend from the episode-start cache slot to the current one
     (reference: allenact_dino_transformer.py:388-397)
+and `additive`, a boolean mask as an additive bias.
 """
 
 from __future__ import annotations
@@ -36,3 +37,8 @@ def incremental_episode_mask(
     slots = torch.arange(max_len, device=time_step.device)
     ok = (slots[None, :] >= epi_start[:, None]) & (slots[None, :] <= cache_pos[:, None])
     return ok[:, None, None, :]
+
+
+def additive(mask: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """bool mask -> additive bias in `dtype`: 0 where allowed, -1e9 elsewhere."""
+    return torch.where(mask, 0.0, -1e9).to(dtype)

@@ -167,6 +167,11 @@ class DeviceFrameBank:
         with np.errstate(over="ignore"):
             return int(np.dot(words, coeffs[: words.size]))
 
+    def get_slot(self, frame: np.ndarray) -> int:
+        """The slot of one frame, uploading it if it is novel: `get_slots`
+        of one frame."""
+        return int(self.get_slots([frame])[0])
+
     def get_slots(self, frames: List[np.ndarray]) -> np.ndarray:
         """The slot of each frame; novel frames are uploaded together (one
         copy and one scatter). A device step enqueued earlier still reads a

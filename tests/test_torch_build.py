@@ -8,6 +8,7 @@ stream passed as a 32-bit int would be cut.
 """
 
 import ctypes
+import importlib.util
 import re
 
 import pytest
@@ -16,11 +17,18 @@ from safevla_tpu_torch.ops import _build
 from safevla_tpu_torch.ops import flash_attention as fa
 from safevla_tpu_torch.ops import layer_norm as ln
 
+_spec = importlib.util.spec_from_file_location(
+    "torch_exp_attn_bwd", _build.PKG_DIR.parent / "tools" / "torch_exp_attn_bwd.py"
+)
+exp_attn_bwd = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(exp_attn_bwd)
+
 # every kernel library -> the ctypes signatures its wrapper binds
 SIGNATURES = {
     "flash_attention_fwd": fa._C_ARGTYPES,
     "flash_attention_bwd": fa._C_ARGTYPES_BWD,
     "layer_norm": ln._C_ARGTYPES,
+    "exp_attn_bwd": exp_attn_bwd._C_ARGTYPES,  # tools/torch_exp_attn_bwd.py's kernel
 }
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
 _C_RESTYPES = {"int": ctypes.c_int, "const char*": ctypes.c_char_p}

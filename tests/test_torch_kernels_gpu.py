@@ -881,3 +881,55 @@ def test_merged_action_fetch_window_matches_the_per_group_window_on_the_card(cud
     for w in range(2):
         for k, v in per_group[w].items():
             assert torch.equal(merged[w][k], v), k
+
+
+def _exp_attn_bwd_tool():
+    """tools/torch_exp_attn_bwd.py, loaded by its path (it imports no JAX)."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / "torch_exp_attn_bwd.py"
+    spec = importlib.util.spec_from_file_location("torch_exp_attn_bwd", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# (B, S, H, Dh): the TPU tool's shape, row 2's two update shapes (fusion,
+# SigLIP fusion), S not a multiple of 16, the other head dims, S at the
+# kernel's largest at head dim 64
+MMONLY_CASES = [(384, 201, 8, 64), (128, 208, 8, 64), (128, 240, 8, 64), (3, 37, 2, 64),
+                (2, 65, 8, 16), (2, 100, 4, 32), (2, 48, 2, 128), (2, 448, 6, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,dh", MMONLY_CASES)
+def test_exp_attn_bwd_mmonly_kernel_matches_plain_version(cuda, b, s, h, dh):
+    """csrc/exp_attn_bwd.cu against `mmonly_reference` within 1e-2 of the
+    largest |value| (a bf16 rounding of pb or dsb that falls the other way),
+    one launch a call, the same bits twice."""
+    tool = _exp_attn_bwd_tool()
+    qkv, g, _ = tool.inputs(b, s, h, dh, seed=s)
+    before = tool.mmonly.launches
+    got, again = tool.mmonly(qkv, g, h), tool.mmonly(qkv, g, h)
+    want = tool.mmonly_reference(qkv, g, h)
+    assert tool.mmonly.launches == before + 2
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    magnitude = want.float().abs().max().item()
+    assert magnitude > 0
+    assert (got.float() - want.float()).abs().max().item() <= tool.TOL_REL * magnitude
+
+
+@pytest.mark.gpu
+def test_exp_attn_bwd_mmonly_refuses_what_it_does_not_take(cuda):
+    tool = _exp_attn_bwd_tool()
+    qkv, g, _ = tool.inputs(2, 32, 2, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tool.mmonly(qkv.float(), g.float(), 2)
+    odd, g_odd, _ = tool.inputs(2, 32, 2, 48)
+    with pytest.raises(ValueError, match="head dims"):
+        tool.mmonly(odd, g_odd, 2)
+    long, g_long, _ = tool.inputs(1, 449, 2, 64)
+    with pytest.raises(ValueError, match="S up to 448"):
+        tool.mmonly(long, g_long, 2)
