@@ -28,7 +28,9 @@ Phases (none catches its own failure; any failure exits non-zero):
      tools/torch_exp_attn_bwd.py) against its plain version at the tool's
      shape (B=384, S=201) and at the backward's two update shapes (S=208,
      240), timed beside the backward kernel, SDPA's backward and the five
-     products as torch.bmm; the tool's `main` run from a count of 0 (its
+     products as torch.bmm, with its TFLOP/s and TB/s and the device ms of
+     the mma.sync walk it replaced beside; its registers and spills (the nvcc log) and its wgmma and TMA
+     instructions (cuobjdump); the tool's `main` run from a count of 0 (its
      launches are the kernel's in the `kernels` line); the wrappers the port
      took last from the JAX package's public names (flash_attention,
      attention, layer_norm_rows, init_kv_cache, gather_cache,
@@ -664,13 +666,75 @@ def five_bmm(qkv, g, heads):
     return run
 
 
+# The mma.sync walk that csrc/exp_attn_bwd.cu ran before its wgmma design, at
+# the phase's shapes (its last smoke, on an NVIDIA H100 80GB HBM3 at 700.00 W;
+# PERF.md, row 5): device ms and row 2 / mmonly, printed beside this run's
+MMONLY_MMA_SYNC = {
+    "exp_attn_bwd_tool": {"device_ms": 0.37036415, "row2_over_mmonly_device": 1.8948},
+    "fusion_update": {"device_ms": 0.1426306, "row2_over_mmonly_device": 1.7370},
+    "fusion_siglip_update": {"device_ms": 0.20795825, "row2_over_mmonly_device": 1.7069},
+}
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel of an `nvcc -Xptxas -v` log: registers at launch, spill
+    stores and loads (bytes), and the count of ptxas's notes that it
+    serialised wgmma instructions (C7510-C7515)."""
+    import re
+
+    def short(mangled):
+        m = re.search(r"(mmonly\w*?_kernel)ILi(\d+)E", mangled)
+        return f"{m.group(1)}<{m.group(2)}>" if m else mangled
+
+    serialized = [short(f) for f in re.findall(r"\(C751[0-5]\)[^\n]*?function '([^']+)'", log)]
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = short(part.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        out[name] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None,
+            "wgmma_serialized_notes": serialized.count(name),
+        }
+    return out
+
+
+def sass_report(library) -> dict:
+    """Per kernel of a built library, from `cuobjdump -sass`: the highest
+    register it names (past the launch figure where setmaxnreg raised a
+    warpgroup's budget), and its HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions."""
+    import re
+
+    from safevla_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        mangled = part.split("\n", 1)[0].strip()
+        m = re.search(r"(mmonly\w*?_kernel)ILi(\d+)E", mangled)
+        regs = [int(x) for x in re.findall(r"\bR(\d+)\b", part)]
+        out[f"{m.group(1)}<{m.group(2)}>" if m else mangled] = {
+            "highest_register": max(regs) if regs else None,
+            "hgmma": len(re.findall(r"\bHGMMA\b", part)), "utmaldg": len(re.findall(r"\bUTMALDG\b", part)),
+        }
+    return out
+
+
 def check_mmonly(fa, tool, name, b, s, heads, key_lens, gen, dh=64, iters=20):
     """The matmul-only backward kernel (csrc/exp_attn_bwd.cu) against its
     plain version at one shape (within tool.TOL_REL of the largest |value|,
     the same bits twice); its times beside row 2's backward kernel on the same
     inputs (keys masked by key_lens; the mmonly kernel takes all S keys, as
     the TPU variant does), SDPA's backward and the five products as
-    torch.bmm (`five_bmm`); row 2 / mmonly."""
+    torch.bmm (`five_bmm`); row 2 / mmonly; the achieved TFLOP/s (the TPU
+    tool's count of five products) and TB/s (the bound's bytes) on the
+    profiler's device ms; the earlier mma.sync walk's device ms where it
+    measured the shape."""
     lanes = heads * dh
     qkv = torch.randn((b, s, 3 * lanes), generator=gen, device="cuda").to(torch.bfloat16)
     g = torch.randn((b, s, lanes), generator=gen, device="cuda").to(torch.bfloat16)
@@ -711,7 +775,15 @@ def check_mmonly(fa, tool, name, b, s, heads, key_lens, gen, dh=64, iters=20):
     if res["device_ms"] and res["row2_device_ms"]:
         res["row2_over_mmonly_device"] = res["row2_device_ms"] / res["device_ms"]
         res["bound_share_device"] = bound_ms / res["device_ms"]
+        res["tflops_device"] = 5 * 2 * s * s * dh * heads * b / res["device_ms"] / 1e9
+        res["tb_per_s_device"] = 2 * 7 * b * s * heads * dh / res["device_ms"] / 1e9
     log(f"[kernels] exp_attn_bwd_mmonly {json.dumps(res)}")
+    if res["device_ms"] and name in MMONLY_MMA_SYNC:
+        log(f"[kernels] exp_attn_bwd_mmonly {name}: device ms {res['device_ms']:.6f} (the mma.sync walk's: "
+            f"{MMONLY_MMA_SYNC[name]['device_ms']}), row 2 / mmonly {res['row2_over_mmonly_device']:.4f} "
+            f"(the mma.sync walk's: {MMONLY_MMA_SYNC[name]['row2_over_mmonly_device']}), "
+            f"{res['bound_share_device']:.1%} of "
+            f"the bytes bound, {res['tflops_device']:.1f} TFLOP/s, {res['tb_per_s_device']:.3f} TB/s")
     return res
 
 
@@ -787,7 +859,16 @@ def exp_attn_bwd(fa, ln, gen, update_kl, siglip_kl):
     update shapes; then the tool's entry point, `main`, with the kernel's
     count set to 0 just before it (its path: the package runs the kernel
     nowhere); then `public_names_on_card`."""
+    from safevla_tpu_torch.ops import _build
+
     tool = load_exp_attn_bwd_tool()
+    nvcc_log = _build.build_log("exp_attn_bwd")  # kept beside the library, so a cached build has it too
+    assert "registers" in nvcc_log, "no ptxas report (nvcc -Xptxas -v) for exp_attn_bwd"
+    build = {"ptxas": ptxas_report(nvcc_log), "sass": sass_report(_build.library_path("exp_attn_bwd"))}
+    log(f"[kernels] exp_attn_bwd build: {json.dumps(build)}")
+    for dh in fa.KERNEL_HEAD_DIMS:  # the design is in the machine code, not only in the source
+        sass = build["sass"][f"mmonly_kernel<{dh}>"]
+        assert sass["hgmma"] > 0 and sass["utmaldg"] > 0, (dh, sass)
     tool_kl = np.random.RandomState(0).randint(tool.KL_LOW, tool.S + 1, (tool.B,)).tolist()
     shapes = [
         check_mmonly(fa, tool, "exp_attn_bwd_tool", tool.B, tool.S, tool.H, tool_kl, gen, dh=tool.DH),
@@ -799,7 +880,8 @@ def exp_attn_bwd(fa, ln, gen, update_kl, siglip_kl):
     assert tool.main() == 0
     launches = tool.mmonly.launches
     assert launches > 0, "the tool's run launched no mmonly kernel"
-    return {"shapes": shapes, "launches": launches, "public_names": public_names_on_card(fa, ln, gen, update_kl)}
+    return {"shapes": shapes, "launches": launches, "build": build,
+            "public_names": public_names_on_card(fa, ln, gen, update_kl)}
 
 
 def ln_bound(r, d, nbytes, flops_per_element):
@@ -4380,6 +4462,10 @@ def main() -> int:
             "tools/exp_attn_bwd.py::bwd_kernel_v, variant mmonly", {"exp_attn_bwd": exp["launches"]},
             exp["shapes"][0], exp["shapes"], exp["shapes"][0]["tol"],
             path="tools/torch_exp_attn_bwd.py::main", library="none: no single PyTorch call computes it",
+            design=("persistent and warp-specialised: TMA loads into an mbarrier ring of plane slots, 3 "
+                    "consumer warpgroups on wgmma (first products with A and B from shared memory, second "
+                    "products with A in registers)"),
+            build=exp["build"],
             row2_over_mmonly={sh["shape"]: sh["row2_over_mmonly"] for sh in exp["shapes"]},
             five_bmm_ms={sh["shape"]: sh["five_bmm_ms"] for sh in exp["shapes"]})
     )
@@ -4415,7 +4501,8 @@ def main() -> int:
         f"replay of {thor_res['replay']['episode_steps']} greedy acts equal {thor_res['replay']['actions_equal']}, "
         f"shm + merged fetch vs pipes {thor_res['shm']['env_frames_per_s']:.1f} / "
         f"{thor_res['pipe']['env_frames_per_s']:.1f} env frames/s, bit-equal {thor_res['bit_equal']}; "
-        f"exp_attn_bwd: row 2 / mmonly {exp['shapes'][0]['row2_over_mmonly']:.3f} at the TPU tool's shape; "
+        f"exp_attn_bwd: row 2 / mmonly {exp['shapes'][0]['row2_over_mmonly']:.3f} at the TPU tool's shape "
+        f"(the mma.sync walk: {MMONLY_MMA_SYNC['exp_attn_bwd_tool']['row2_over_mmonly_device']}, device ms); "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -6,7 +6,8 @@ into its own shared library, at first use, under `safevla_tpu_torch/_build/`
 carries a digest of the source, the shared headers `csrc/*.cuh` and the
 flags, so an edited source or header is rebuilt and a stale library is never
 loaded. `build()` starts one `nvcc` per source, all at once, and waits for
-them together. `bind` resolves a library's C functions once, as ctypes
+them together, and keeps each nvcc's output (ptxas's `-v` report of
+registers and spills) beside its library, for `build_log`. `bind` resolves a library's C functions once, as ctypes
 function objects that raise on the cudaError_t they return: a wrapper holds
 them and pays no lookup per call. `launch` looks a C function up and calls
 it, raising the same way.
@@ -60,9 +61,12 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str, csrc: Path = CSRC_DIR, build_dir: Path = BUILD_DIR) -> Path:
+def library_path(name: str, csrc: Optional[Path] = None, build_dir: Optional[Path] = None) -> Path:
     """The library of csrc/<name>.cu, named by a digest of the source, every
-    shared header csrc/*.cuh (any source may include them) and the flags."""
+    shared header csrc/*.cuh (any source may include them) and the flags
+    (`csrc` and `build_dir` default to CSRC_DIR and BUILD_DIR)."""
+    csrc = CSRC_DIR if csrc is None else csrc
+    build_dir = BUILD_DIR if build_dir is None else build_dir
     headers = sorted(csrc.glob("*.cuh"))
     return digest_path(name, csrc / f"{name}.cu", headers, NVCC_FLAGS, build_dir)
 
@@ -103,10 +107,21 @@ def build(names: Iterable[str] = SOURCES) -> float:
             os.unlink(tmp)
             failures.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)  # atomic: a reader never sees a partial file
     if failures:
         raise RuntimeError("\n".join(failures))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for the current library of csrc/<name>.cu: this
+    process's build of it, else the log kept beside the library when it was
+    built; "" if there is neither."""
+    if name in BUILD_LOGS:
+        return BUILD_LOGS[name]
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
 
 
 def load_library(name: str, argtypes: Optional[dict] = None) -> ctypes.CDLL:

@@ -10,6 +10,7 @@ stream passed as a 32-bit int would be cut.
 import ctypes
 import importlib.util
 import re
+import shutil
 
 import pytest
 
@@ -99,3 +100,40 @@ def test_ctypes_signatures_match_the_extern_c_functions(lib):
             else:
                 ctype = decl.rsplit(" ", 1)[0].replace("const ", "")
                 assert argtype is _C_TYPES[ctype], (name, decl)
+
+
+def test_exp_attn_bwd_library_follows_the_wgmma_header(tmp_path):
+    """exp_attn_bwd.cu includes csrc/hopper_wgmma.cuh, and an edit of that
+    header names another library (on a copy of csrc/)."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert '#include "hopper_wgmma.cuh"' in (csrc / "exp_attn_bwd.cu").read_text()
+    first = _build.library_path("exp_attn_bwd", csrc, out)
+    header = csrc / "hopper_wgmma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path("exp_attn_bwd", csrc, out) != first
+
+
+def test_build_keeps_the_nvcc_log_beside_the_library(tmp_path, monkeypatch):
+    """`build` writes nvcc's output (ptxas's register and spill report)
+    beside the library it names, so `build_log` still reads it when a later
+    process is served from the built library and nvcc does not run."""
+    csrc = _csrc(tmp_path)
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nwhile [ "$1" != "-o" ]; do shift; done\n: > "$2"\n'
+                    'echo "ptxas info    : Used 42 registers"\n')
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(nvcc.parent.parent))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_LOGS", {})
+    _build.build(["kern"])
+    assert _build.library_path("kern").exists()
+    assert "Used 42 registers" in _build.build_log("kern")
+    _build.BUILD_LOGS.clear()  # a later process: the library is built already
+    nvcc.write_text("#!/bin/sh\nexit 1\n")
+    _build.build(["kern"])
+    assert "Used 42 registers" in _build.build_log("kern")
+    (csrc / "kern.cu").write_text("// edited\n")  # another library, never built: no log
+    assert _build.build_log("kern") == ""

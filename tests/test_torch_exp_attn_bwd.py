@@ -153,3 +153,4 @@ def test_mmonly_bound_and_limits_at_the_tool_shape():
     flop = 5 * 2 * tool.S**2 * tool.DH * tool.H * tool.B
     assert flop == pytest.approx(79.4e9, rel=1e-3)
     assert tool.mmonly_max_s(64) == 448 and tool.mmonly_max_s(128) == 224
+

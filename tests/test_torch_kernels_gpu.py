@@ -900,10 +900,17 @@ def _exp_attn_bwd_tool():
 # kernel's largest at head dim 64
 MMONLY_CASES = [(384, 201, 8, 64), (128, 208, 8, 64), (128, 240, 8, 64), (3, 37, 2, 64),
                 (2, 65, 8, 16), (2, 100, 4, 32), (2, 48, 2, 128), (2, 448, 6, 64)]
+# the kernel's edges at head dim 64: S on and just past its 64-row tiles
+# (the last tile pulled back over the one before), and its persistent walk:
+# one item past the 132 SMs (B=133, H=1), fewer items than SMs; the largest
+# S at head dims 16, 32 and 128 (4 plane slots, no next item in flight)
+MMONLY_EDGE_CASES = [(2, 64, 2, 64), (2, 65, 2, 64), (2, 128, 2, 64), (2, 129, 2, 64),
+                     (2, 193, 2, 64), (2, 256, 2, 64), (133, 201, 1, 64), (1, 208, 2, 64),
+                     (1, 1808, 2, 16), (1, 896, 2, 32), (1, 224, 2, 128)]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,s,h,dh", MMONLY_CASES)
+@pytest.mark.parametrize("b,s,h,dh", MMONLY_CASES + MMONLY_EDGE_CASES)
 def test_exp_attn_bwd_mmonly_kernel_matches_plain_version(cuda, b, s, h, dh):
     """csrc/exp_attn_bwd.cu against `mmonly_reference` within 1e-2 of the
     largest |value| (a bf16 rounding of pb or dsb that falls the other way),
@@ -918,7 +925,9 @@ def test_exp_attn_bwd_mmonly_kernel_matches_plain_version(cuda, b, s, h, dh):
     assert torch.equal(got, again)
     magnitude = want.float().abs().max().item()
     assert magnitude > 0
-    assert (got.float() - want.float()).abs().max().item() <= tool.TOL_REL * magnitude
+    diff = (got.float() - want.float()).abs()
+    per = {part: diff[..., i * h * dh : (i + 1) * h * dh].max().item() for i, part in enumerate(("dq", "dk", "dv"))}
+    assert max(per.values()) <= tool.TOL_REL * magnitude, (per, magnitude)
 
 
 @pytest.mark.gpu
@@ -933,3 +942,45 @@ def test_exp_attn_bwd_mmonly_refuses_what_it_does_not_take(cuda):
     long, g_long, _ = tool.inputs(1, 449, 2, 64)
     with pytest.raises(ValueError, match="S up to 448"):
         tool.mmonly(long, g_long, 2)
+
+
+@pytest.mark.gpu
+def test_exp_attn_bwd_library_runs_wgmma_and_tma(cuda):
+    """The built exp_attn_bwd library's SASS holds warpgroup products (HGMMA)
+    and TMA tile loads (UTMALDG): the design is in the machine code."""
+    import pathlib
+    import subprocess
+
+    from safevla_tpu_torch.ops import _build
+
+    _build.build(["exp_attn_bwd"])
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("exp_attn_bwd"))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    assert "HGMMA" in sass and "UTMALDG" in sass
+
+
+@pytest.mark.gpu
+def test_exp_attn_bwd_library_refuses_past_mmonly_max_s(cuda):
+    """The kernel's own shared-memory check (4 plane slots with their
+    barriers) and the wrapper's `mmonly_max_s` draw one line at every head
+    dim: the C entry runs S = mmonly_max_s(dh) and returns
+    cudaErrorInvalidValue 16 rows past it."""
+    import math
+
+    tool = _exp_attn_bwd_tool()
+    c = tool._C or tool._bind()
+    for dh in fa.KERNEL_HEAD_DIMS:
+        top = tool.mmonly_max_s(dh)
+        for s in (top, top + 16):
+            qkv, g, _ = tool.inputs(1, s, 1, dh)
+            dqkv = torch.empty_like(qkv)
+            args = (qkv.data_ptr(), g.data_ptr(), dqkv.data_ptr(), 1, s, 1, dh, qkv.stride(0), qkv.stride(1),
+                    1.0 / math.sqrt(dh), torch.cuda.current_stream().cuda_stream)
+            if s == top:
+                c.exp_attn_bwd_mmonly(*args)
+                torch.cuda.synchronize()
+                assert torch.isfinite(dqkv.float()).all(), dh
+            else:
+                with pytest.raises(RuntimeError, match=r"\(cudaError 1\)"):
+                    c.exp_attn_bwd_mmonly(*args)

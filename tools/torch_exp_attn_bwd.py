@@ -14,7 +14,8 @@ shape, on inputs made from a seed:
   cur / bf16p  the port's `attention_qkv_bwd` (csrc/flash_attention_bwd.cu,
                the port of `_bwd_kernel`), keys masked by `kl`;
   mmonly       csrc/exp_attn_bwd.cu through `mmonly`: no key mask, all S
-               keys count, as in the TPU variant;
+               keys count, as in the TPU variant (a persistent kernel on
+               wgmma, with TMA loads into an mbarrier ring);
   sdpa         PyTorch SDPA's backward with a boolean key mask from `kl`.
 
 Each is printed as CUDA-event ms (the median of 3 timings) and TFLOP/s at
@@ -25,7 +26,8 @@ card's name and power limit. Before the timings `mmonly` is held against
 `mmonly_reference` on the same inputs.
 
 The TPU tool's sweep over G (2, 4, 8 batch rows per VMEM grid step) has no
-counterpart on the card: a block of either kernel is one (head, batch row).
+counterpart on the card: a block of `cur` is one (head, batch row), and
+`mmonly`'s persistent blocks walk the (batch row, head) items in turn.
 
 Importing this module runs nothing. `mmonly_reference` is the plain
 PyTorch version at the kernel's rounding points; `mmonly` launches the
@@ -74,9 +76,11 @@ _C = None  # the library's C functions, bound at the first launch
 
 
 def mmonly_max_s(dh: int) -> int:
-    """The largest S the kernel takes at head dim dh: its 4 planes of
-    round16(S) bf16 rows fit in the shared memory of a block."""
-    return 16 * (fa.SMEM_PER_BLOCK // (16 * 4 * dh * 2))
+    """The largest S the kernel takes at head dim dh: the 4 plane slots of
+    one item (round16(S) bf16 rows and 16 bytes of mbarriers each) fit in
+    the shared memory of a block. The kernel's launch refuses past the same
+    line; how many more slots it takes is its own choice."""
+    return 16 * ((fa.SMEM_PER_BLOCK // 4 - 16) // (16 * 2 * dh))
 
 
 def mmonly_bound(b: int, s: int, heads: int, dh: int):
