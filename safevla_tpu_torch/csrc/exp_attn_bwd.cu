@@ -21,7 +21,8 @@
 // products, and the products run on wgmma, the tensor cores' full-rate path.
 //
 // Design: warp-specialised and persistent, on wgmma, TMA and mbarriers
-// (hopper_wgmma.cuh).
+// (hopper_wgmma.cuh; the plane layout and products of attention_wg.cuh,
+// shared with the attention forward and backward).
 //   * An item is one (batch row, head). min(#SMs, B*H) blocks each walk the
 //     items blockIdx.x, + gridDim.x, ... (heads of a batch row side by side).
 //   * A block is 4 warpgroups. One thread of the producer warpgroup (its
@@ -73,94 +74,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hopper_mma.cuh"
+#include "attention_wg.cuh"
 #include "hopper_wgmma.cuh"
 
 namespace {
 
+using wg::first_product;
+using wg::kTile;
+using wg::plane_rows;
+using wg::round16;
+using wg::second_product;
+using wg::tile_row;
+using wg::Wg;
+
 constexpr float kMmScale = 0.001f;  // the TPU tool's stand-in for the softmax
-constexpr int kMaxSmem = 232448;    // bytes of shared memory a block may use on an H100
+constexpr int kMaxSmem = wg::kMaxSmem;
 
 constexpr int kConsumers = 3;                     // consumer warpgroups a block
 constexpr int kThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
-constexpr int kTile = 64;                         // rows of a wgmma M tile and of a TMA box
 constexpr int kPlanes = 4;                        // G, V, K, Q: an item's planes, in load order
 constexpr int kMaxSlots = 2 * kPlanes;            // plane slots of the ring: two items
-constexpr int kBarrierBytes = 16;                 // a slot's full and empty mbarriers
+constexpr int kBarrierBytes = wg::kBarrierBytes;  // a slot's full and empty mbarriers
 constexpr int kConsumerRegs = 152;                // 3 x 128 x 152 + 128 x 40 <= 65,536
 constexpr int kProducerRegs = 40;
 
-// A plane's layout at head dim DH: kBlocks column blocks, each P rows of
-// kRowBytes (its swizzle width); row r of block c at c * P * kRowBytes +
-// r * kRowBytes.
+// The widest column chunk a unit's registers hold at head dim DH.
 template <int DH>
-struct Wg {
-  static constexpr int kRowBytes = DH < 64 ? 2 * DH : 128;
-  static constexpr int kBlocks = 2 * DH / kRowBytes;
-  static constexpr int kAtom = 8 * kRowBytes;          // 8 rows: the descriptors' stride byte offset
-  static constexpr int kStepsPerRow = kRowBytes / 32;  // 16-deep k steps in a block's row
-  static constexpr int kK = DH / 16;                   // 16-deep steps over the head dims
-  static constexpr int kAcc = DH / 2;                  // f32 registers of a 64 x DH accumulator
-  static constexpr int kChunk = DH <= 64 ? 128 : 64;   // the widest column chunk the registers hold
-};
-
-__host__ __device__ inline int round16(int x) { return (x + 15) & ~15; }
-
-// Rows of a plane: round16(S), at least one tile.
-__host__ __device__ inline int plane_rows(int S) {
-  const int r = round16(S);
-  return r < kTile ? kTile : r;
-}
-
-// First row of tile t of a plane of P rows: 64 t, the last tile pulled back
-// to end at P.
-__device__ __forceinline__ int tile_row(int t, int P) {
-  const int r = t * kTile;
-  return r + kTile > P ? P - kTile : r;
-}
-
-// d (64 x N) = rows [a, a + 64) . rows [b, b + N)^T over the DH head dims,
-// both K-major in shared memory (a k step moves the descriptors' start 32
-// bytes along a row, then to the next column block). The first step
-// overwrites d.
-template <int DH, int N>
-__device__ __forceinline__ void first_product(float (&d)[N / 2], uint32_t a, uint32_t b,
-                                              uint32_t block_bytes) {
-  using W = Wg<DH>;
-#pragma unroll
-  for (int ks = 0; ks < W::kK; ++ks) {
-    const uint32_t at = (ks / W::kStepsPerRow) * block_bytes + 32 * (ks % W::kStepsPerRow);
-    hopper::Wgmma<N>::template ss<0, 0>(d, hopper::desc(a + at, 16, W::kAtom, W::kRowBytes),
-                                         hopper::desc(b + at, 16, W::kAtom, W::kRowBytes), ks);
-  }
-}
-
-// acc (64 x DH) += a (64 x N, A registers) . rows [b, b + N) of a plane
-// (k = row, MN-major: the head dims along a row, the column blocks
-// block_bytes apart; a k step is 16 rows).
-template <int DH, int N>
-__device__ __forceinline__ void second_product(float (&acc)[DH / 2], const uint32_t (&a)[N / 16][4],
-                                               uint32_t b, uint32_t block_bytes) {
-  using W = Wg<DH>;
-#pragma unroll
-  for (int s = 0; s < N / 16; ++s) {
-    hopper::Wgmma<DH>::template rs<1>(
-        acc, a[s], hopper::desc(b + 16 * s * W::kRowBytes, block_bytes, W::kAtom, W::kRowBytes), 1);
-  }
-}
-
-// The A registers of bf16(kMmScale * c), c a 64 x N accumulator: 16
-// columns of c (c[8s .. 8s+7]) are the 16-deep step s.
-template <int N>
-__device__ __forceinline__ void scaled_a(uint32_t (&a)[N / 16][4], const float (&c)[N / 2]) {
-#pragma unroll
-  for (int s = 0; s < N / 16; ++s) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[s][i] = hopper::pack_bf16(c[8 * s + 2 * i] * kMmScale, c[8 * s + 2 * i + 1] * kMmScale);
-    }
-  }
-}
+constexpr int kChunk = DH <= 64 ? 128 : 64;
 
 // One unit: the 64 rows of `tile` walked over the columns, chunk by chunk,
 // c = tile . b1[chunk]^T, then acc += bf16(0.001 c) . b2[chunk].
@@ -182,7 +122,7 @@ struct Unit {
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_operands(c);
-    scaled_a<N>(a, c);
+    wg::pack_a<N>(a, c, [](float x, int) { return x * kMmScale; });
     hopper::fence_operands(acc);
     hopper::wgmma_fence();
     second_product<DH, N>(acc, a, b2 + at, block_bytes);
@@ -194,10 +134,10 @@ struct Unit {
   // The columns [0, R), R a multiple of 16: chunks of kChunk, then one of
   // 64, then the 16, 32 or 48 left.
   __device__ __forceinline__ void walk(int R) {
-    constexpr int kChunk = Wg<DH>::kChunk;
+    constexpr int kC = kChunk<DH>;
     int c0 = 0;
-    for (; c0 + kChunk <= R; c0 += kChunk) chunk<kChunk>(c0);
-    if (kChunk > kTile && c0 + kTile <= R) {
+    for (; c0 + kC <= R; c0 += kC) chunk<kC>(c0);
+    if (kC > kTile && c0 + kTile <= R) {
       chunk<kTile>(c0);
       c0 += kTile;
     }
@@ -209,28 +149,6 @@ struct Unit {
     }
   }
 };
-
-// Stores the rows r0 + 16 w + g (+ 8) of a warpgroup's 64 x DH accumulator
-// (warp w, g = lane / 4), times `mul` and rounded to bf16 pairs, to dst (row
-// 0, head column 0; rows `stride` apart); rows below lo (stored by the tile
-// before) or from S on are skipped.
-template <int DH>
-__device__ __forceinline__ void store_tile(__nv_bfloat16* dst, long long stride,
-                                           const float (&acc)[DH / 2], float mul, int r0, int lo,
-                                           int S, int tid) {
-  const int lane = tid & 31;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + 16 * (tid >> 5) + (lane >> 2) + 8 * half;
-    if (r < lo || r >= S) continue;
-    __nv_bfloat16* row = dst + r * stride + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(row + 8 * j) =
-          hopper::pack_bf16(acc[4 * j + 2 * half] * mul, acc[4 * j + 2 * half + 1] * mul);
-    }
-  }
-}
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -255,8 +173,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == kConsumers) {
+  const int role = threadIdx.x / 128;  // the warpgroup
+  if (role == kConsumers) {
     // producer: one thread walks the items' planes through the ring
     hopper::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == 128 * kConsumers) {
@@ -272,11 +190,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int col = p == 0 ? h : (3 - p) * H + h;
           for (int t = 0; t < T; ++t) {
             const int r = tile_row(t, P);
-#pragma unroll
-            for (int blk = 0; blk < W::kBlocks; ++blk) {
-              hopper::tma_load_4d(at + blk * block_bytes + r * W::kRowBytes, map, blk * W::kRowBytes / 2,
-                                  col, r, b, full + 8 * slot);
-            }
+            wg::load_box<DH>(at + r * W::kRowBytes, block_bytes, map, col, r, b, full + 8 * slot);
           }
         }
       }
@@ -301,7 +215,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int p = 0; p < 3; ++p) hopper::mbar_wait(full + 8 * slot[p], parity[p]);
       bool q_ready = false;
-      for (int u = wg; u < 3 * T; u += kConsumers) {
+      for (int u = role; u < 3 * T; u += kConsumers) {
         const int kind = u / T, t = u % T, r0 = tile_row(t, P);  // kind 0: dq, 1: dv, 2: dk
         if (kind > 0 && !q_ready) {
           hopper::mbar_wait(full + 8 * slot[3], parity[3]);
@@ -315,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         un.b2 = kind == 0 ? k_s : kind == 1 ? g_s : q_s;
         un.block_bytes = block_bytes;
         un.walk(R);
-        store_tile<DH>(d_base + (kind == 0 ? 0 : kind == 1 ? 2 * lanes : lanes), stride_s, un.acc,
-                       kind == 1 ? 1.f : scale, r0, t * kTile, S, tid);
+        wg::store_tile<DH>(d_base + (kind == 0 ? 0 : kind == 1 ? 2 * lanes : lanes), stride_s, un.acc,
+                       kind == 1 ? 1.f : scale, r0, t * kTile, S, S, tid);
       }
       // every plane's full phase is seen before its empty arrival, so no
       // arrival can count towards a slot's earlier use
@@ -330,52 +244,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links no libcuda); null where the driver has none.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                      : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-d bf16 map (head dims, head slot, row, batch row) over `ptr`, boxes of
-// one column block x 64 rows, swizzled at the block's row width, rows past S
-// filled with zeros. Strides in elements.
-template <int DH>
-bool encode_map(CUtensorMap* map, const void* ptr, int slots_per_row, int S, int B,
-                long long stride_s, long long stride_b) {
-  using W = Wg<DH>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {DH, static_cast<cuuint64_t>(slots_per_row), static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2 * DH, 2 * static_cast<cuuint64_t>(stride_s),
-                                 2 * static_cast<cuuint64_t>(stride_b)};
-  const cuuint32_t box[4] = {W::kRowBytes / 2, 1, kTile, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle = W::kRowBytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : W::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                          : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DH>
 cudaError_t launch(const void* qkv, const void* g, void* dqkv, int B, int S, int H, long long stride_b,
                    long long stride_s, float scale, cudaStream_t stream) {
@@ -385,18 +253,15 @@ cudaError_t launch(const void* qkv, const void* g, void* dqkv, int B, int S, int
   if (slots < kPlanes) return cudaErrorInvalidValue;
   const size_t smem = slots * (plane + kBarrierBytes);
   CUtensorMap qkv_map, g_map;
-  if (!encode_map<DH>(&qkv_map, qkv, 3 * H, S, B, stride_s, stride_b) ||
-      !encode_map<DH>(&g_map, g, H, S, B, static_cast<long long>(H) * DH,
+  if (!wg::encode_map<DH>(&qkv_map, qkv, 3 * H, S, B, stride_s, stride_b) ||
+      !wg::encode_map<DH>(&g_map, g, H, S, B, static_cast<long long>(H) * DH,
                       static_cast<long long>(S) * H * DH)) {
     return cudaErrorInvalidValue;
   }
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(mmonly_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  }
+  const int sms = wg::sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const cudaError_t err = cudaFuncSetAttribute(mmonly_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long items = static_cast<long long>(B) * H;
   const int grid = static_cast<int>(items < sms ? items : sms);

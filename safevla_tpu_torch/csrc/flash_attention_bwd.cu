@@ -18,66 +18,85 @@
 //   (j >= key_lens[b]) get exactly zero dk and dv. key_lens[b] must lie in
 //   [1, S]: the kernel traps otherwise.
 //
-// Streaming (both dtypes, S above the resident limit and the head dims the
-// resident designs do not take; never at a path shape): CUDA-core f32 FMAs,
-// no plane of S rows resident.//
 // What bounds it on an H100: ~10*S*kl*Dh flops per (b, h) for the five
 // products (s, dp, dv, dq, dk) against 7*B*S*H*Dh IO elements (qkv and g
 // read once, dqkv written once). At the update's shape (S=208, Dh=64, ~190
 // valid keys) that is ~135 flops per byte, under the ~295 at which the bf16
-// tensor cores become the limit: an ideal kernel is bound by memory.
+// tensor cores become the limit: an ideal kernel is bound by memory. The
+// softmax is recomputed (the forward saves only qkv and key_lens), so a
+// kernel forms s and dp on both sides of the item, 7 products or more, 190
+// flops a byte and more: the products have to run at wgmma's rate to stay
+// under the bytes.
 //
 // The dtype picks the resident design (dispatch by dtype; a failed build or
 // launch raises in either); above the largest S a resident design takes (its
 // shared memory, 227 KB a block), the wrapper launches the streaming design
 // (`attention_qkv_bwd_stream`, below), a shape rule decided before the
 // launch. The largest S of the resident designs (`resident_max_s` in
-// ops/flash_attention.py computes the same):
-//   bf16: 4 planes of round16(S) rows x Dh x 2 bytes and 3 f32 statistics a
-//         row <= 227 KB: Dh 16: 1648, 32: 864, 64: 432, 128: 224
+// ops/flash_attention.py computes the same; the bf16 entry returns
+// cudaErrorInvalidValue above it):
+//   bf16: 4 plane slots of round16(S) rows x Dh x 2 bytes with their
+//         mbarriers and 3 f32 statistics a row <= 227 KB:
+//         Dh 16: 1648, 32: 864, 64: 432, 128: 224
 //   f32:  S x (3 x (Dh + 1) x 4 + 35 x 4) bytes <= 227 KB:
 //         Dh 16: 675, 32: 433, 64: 252, 128: 137
 // Above them, and at any S (offsets are 64-bit), the streaming design runs.
-// No design uses atomics: every
-// gradient row is summed by one warp in a fixed order, so two runs give the
-// same bits.
+// No design uses atomics: every gradient row is summed by one warp or
+// warpgroup in a fixed order, so two runs give the same bits.
 //
-// bf16 (every launch on the main path) runs on the tensor cores,
-// mma.sync.m16n8k16 with f32 accumulators (helpers in hopper_mma.cuh), in
-// one block of 4 warps per (head, batch row) and two phases. The forward
-// saves only (qkv, key_lens), so the block recomputes the softmax statistics
-// itself; keeping them in shared memory between the phases needs neither a
-// second kernel nor a scratch buffer in device memory.
-//   * Q, G (rows < S) and K, V (rows < key_lens[b], rounded up to 16) arrive
-//     by cp.async (16-byte chunks) into XOR-swizzled planes read by ldmatrix;
-//     rows past S or key_lens[b] are zero-filled by the copy, and key tiles
-//     wholly past key_lens[b] are never loaded. At S=208 (Dh 64) the four
-//     planes and the statistics take 106 KB, so two blocks fit on an SM; S
-//     is bounded by the 227 KB a block may use (524 bytes a row at Dh 64:
-//     S <= 432).
-//   * Phase A, one warp per 16 query rows (q and g held as A fragments):
-//     pass 1 runs q.k^T for the row max m and rowsum(e) (each lane keeps the
-//     max and sum of its own columns, rescaling the sum when its max grows,
-//     and the row's four lanes merge them at the end; p is rounded only once
-//     m and the sum are final); pass 2 recomputes s, forms
-//     p = bf16(e * (1 / rowsum)) and dp = g.v^T for D; pass 3 recomputes
-//     both, forms ds = p (dp - D) and feeds dsb from the accumulators
-//     straight into the A fragments of dq += dsb.k. The warp writes dq, and
-//     m, 1 / rowsum and D into shared memory.
-//   * Phase B, after a barrier, one warp per 16 key rows (k and v held as A
-//     fragments): over the query rows, s^T = k.q^T and dp^T = v.g^T, then
-//     p^T and dsb^T from the phase-A statistics, which are the A fragments of
-//     dv += p^T.g and dk += dsb^T.q (g and q through ldmatrix.trans). The
-//     two phases may round a p differently (their sums run in another
-//     order); both are the TPU kernel's function.
-//   * Both phases walk their columns in chunks of 32 (four independent
-//     accumulators a product, so the mma chains overlap), unmasked while the
-//     chunk holds only valid keys, then in masked chunks of 16. Logits are
-//     kept in log2 units (one FFMA and one exp2 an element) and p multiplies
-//     by 1 / rowsum instead of dividing: both agree with the plain version's
-//     exp and quotient to a few ulp of f32, far under the bf16 rounding of p.
-//   * mma.sync, not wgmma: below the ridge, small tiles, and the
-//     accumulator-to-A-fragment reuse above.
+// bf16 (every launch on the main path): a persistent, warp-specialised
+// kernel on wgmma, TMA and mbarriers (hopper_wgmma.cuh; the plane layout and
+// products of attention_wg.cuh, shared with exp_attn_bwd.cu, the
+// matmul-only floor of this function).
+//   * An item is one (head, batch row); min(#SMs, B * nh) blocks walk the
+//     items in turn. A block is 3 warpgroups. One thread of the producer
+//     warpgroup (its registers lowered by setmaxnreg) loads each item's Q,
+//     K, V and G planes by TMA into a ring of plane slots, each with a full
+//     and an empty mbarrier; the tensor maps are 4-d over qkv's and g's real
+//     strides, a box is 64 rows (the last pulled back to end at the plane's
+//     round16(S) rows), rows past S arrive as zeros. The ring holds as many
+//     planes as fit, up to 8: two items at S <= 208 (Dh 64), with two sets
+//     of statistics, so a warpgroup done with this item's phase B starts the
+//     next one's phase A; 7 slots at S=240, 4 at the largest S.
+//   * The two consumer warpgroups (232 registers each) share an item: phase
+//     A's query tiles dealt in turn, a named barrier (every row's
+//     statistics in shared memory), then phase B's key tiles. The forward
+//     saved no statistics, so phase A forms them; keeping them in shared
+//     memory between the phases needs neither a second kernel nor scratch in
+//     device memory.
+//   * Phase A, a unit per 64-row query tile, over 64-key chunks (the last
+//     pulled back inside the plane, its repeated columns masked). At up to 3
+//     chunks of keys (key_lens[b] <= 192, Dh <= 64) the tile's logits stay
+//     in registers: s = q.k^T is formed once by wgmma, masked by column index
+//     in its last chunk (the others are all keys), and gives m and the
+//     rowsum; p = bf16(e / rowsum) is kept as bf16 pairs; dp = g.v^T is
+//     formed chunk by chunk twice, for D = sum dp p and then for dsb =
+//     bf16(p (dp - D)), whose accumulators are packed into the A registers
+//     of dq += dsb.k (K from shared memory, MN-major). A fourth held chunk
+//     made ptxas spill at Dh 32 and 64 (the dq pass holds p of every chunk
+//     beside dq, dp and ds), and holding dp of every chunk too would take
+//     128 more registers. Past 3 chunks, and at Dh 128 (whose dq takes 64
+//     registers), the chunks are walked three times (m and the rowsum, each
+//     lane rescaling its sum when its max grows; then D; then ds and dq), s
+//     recomputed with the same products, so the same bits. The unit writes
+//     dq, and m (log2 units), 1 / rowsum and D of its rows into shared
+//     memory.
+//   * Phase B, a unit per 64-row key tile, over the query rows in chunks of
+//     64 columns (32 at Dh 128) and then the 16, 32 or 48 left: s^T = k.q^T
+//     and dp^T = v.g^T by wgmma, p^T and dsb^T from the statistics, then
+//     dv += p^T.g and dk += dsb^T.q with both A operands packed from the
+//     accumulators. dk needs p^T as dv does, so one unit forms both (4
+//     products a chunk, not the 5 of two separate units, which measured
+//     slower); dk, dv, s^T and dp^T live together, 160 registers at Dh 64
+//     and 176 at Dh 128 with its narrower chunks, under the 232. Key tiles wholly past key_lens[b] are
+//     stored as zeros, and masked rows of the others get p^T = 0 and zero
+//     stores: masked key rows' dk and dv are exactly 0.
+//   * Logits in log2 units (one FFMA and one `ex2.approx.ftz` an element;
+//     the max taken on the raw logits and scaled once) and p multiplies by
+//     1 / rowsum instead of dividing: both agree with the plain version's
+//     exp and quotient to a few ulp of f32, far under the bf16 rounding of
+//     p. The two phases may round a p differently (their products sum in
+//     another order); both are the TPU kernel's function.
 //
 // f32 (the checks and the small f32 reference policy; TF32 tensor cores
 // would miss the 1e-4 tolerance) keeps the CUDA-core design of the first
@@ -113,262 +132,459 @@
 // the streaming designs index their statistics scratch by the launch's own
 // rows and heads, (3, B, nh, S).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_stream.cuh"
-#include "attention_tc.cuh"
-#include "hopper_mma.cuh"
+#include "attention_wg.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- bf16 ---
 
-using namespace attn_tc;  // the tile walk (attention_tc.cuh)
+using wg::first_product;
+using wg::kTile;
+using wg::plane_rows;
+using wg::round16;
+using wg::second_product;
+using wg::tile_row;
+using wg::Wg;
 
+constexpr int kConsumers = 2;                       // consumer warpgroups a block
+constexpr int kWgThreads = 128 * (kConsumers + 1);  // and one producer warpgroup
+constexpr int kConsumerRegs = 232;                  // 2 x 128 x 232 + 128 x 40 <= 65,536
+constexpr int kProducerRegs = 40;
+constexpr int kPlanes = 4;              // Q, K, V, G: an item's planes, in load order
+constexpr int kMaxSlots = 2 * kPlanes;  // plane slots of the ring: two items
+// 64-key chunks of a query tile's logits phase A holds at once: 3 (its dq
+// pass holds p of every chunk as bf16 pairs beside dq, dp and ds; at 4
+// chunks ptxas spills at Dh 32 and 64); none at Dh 128, whose dq takes 64
+// registers a thread
 template <int DH>
-size_t tc_smem_bytes(int S) {
-  const size_t s16 = static_cast<size_t>(round16(S));
-  return 4 * s16 * Tc<DH>::kRowBytes + 3 * s16 * sizeof(float);
-}
+constexpr int kHeld = DH <= 64 ? 3 : 0;
+constexpr int kStatBytes = 3 * 4;       // m, 1 / rowsum and D (f32) of a query row
 
 // Logits are kept in log2 units: e = exp(s - m) = exp2(s * log2(e) - m *
 // log2(e)), one FFMA and one exp2 each (the f32 values agree to a few ulp).
 // A finite floor instead of -inf for "no key yet" keeps every rescale finite.
 constexpr float kNoMax = -1e30f;
 
-// Phase B for one slice of 16 key rows: dk and dv over every query chunk.
-// kMaskKeys: some of the slice's rows are >= key_lens[b] (valid[] says which
-// of this lane's two rows are keys).
-template <int DH, bool kMaskKeys>
-__device__ __forceinline__ void dk_dv_slice(float (&dk)[Tc<DH>::kN][4], float (&dv)[Tc<DH>::kN][4],
-                                            const uint32_t (&kf)[Tc<DH>::kK][4],
-                                            const uint32_t (&vf)[Tc<DH>::kK][4], uint32_t q_s,
-                                            uint32_t g_s, const float* m_s, const float* l_s,
-                                            const float* d_s, int s16, const bool (&valid)[2],
-                                            float scale2, int lane) {
-  const int col0 = 2 * (lane & 3);
-  over_chunks(s16, s16, [&](auto nt, auto, int i0) {
-    constexpr int NT = decltype(nt)::value;
-    float st[NT][4], dpt[NT][4];
-    product<DH, NT>(st, kf, q_s, i0, lane);   // s^T = k . q^T
-    product<DH, NT>(dpt, vf, g_s, i0, lane);  // dp^T = v . g^T
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int q = i0 + 8 * j + col0;
-      const float2 m2 = *reinterpret_cast<const float2*>(m_s + q);
-      const float2 l2 = *reinterpret_cast<const float2*>(l_s + q);
-      const float2 d2 = *reinterpret_cast<const float2*>(d_s + q);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float mm = (e & 1) ? m2.y : m2.x;
-        const float ll = (e & 1) ? l2.y : l2.x;
-        const float dd = (e & 1) ? d2.y : d2.x;
-        float p = hopper::round_bf16(exp2f(fmaf(st[j][e], scale2, -mm)) * ll);
-        if (kMaskKeys && !valid[e >> 1]) p = 0.f;
-        dpt[j][e] = p * (dpt[j][e] - dd);
-        st[j][e] = p;
-      }
-    }
-    accumulate<DH, NT>(dv, st, g_s, i0, lane);   // dv += p^T . g
-    accumulate<DH, NT>(dk, dpt, q_s, i0, lane);  // dk += dsb^T . q
-  });
+// Shared memory of a block at S: `slots` plane slots, `stat_slots` sets of
+// the statistics of every query row, each slot's full and empty mbarriers.
+template <int DH>
+size_t bwd_smem_bytes(int S, int slots, int stat_slots) {
+  const size_t P = plane_rows(S);
+  return slots * (P * 2 * DH + wg::kBarrierBytes) + stat_slots * P * kStatBytes;
 }
 
+// The ring at S: two items' planes and statistics where they fit (the next
+// item's phase A may run beside this one's phase B), else as many plane
+// slots as fit beside one set of statistics, at least one item's four.
+// False below four: above the design's largest S (`resident_max_s` in
+// ops/flash_attention.py computes the same).
 template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 2)
-    attention_bwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            const __nv_bfloat16* __restrict__ g, const int* __restrict__ key_lens,
-                            __nv_bfloat16* __restrict__ dqkv, int S, int H, int h0,
-                            long long stride_b, long long stride_s, float scale) {
-  using T = Tc<DH>;
-  constexpr int C = T::kChunks;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int h = h0 + static_cast<int>(blockIdx.x);
-  const int b = static_cast<int>(blockIdx.y);
-  const int kl = key_lens ? key_lens[b] : S;
-  if (kl < 1 || kl > S) __trap();
-  const int s16 = round16(S);
-  const int nk16 = round16(kl);
-  const int lanes = H * DH;
-  const __nv_bfloat16* base = qkv + b * stride_b + h * DH;
-  const __nv_bfloat16* g_base = g + static_cast<size_t>(b) * S * lanes + h * DH;
-  __nv_bfloat16* d_base = dqkv + b * stride_b + h * DH;
+bool bwd_ring(int S, int& slots, int& stat_slots) {
+  if (bwd_smem_bytes<DH>(S, kPlanes, 1) > wg::kMaxSmem) return false;
+  stat_slots = bwd_smem_bytes<DH>(S, kMaxSlots, 2) <= wg::kMaxSmem ? 2 : 1;
+  slots = kPlanes;
+  while (slots < kMaxSlots && bwd_smem_bytes<DH>(S, slots + 1, stat_slots) <= wg::kMaxSmem) ++slots;
+  return true;
+}
 
-  // shared memory: the Q, K, V and G planes (s16 swizzled rows each), then
-  // m (log2 units), 1 / rowsum and D of every query row
-  const uint32_t plane = static_cast<uint32_t>(s16) * T::kRowBytes;
-  const uint32_t q_s = hopper::smem_addr(smem_raw);
-  const uint32_t k_s = q_s + plane;
-  const uint32_t v_s = k_s + plane;
-  const uint32_t g_s = v_s + plane;
-  float* m_s = reinterpret_cast<float*>(smem_raw + 4 * static_cast<size_t>(plane));
-  float* l_s = m_s + s16;
-  float* d_s = l_s + s16;
+// One item (head, batch row) as a consumer warpgroup sees it.
+template <int DH>
+struct BwdItem {
+  using W = Wg<DH>;
+  static constexpr int kChunkB = DH <= 64 ? 64 : 32;  // query columns of a phase-B chunk
+  uint32_t q_s, k_s, v_s, g_s;  // the planes, row 0
+  uint32_t block_bytes;         // a plane's column blocks apart
+  float *m_s, *l_s, *d_s;       // m (log2 units), 1 / rowsum, D of each query row
+  __nv_bfloat16* d_base;        // dqkv at (b, row 0, head column 0 of q)
+  long long stride_s;
+  int P, R, S, kl, lanes, col0, tid;
+  float scale, scale2;
 
-  for (int i = threadIdx.x; i < s16 * C; i += kTcThreads) {
-    const int r = i / C, c = i % C;
-    const uint32_t off = hopper::swz<C>(r, c);
-    const bool q_ok = r < S;
-    const int rq = q_ok ? r : 0;
-    hopper::cp_async16(q_s + off, base + rq * stride_s + c * 8, q_ok);
-    hopper::cp_async16(g_s + off, g_base + static_cast<size_t>(rq) * lanes + c * 8, q_ok);
-    if (r < nk16) {
-      const bool k_ok = r < kl;
-      const __nv_bfloat16* src = base + (k_ok ? r : 0) * stride_s + c * 8;
-      hopper::cp_async16(k_s + off, src + lanes, k_ok);
-      hopper::cp_async16(v_s + off, src + 2 * lanes, k_ok);
+  // Chunk c of the keys: 64 columns from cs(c) = min(64 c, P - 64), the last
+  // pulled back to end inside the plane; its columns below 64 c belong to
+  // the chunk before and are masked.
+  __device__ __forceinline__ int cs(int c) const { return min(kTile * c, P - kTile); }
+  __device__ __forceinline__ bool valid(int c, int i) const {
+    const int col = cs(c) + 8 * (i >> 2) + col0 + (i & 1);
+    return col >= kTile * c && col < kl;
+  }
+
+  // Phase A writes m, 1 / rowsum and D of rows [lo, r0 + 64) and dq.
+  __device__ __forceinline__ void finish_a(const float (&dq)[W::kAcc], const float (&m)[2],
+                                           const float (&inv_l)[2], const float (&D)[2], int r0, int lo) {
+    wg::store_tile<DH>(d_base, stride_s, dq, scale, r0, lo, S, S, tid);
+    if ((tid & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 16 * (tid >> 5) + ((tid & 31) >> 2) + 8 * h;
+        if (r < lo) continue;
+        m_s[r] = m[h];
+        l_s[r] = inv_l[h];
+        d_s[r] = D[h];
+      }
     }
   }
-  hopper::cp_async_commit();
-  hopper::cp_async_wait<0>();
-  __syncthreads();
 
-  const int col0 = 2 * (lane & 3);
-  const float scale2 = scale * 1.4426950408889634f;
-
-  // phase A: one warp per 16 query rows -> m, 1 / rowsum, D and dq
-  for (int r0 = 16 * warp; r0 < s16; r0 += 16 * (kTcThreads / 32)) {
-    uint32_t qf[T::kK][4], gf[T::kK][4];
+  // dq += bf16(p (dp - D)) . k over key chunk c, p_of(x) the p of element x.
+  template <typename P_>
+  __device__ __forceinline__ void dq_chunk(float (&dq)[W::kAcc], const float (&dp)[32], P_&& p_of,
+                                           const float (&D)[2], int c) {
+    uint32_t da[4][4];
 #pragma unroll
-    for (int kk = 0; kk < T::kK; ++kk) {
-      hopper::ldsm_x4(qf[kk], hopper::a_addr<C>(q_s, r0, kk, lane));
-      hopper::ldsm_x4(gf[kk], hopper::a_addr<C>(g_s, r0, kk, lane));
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = 8 * s + 2 * i;
+        const float p0 = p_of(x), p1 = p_of(x + 1);
+        da[s][i] = hopper::pack_bf16(p0 * (dp[x] - D[i & 1]), p1 * (dp[x + 1] - D[i & 1]));
+      }
     }
+    hopper::fence_operands(dq);
+    hopper::wgmma_fence();
+    second_product<DH, 64>(dq, da, k_s + cs(c) * W::kRowBytes, block_bytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dq);
+  }
 
-    // pass 1: the row max and rowsum(e); each lane keeps its own columns'
-    // max and sum (rescaled when its max grows), merged across the 4 lanes
-    // of the row at the end
+  // dp (64 x 64) = g rows [r0, r0 + 64) . v over key chunk c.
+  __device__ __forceinline__ void dp_chunk(float (&dp)[32], int r0, int c) const {
+    hopper::wgmma_fence();
+    first_product<DH, 64>(dp, g_s + r0 * W::kRowBytes, v_s + cs(c) * W::kRowBytes, block_bytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dp);
+  }
+
+  // Phase A for query tile t with every chunk of its logits held (NC <=
+  // kHeld chunks of keys): s formed once, m and the rowsum from it, p kept as
+  // bf16 pairs; dp is formed twice, for D and then for ds.
+  template <int NC>
+  __device__ __forceinline__ void phase_a_held(int t) {
+    const int r0 = tile_row(t, P), lo = kTile * t;
+    float s[NC][32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      first_product<DH, 64>(s[c], q_s + r0 * W::kRowBytes, k_s + cs(c) * W::kRowBytes, block_bytes);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::fence_operands(s[c]);
+    // the max of the raw logits, scaled to log2 units once merged (scale2 > 0
+    // keeps the max element the max)
+    float m[2] = {kNoMax, kNoMax};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        // chunks before the last hold valid keys only
+        if (c + 1 < NC || valid(c, i)) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[c][i]);
+      }
+    }
+    m[0] = hopper::quad_max(m[0]) * scale2;
+    m[1] = hopper::quad_max(m[1]) * scale2;
+    float l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float x = c + 1 < NC || valid(c, i) ? hopper::exp2_ftz(fmaf(s[c][i], scale2, -m[(i >> 1) & 1])) : 0.f;
+        l[(i >> 1) & 1] += x;
+        s[c][i] = x;
+      }
+    }
+    const float inv_l[2] = {1.f / hopper::quad_sum(l[0]), 1.f / hopper::quad_sum(l[1])};
+    // p = bf16(e * (1 / rowsum)): the f32 quotient to within an ulp
+    uint32_t pk[NC][4][4];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) wg::pack_a<64>(pk[c], s[c], [&](float x, int h) { return x * inv_l[h]; });
+    // element x of chunk c as f32: register (x / 8, (x % 8) / 2), half x % 2
+    auto p_at = [&](int c, int x) {
+      const uint32_t v = pk[c][x >> 3][(x & 7) >> 1];
+      return (x & 1) ? wg::bf16_hi(v) : wg::bf16_lo(v);
+    };
+    float D[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float dp[32];
+      dp_chunk(dp, r0, c);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) D[(x >> 1) & 1] += dp[x] * p_at(c, x);
+    }
+    D[0] = hopper::quad_sum(D[0]);
+    D[1] = hopper::quad_sum(D[1]);
+    float dq[W::kAcc];
+#pragma unroll
+    for (int i = 0; i < W::kAcc; ++i) dq[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      float dp[32];
+      dp_chunk(dp, r0, c);
+      dq_chunk(dq, dp, [&](int x) { return p_at(c, x); }, D, c);
+    }
+    finish_a(dq, m, inv_l, D, r0, lo);
+  }
+
+  // Phase A for query tile t with more than kHeld chunks of keys: the
+  // chunks walked three times (m and the rowsum, each lane rescaling its sum
+  // when its max grows; then D; then ds and dq), s formed each time with the
+  // same products, so the same bits.
+  __device__ __forceinline__ void phase_a_chunked(int t, int nc) {
+    const int r0 = tile_row(t, P), lo = kTile * t;
     float m[2] = {kNoMax, kNoMax}, l[2] = {0.f, 0.f};
-    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
-      constexpr int NT = decltype(nt)::value;
-      constexpr bool kMask = decltype(masked)::value;
-      const int valid = kl - k0 - col0;  // columns 8j + (e & 1) < valid are keys
-      float s[NT][4];
-      product<DH, NT>(s, qf, k_s, k0, lane);
+    auto logits = [&](float (&s)[32], int c) {
+      hopper::wgmma_fence();
+      first_product<DH, 64>(s, q_s + r0 * W::kRowBytes, k_s + cs(c) * W::kRowBytes, block_bytes);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(s);
+    };
+    for (int c = 0; c < nc; ++c) {
+      float s[32];
+      logits(s, c);
       float mn[2] = {m[0], m[1]};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] *= scale2;
-          if (!kMask || 8 * j + (e & 1) < valid) mn[e >> 1] = fmaxf(mn[e >> 1], s[j][e]);
-        }
+      for (int i = 0; i < 32; ++i) {
+        s[i] *= scale2;
+        if (valid(c, i)) mn[(i >> 1) & 1] = fmaxf(mn[(i >> 1) & 1], s[i]);
       }
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        l[hh] *= exp2f(m[hh] - mn[hh]);
-        m[hh] = mn[hh];
+      for (int h = 0; h < 2; ++h) {
+        l[h] *= hopper::exp2_ftz(m[h] - mn[h]);
+        m[h] = mn[h];
       }
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!kMask || 8 * j + (e & 1) < valid) l[e >> 1] += exp2f(s[j][e] - m[e >> 1]);
-        }
+      for (int i = 0; i < 32; ++i) {
+        if (valid(c, i)) l[(i >> 1) & 1] += hopper::exp2_ftz(s[i] - m[(i >> 1) & 1]);
       }
-    });
-    // p = bf16(e * (1 / rowsum)): the f32 quotient to within an ulp
+    }
     float inv_l[2];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const float mx = hopper::quad_max(m[hh]);
-      inv_l[hh] = 1.f / hopper::quad_sum(l[hh] * exp2f(m[hh] - mx));
-      m[hh] = mx;
+    for (int h = 0; h < 2; ++h) {
+      const float mx = hopper::quad_max(m[h]);
+      inv_l[h] = 1.f / hopper::quad_sum(l[h] * hopper::exp2_ftz(m[h] - mx));
+      m[h] = mx;
     }
-
     // p of one chunk, in place of its logits
-    auto probs = [&](auto nt, auto masked, auto& s, int k0) {
-      constexpr int NT = decltype(nt)::value;
-      constexpr bool kMask = decltype(masked)::value;
-      const int valid = kl - k0 - col0;
+    auto probs = [&](float (&s)[32], int c) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = hopper::round_bf16(exp2f(fmaf(s[j][e], scale2, -m[e >> 1])) * inv_l[e >> 1]);
-          s[j][e] = (!kMask || 8 * j + (e & 1) < valid) ? p : 0.f;
-        }
+      for (int i = 0; i < 32; ++i) {
+        const float p = hopper::round_bf16(hopper::exp2_ftz(fmaf(s[i], scale2, -m[(i >> 1) & 1])) * inv_l[(i >> 1) & 1]);
+        s[i] = valid(c, i) ? p : 0.f;
       }
     };
+    float D[2] = {0.f, 0.f};
+    for (int c = 0; c < nc; ++c) {
+      float s[32], dp[32];
+      logits(s, c);
+      dp_chunk(dp, r0, c);
+      probs(s, c);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) D[(x >> 1) & 1] += dp[x] * s[x];
+    }
+    D[0] = hopper::quad_sum(D[0]);
+    D[1] = hopper::quad_sum(D[1]);
+    float dq[W::kAcc];
+#pragma unroll
+    for (int i = 0; i < W::kAcc; ++i) dq[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      float s[32], dp[32];
+      logits(s, c);
+      dp_chunk(dp, r0, c);
+      probs(s, c);
+      dq_chunk(dq, dp, [&](int x) { return s[x]; }, D, c);
+    }
+    finish_a(dq, m, inv_l, D, r0, lo);
+  }
 
-    // pass 2: D = sum_j dp_ij p_ij
-    float dsum[2] = {0.f, 0.f};
-    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
-      constexpr int NT = decltype(nt)::value;
-      float s[NT][4], dp[NT][4];
-      product<DH, NT>(s, qf, k_s, k0, lane);
-      product<DH, NT>(dp, gf, v_s, k0, lane);
-      probs(nt, masked, s, k0);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dsum[e >> 1] += dp[j][e] * s[j][e];
-      }
-    });
-    const float D[2] = {hopper::quad_sum(dsum[0]), hopper::quad_sum(dsum[1])};
-
-    // pass 3: ds = p (dp - D), dq += bf16(ds) . k
-    float dq[T::kN][4];
-#pragma unroll
-    for (int j = 0; j < T::kN; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
-    over_chunks(kl, nk16, [&](auto nt, auto masked, int k0) {
-      constexpr int NT = decltype(nt)::value;
-      float s[NT][4], dp[NT][4];
-      product<DH, NT>(s, qf, k_s, k0, lane);
-      product<DH, NT>(dp, gf, v_s, k0, lane);
-      probs(nt, masked, s, k0);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] *= dp[j][e] - D[e >> 1];
-      }
-      accumulate<DH, NT>(dq, s, k_s, k0, lane);
-    });
-    store_rows<DH>(d_base, stride_s, dq, scale, r0, S, S, lane);
-    if ((lane & 3) == 0) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = r0 + (lane >> 2) + 8 * hh;
-        m_s[r] = m[hh];
-        l_s[r] = inv_l[hh];
-        d_s[r] = D[hh];
+  template <int NC>
+  __device__ __forceinline__ void phase_a(int t, int nc) {
+    if constexpr (NC > 0) {
+      if (nc == NC) {
+        phase_a_held<NC>(t);
+      } else {
+        phase_a<NC - 1>(t, nc);
       }
     }
+  }
+
+  // Phase B, one chunk of N query columns from c0 for key tile rows [r0,
+  // r0 + 64): s^T and dp^T, then p^T and ds^T from phase A's statistics,
+  // dv += p^T . g and dk += ds^T . q. kv: whether this thread's two key rows
+  // are valid keys (else p^T = 0 on them).
+  template <int N>
+  __device__ __forceinline__ void phase_b_chunk(float (&dk)[W::kAcc], float (&dv)[W::kAcc], int r0, int c0,
+                                                const bool (&kv)[2]) {
+    float st[N / 2], dpt[N / 2];
+    hopper::wgmma_fence();
+    first_product<DH, N>(st, k_s + r0 * W::kRowBytes, q_s + c0 * W::kRowBytes, block_bytes);
+    first_product<DH, N>(dpt, v_s + r0 * W::kRowBytes, g_s + c0 * W::kRowBytes, block_bytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(st);
+    hopper::fence_operands(dpt);
+    uint32_t pa[N / 16][4], da[N / 16][4];
+#pragma unroll
+    for (int s = 0; s < N / 16; ++s) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int x = 8 * s + 2 * i;
+        const int q = c0 + 16 * s + 8 * (i >> 1) + col0;  // the query rows of elements x, x + 1
+        const float2 m2 = *reinterpret_cast<const float2*>(m_s + q);
+        const float2 l2 = *reinterpret_cast<const float2*>(l_s + q);
+        const float2 d2 = *reinterpret_cast<const float2*>(d_s + q);
+        float p0 = hopper::round_bf16(hopper::exp2_ftz(fmaf(st[x], scale2, -m2.x)) * l2.x);
+        float p1 = hopper::round_bf16(hopper::exp2_ftz(fmaf(st[x + 1], scale2, -m2.y)) * l2.y);
+        if (!kv[i & 1]) p0 = p1 = 0.f;
+        pa[s][i] = hopper::pack_bf16(p0, p1);
+        da[s][i] = hopper::pack_bf16(p0 * (dpt[x] - d2.x), p1 * (dpt[x + 1] - d2.y));
+      }
+    }
+    hopper::fence_operands(dv);
+    hopper::fence_operands(dk);
+    hopper::wgmma_fence();
+    second_product<DH, N>(dv, pa, g_s + c0 * W::kRowBytes, block_bytes);
+    second_product<DH, N>(dk, da, q_s + c0 * W::kRowBytes, block_bytes);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(dv);
+    hopper::fence_operands(dk);
+  }
+
+  // Phase B for key tile t: dk and dv over every query row, in chunks of
+  // kChunkB columns, then the 16, 32 or 48 left. A tile wholly past
+  // key_lens[b] is stored as zeros.
+  __device__ __forceinline__ void phase_b(int t) {
+    const int r0 = tile_row(t, P), lo = kTile * t;
+    float dk[W::kAcc], dv[W::kAcc];
+#pragma unroll
+    for (int i = 0; i < W::kAcc; ++i) dk[i] = dv[i] = 0.f;
+    if (r0 < kl) {
+      const int j = r0 + 16 * (tid >> 5) + ((tid & 31) >> 2);
+      const bool kv[2] = {j < kl, j + 8 < kl};
+      int c0 = 0;
+      for (; c0 + kChunkB <= R; c0 += kChunkB) phase_b_chunk<kChunkB>(dk, dv, r0, c0, kv);
+      switch (R - c0) {
+        case 16: phase_b_chunk<16>(dk, dv, r0, c0, kv); break;
+        case 32: phase_b_chunk<32>(dk, dv, r0, c0, kv); break;
+        case 48: phase_b_chunk<48>(dk, dv, r0, c0, kv); break;
+        default: break;
+      }
+    }
+    wg::store_tile<DH>(d_base + lanes, stride_s, dk, scale, r0, lo, S, kl, tid);
+    wg::store_tile<DH>(d_base + 2 * lanes, stride_s, dv, 1.f, r0, lo, S, kl, tid);
+  }
+};
+
+// Persistent: min(#SMs, B * nh) blocks walk the items (head, batch row) in
+// turn; the producer's one thread loads each item's Q, K, V and G planes
+// into the ring, the two consumer warpgroups share its tiles: phase A's
+// query tiles, a barrier between them, then phase B's key tiles.
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    attention_bwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map, const __grid_constant__ CUtensorMap g_map,
+                            const int* __restrict__ key_lens, __nv_bfloat16* __restrict__ dqkv, int S, int H,
+                            int h0, int nh, long long items, long long stride_b, long long stride_s, float scale,
+                            int slots, int stat_slots) {
+  using W = Wg<DH>;
+  extern __shared__ __align__(1024) unsigned char ring_smem[];
+  const int P = plane_rows(S), T = (P + kTile - 1) / kTile;
+  const uint32_t block_bytes = static_cast<uint32_t>(P) * W::kRowBytes;
+  const uint32_t plane = W::kBlocks * block_bytes;
+  const uint32_t base = hopper::smem_addr(ring_smem);
+  float* stats = reinterpret_cast<float*>(ring_smem + static_cast<size_t>(slots) * plane);
+  const uint32_t full = base + slots * plane + stat_slots * P * kStatBytes;  // slot i's at + 8 i
+  const uint32_t empty = full + 8 * slots;
+  if (threadIdx.x == 0) {
+    if (base & 1023) __trap();  // the swizzle atoms need 1024-byte aligned slots
+    for (int i = 0; i < slots; ++i) {
+      hopper::mbar_init(full + 8 * i, 1);
+      hopper::mbar_init(empty + 8 * i, 4 * kConsumers);  // one arrival a consumer warp
+    }
+    hopper::mbar_init_fence();
   }
   __syncthreads();
 
-  // phase B: one warp per 16 key rows -> dk and dv
-  for (int j0 = 16 * warp; j0 < nk16; j0 += 16 * (kTcThreads / 32)) {
-    uint32_t kf[T::kK][4], vf[T::kK][4];
-#pragma unroll
-    for (int kk = 0; kk < T::kK; ++kk) {
-      hopper::ldsm_x4(kf[kk], hopper::a_addr<C>(k_s, j0, kk, lane));
-      hopper::ldsm_x4(vf[kk], hopper::a_addr<C>(v_s, j0, kk, lane));
+  if (threadIdx.x / 128 == kConsumers) {
+    // producer: one thread walks the items' planes through the ring
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * kConsumers) {
+      uint32_t n = 0;  // planes issued so far
+      for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+        const int b = static_cast<int>(it / nh), h = h0 + static_cast<int>(it % nh);
+        for (int p = 0; p < kPlanes; ++p, ++n) {
+          const uint32_t slot = n % slots, at = base + slot * plane;
+          hopper::mbar_wait(empty + 8 * slot, ((n / slots) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(full + 8 * slot, T * kTile * 2 * DH);
+          // Q, K, V (qkv's head slots h, H + h, 2H + h), then G (g's head h)
+          const CUtensorMap* map = p == 3 ? &g_map : &qkv_map;
+          const int col = p == 3 ? h : p * H + h;
+          for (int t = 0; t < T; ++t) {
+            const int r = tile_row(t, P);
+            wg::load_box<DH>(at + r * W::kRowBytes, block_bytes, map, col, r, b, full + 8 * slot);
+          }
+        }
+      }
     }
-    const bool valid[2] = {j0 + (lane >> 2) < kl, j0 + (lane >> 2) + 8 < kl};
-    float dk[T::kN][4], dv[T::kN][4];
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+    BwdItem<DH> it_;
+    it_.block_bytes = block_bytes;
+    it_.stride_s = stride_s;
+    it_.P = P;
+    it_.R = round16(S);
+    it_.S = S;
+    it_.lanes = H * DH;
+    it_.col0 = 2 * (tid & 3);
+    it_.tid = tid;
+    it_.scale = scale;
+    it_.scale2 = scale * 1.4426950408889634f;
+    uint32_t n = 0;  // planes consumed so far
+    int local = 0;   // items this block has walked
+    for (long long it = blockIdx.x; it < items; it += gridDim.x, n += kPlanes, ++local) {
+      const int b = static_cast<int>(it / nh), h = h0 + static_cast<int>(it % nh);
+      it_.kl = key_lens ? key_lens[b] : S;
+      if (it_.kl < 1 || it_.kl > S) __trap();
+      uint32_t slot[kPlanes], at[kPlanes];
 #pragma unroll
-    for (int j = 0; j < T::kN; ++j) {
-      dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
-      dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+      for (int p = 0; p < kPlanes; ++p) {
+        slot[p] = (n + p) % slots;
+        at[p] = base + slot[p] * plane;
+        hopper::mbar_wait(full + 8 * slot[p], ((n + p) / slots) & 1);
+      }
+      it_.q_s = at[0];
+      it_.k_s = at[1];
+      it_.v_s = at[2];
+      it_.g_s = at[3];
+      it_.m_s = stats + (local % stat_slots) * 3 * P;
+      it_.l_s = it_.m_s + P;
+      it_.d_s = it_.l_s + P;
+      it_.d_base = dqkv + b * stride_b + h * DH;
+      const int nc = (it_.kl + kTile - 1) / kTile;
+      for (int t = w; t < T; t += kConsumers) {
+        if (nc <= kHeld<DH>) {
+          it_.template phase_a<kHeld<DH>>(t, nc);
+        } else {
+          it_.phase_a_chunked(t, nc);
+        }
+      }
+      wg::named_barrier(1, 128 * kConsumers);  // every query row's statistics are in
+      for (int t = w; t < T; t += kConsumers) it_.phase_b(t);
+#pragma unroll
+      for (int p = 0; p < kPlanes; ++p) wg::release(empty + 8 * slot[p], tid);
+      // one set of statistics: the next item's phase A waits for this one's phase B
+      if (stat_slots == 1) wg::named_barrier(1, 128 * kConsumers);
     }
-    if (j0 + 16 <= kl)
-      dk_dv_slice<DH, false>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
-    else
-      dk_dv_slice<DH, true>(dk, dv, kf, vf, q_s, g_s, m_s, l_s, d_s, s16, valid, scale2, lane);
-    store_rows<DH>(d_base + lanes, stride_s, dk, scale, j0, S, kl, lane);
-    store_rows<DH>(d_base + 2 * lanes, stride_s, dv, 1.f, j0, S, kl, lane);
-  }
-
-  // key rows nk16..S-1 (wholly past key_lens[b]): dk = dv = 0
-  for (int i = threadIdx.x; i < (S - nk16) * 2 * C; i += kTcThreads) {
-    const int r = nk16 + i / (2 * C), c = i % (2 * C);
-    *reinterpret_cast<uint4*>(d_base + r * stride_s + (c < C ? lanes : 2 * lanes) + (c % C) * 8) =
-        make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
@@ -1264,13 +1480,24 @@ struct Args {
 
 template <int DH>
 cudaError_t launch_bf16(const Args& a) {
-  const size_t smem = tc_smem_bytes<DH>(a.S);
-  cudaError_t err = set_smem(attention_bwd_tc_kernel<DH>, smem);
+  int slots = 0, stat_slots = 0;
+  if (!bwd_ring<DH>(a.S, slots, stat_slots)) return cudaErrorInvalidValue;  // above the resident limit
+  const size_t smem = bwd_smem_bytes<DH>(a.S, slots, stat_slots);
+  CUtensorMap qkv_map, g_map;
+  if (!wg::encode_map<DH>(&qkv_map, a.qkv, 3 * a.H, a.S, a.B, a.stride_s, a.stride_b) ||
+      !wg::encode_map<DH>(&g_map, a.g, a.H, a.S, a.B, static_cast<long long>(a.H) * DH,
+                          static_cast<long long>(a.S) * a.H * DH)) {
+    return cudaErrorInvalidValue;
+  }
+  const int sms = wg::sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  const cudaError_t err = set_smem(attention_bwd_wg_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
-  attention_bwd_tc_kernel<DH><<<dim3(a.nh, a.B), kTcThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const __nv_bfloat16*>(a.g),
-      static_cast<const int*>(a.key_lens), static_cast<__nv_bfloat16*>(a.dqkv), a.S, a.H, a.h0,
-      a.stride_b, a.stride_s, a.scale);
+  const long long items = static_cast<long long>(a.B) * a.nh;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  attention_bwd_wg_kernel<DH><<<grid, kWgThreads, smem, a.stream>>>(
+      qkv_map, g_map, static_cast<const int*>(a.key_lens), static_cast<__nv_bfloat16*>(a.dqkv), a.S, a.H, a.h0,
+      a.nh, items, a.stride_b, a.stride_s, a.scale, slots, stat_slots);
   return cudaGetLastError();
 }
 

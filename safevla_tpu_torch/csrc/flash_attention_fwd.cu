@@ -30,49 +30,77 @@
 // against 2*B*S*4*H*Dh bytes (qkv read once, out written once) in bf16. At
 // the path's shapes (ViT S=448, fusion S=208, Dh=64) that is S/2 = 224 and
 // 104 flops per byte, under the ~295 at which the bf16 tensor cores become
-// the limit: an ideal kernel is bound by memory and, at these sizes, by
-// latency (a few microseconds of work per launch).
+// the limit: an ideal kernel is bound by memory. Two passes at S=448 make it
+// 3*S*kl*Dh*2 flops, 336 a byte: there the products come as close as the
+// bytes, so both must run at the card's own rates, wgmma and TMA.
 //
 // The dtype picks the resident design (dispatch by dtype; a failed build or
 // launch raises in either); above the largest S a resident design takes (its
 // shared memory, 227 KB a block), the wrapper launches the streaming design
 // (`attention_qkv_fwd_stream`, below), a shape rule decided before the
 // launch. The largest S of the resident designs (`resident_max_s` in
-// ops/flash_attention.py computes the same):
-//   bf16: (2 + ceil(S/64)) tiles of 64 x Dh x 2 bytes <= 227 KB:
+// ops/flash_attention.py computes the same; the bf16 entry returns
+// cudaErrorInvalidValue above it):
+//   bf16: K of ceil(S/64) tiles of 64 x Dh x 2 bytes, two V tile slots and
+//         their 3 slots' mbarriers <= 227 KB:
 //         Dh 16: 7104, 32: 3456, 64: 1664, 128: 768
 //   f32:  S x ((Dh + 1) x 4 + 64) bytes <= 227 KB:
 //         Dh 16: 1760, 32: 1185, 64: 717, 128: 400
 // Above them, and at any S (offsets into qkv and out are 64-bit), the
 // streaming design runs.
 //
-// bf16 (the policy's compute dtype: every launch on the main path) runs on
-// the tensor cores, mma.sync.m16n8k16 with f32 accumulators (helpers in
-// hopper_mma.cuh):
-//   * One block of 4 warps per (64-query tile, head, batch row); each warp
-//     owns 16 query rows, held as A fragments in registers for the whole
-//     block. At S=448 K takes 7 tiles of 8 KB and the V ring 16 KB (Q is
-//     staged in the ring's first slot before V arrives), 72 KB in all, so
-//     three blocks fit on an SM; at S=208, 48 KB, four (the register cap of
-//     128 a thread lets them; the f32 design below fits one block).
-//   * K and V arrive in tiles of 64 keys by cp.async (16-byte chunks, one
-//     commit group per tile) into XOR-swizzled rows read by ldmatrix. Tiles
-//     wholly past key_lens[b] are never loaded; the rows of the last tile
-//     past it are zero-filled by the copy and their columns masked to an
-//     exp of exactly 0. K stays resident (both passes read it; pass 1 starts
-//     once all of K has landed, with V's first two tiles in flight); V
-//     streams through a two-slot ring, the next tile's copy in flight while
-//     the current one is multiplied.
-//   * Two passes over the key tiles keep the TPU kernel's rounding points
-//     (an online softmax would round p against a running max, not the
-//     row's): pass 1 runs q.k^T alone for the row max; pass 2 recomputes
-//     s (the same mma sequence, so the same bits), forms e, the f32
-//     denominator and p = bf16(e), and feeds p from the q.k^T accumulators
-//     straight into the A fragments of p.v (no trip through shared memory).
-//   * mma.sync, not wgmma: the kernel sits below the ridge (see above), its
-//     tiles are small and it needs the accumulator-to-A-fragment reuse that
-//     mma.sync gives; wgmma would pay off only if the measured kernel sat at
-//     its operations bound.
+// bf16 (the policy's compute dtype: every launch on the main path): a
+// persistent, warp-specialised kernel on wgmma, TMA and mbarriers
+// (hopper_wgmma.cuh; the plane layout and products of attention_wg.cuh).
+//   * A unit is one (group of query tiles, head, batch row). The query
+//     tiles (64 rows) of one (b, h) share its K and V, so a unit walks
+//     several: its K is loaded once. Items (b, h) run from 32 (the online
+//     rollout's fusion, B=4, H=8) to 9,600 (the BC step's ViT, B=1600, H=6)
+//     against 132 SMs, so the host cuts each item's rounds of tiles into
+//     the groups that minimise (waves of units over the SMs) x (rounds a
+//     unit walks + 1 for its K), the most of them on a tie (`tile_groups`):
+//     1 group at 9,600, 1,024 and 96 items (the serving ViT), 2 at 32, where
+//     one group would leave 100 SMs idle, and at the SigLIP ViT's 192, whose
+//     second wave one group would leave 45% full. min(#SMs, units) blocks
+//     walk the units in turn.
+//   * A block is one producer warpgroup and NCONS consumer warpgroups. The
+//     producer's one thread (its registers lowered by setmaxnreg) loads
+//     each unit's K (the tiles of the valid keys) by TMA into a ring of K
+//     plane slots (two where they fit, so the next unit's K lands under this
+//     one's products), then, for each round of query tiles, the V tiles into
+//     a ring of up to 8 tile slots; each slot has a full and an empty
+//     mbarrier. The tensor map is 4-d over qkv's real strides; rows past S
+//     arrive as TMA's zero fill.
+//   * Each consumer warpgroup takes one tile of a round (a last round of
+//     fewer tiles leaves the others passing the V tiles on). It reads its 64
+//     q rows from global memory straight into wgmma's A registers (a unit's
+//     first while its K lands, each next one under the tile before's
+//     softmax), s = q.k^T by wgmma (A in registers, K from shared memory,
+//     K-major), masks the keys past key_lens[b] by column index in the last
+//     chunk only (every earlier 64-key chunk is all keys), and p = bf16(exp(s
+//     - m)) goes from the accumulators into the A registers of o += p.v (V
+//     from its ring slot, MN-major): p never touches shared memory.
+//   * Passes. p is rounded against the row's max over all its valid keys
+//     (an online softmax, which rounds against a running max, is another
+//     function), so the max comes first. At S <= 256 (Dh <= 64; S <= 128 at
+//     Dh 128, whose o takes 64 registers) the logits of the whole tile row
+//     fit the registers, 4 accumulators of 64 x 64: s is formed once (one
+//     pass; the fusion at 208 and 240, the SigLIP ViT at 256), with 2
+//     consumer warpgroups of 232 registers. Above, a tile takes two passes
+//     over its key chunks: the max, then s again (the same products, so the
+//     same bits) for e and o; a tile then needs ~120 registers, so 3 consumer
+//     warpgroups of 152 run (Dh <= 64: the DINOv2 ViT at 448), a third more
+//     tiles in flight to hide each one's waits. Keeping s of 448 keys in
+//     shared memory instead (112 KB a warpgroup in f32) would leave no room
+//     for K.
+//   * The softmax is the kernel's CUDA-core work, one exp an element: it
+//     runs in log2 units, e = exp2(s * scale * log2(e) - m) as one FFMA and
+//     one `ex2.approx.ftz` (the f32 values agree with exp to a few ulp); the
+//     max is taken on the raw logits and scaled once (scale > 0 keeps the
+//     max element the max). The code is straight-line: a branch per
+//     8-column group of masked keys measured slower than the exps it
+//     skipped. The denominator sums the unrounded e in f32; out = bf16(o /
+//     denom).
 //
 // f32 (the checks and the small f32 reference policy; TF32 tensor cores
 // would miss the 1e-4 tolerance) keeps the CUDA-core design of the first
@@ -94,199 +122,382 @@
 // p.v (a lane a key for q.k, then p broadcast by shuffles and a lane per
 // head dims for p.v).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attention_stream.cuh"
-#include "hopper_mma.cuh"
+#include "attention_wg.cuh"
+#include "hopper_wgmma.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- bf16 ---
 
-constexpr int kTile = 64;         // query rows per block; keys per K / V tile
-constexpr int kTcThreads = 128;   // 4 warps x 16 query rows
+using wg::kTile;
+using wg::round64;
+using wg::Wg;
 
+// 64-key chunks of a query tile's logits held in registers at once: S up
+// to 256 in one pass at head dims up to 64, 128 at 128 (whose o takes 64
+// registers a thread)
 template <int DH>
-struct Tc {
-  static constexpr int kChunks = DH / 8;           // 16-byte chunks a row
-  static constexpr int kTileBytes = kTile * DH * 2;
-  static constexpr int kK = DH / 16;               // 16-deep steps of q.k^T
-  static constexpr int kN = DH / 8;                // 8-wide column tiles of p.v
+constexpr int kHeld = DH <= 64 ? 4 : 2;
+// Consumer warpgroups a block: 2 where a tile may take one pass (232
+// registers each), 3 where every tile takes two (152 each; Dh <= 64 above
+// 64 kHeld keys): 2 x 128 x 232 + 128 x 40 and 3 x 128 x 152 + 128 x 40 are
+// <= 65,536, with one producer warpgroup at 40.
+template <int DH>
+int consumers_at(int S) {
+  return DH <= 64 && S > kTile * kHeld<DH> ? 3 : 2;
+}
+template <int NCONS>
+constexpr int kConsumerRegs = NCONS == 2 ? 232 : 152;
+constexpr int kProducerRegs = 40;
+constexpr int kMaxKSlots = 2;  // K plane slots of the ring
+constexpr int kMaxVSlots = 8;  // V tile slots of the ring
+
+// Shared memory of a block at S: K plane slots (round64(S) rows each), V
+// tile slots (64 rows), then each slot's full and empty mbarriers.
+template <int DH>
+size_t fwd_smem_bytes(int S, int kslots, int vslots) {
+  const size_t tile = static_cast<size_t>(kTile) * 2 * DH;
+  return kslots * (round64(S) / kTile * tile + wg::kBarrierBytes) + vslots * (tile + wg::kBarrierBytes);
+}
+
+// The ring at S: two K slots where they fit beside four V slots (the next
+// unit's K lands while this one's is used), else one; as many V slots as
+// then fit, up to 8. False where one K slot and two V slots do not fit:
+// above the design's largest S (`resident_max_s` in ops/flash_attention.py
+// computes the same).
+template <int DH>
+bool fwd_ring(int S, int& kslots, int& vslots) {
+  if (fwd_smem_bytes<DH>(S, 1, 2) > wg::kMaxSmem) return false;
+  kslots = fwd_smem_bytes<DH>(S, kMaxKSlots, 4) <= wg::kMaxSmem ? kMaxKSlots : 1;
+  vslots = 2;
+  while (vslots < kMaxVSlots && fwd_smem_bytes<DH>(S, kslots, vslots + 1) <= wg::kMaxSmem) ++vslots;
+  return true;
+}
+
+// A consumer warpgroup's state for its query tiles.
+template <int DH>
+struct FwdTile {
+  using W = Wg<DH>;
+  uint32_t qa[W::kK][4];  // the tile's q rows: the A registers of q.k^T
+  float o[W::kAcc];       // sum_j p_ij v_j (f32)
+  float m[2], l[2];       // row max (log2 units) and denominator of rows g, g + 8
+  uint32_t k_s, k_block;  // the K plane (row 0) and its column blocks apart
+  uint32_t v_base, v_full, v_empty, v_tile, v_block;
+  uint32_t nv;                   // V tiles consumed so far (the ring's position)
+  const __nv_bfloat16* next_q;  // the q rows of this warpgroup's next tile of the unit, or null
+  long long stride_s;
+  int vslots, kl, col0, tid, S;
+  float scale2;
+
+  // qa = q rows `row` and `row` + 8 (head dims 16 kk + col0, + 8), zeros past
+  // S, from global memory straight into wgmma's A registers.
+  __device__ __forceinline__ void load_q(const __nv_bfloat16* q, int row) {
+#pragma unroll
+    for (int kk = 0; kk < W::kK; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row + 8 * (i & 1);
+        qa[kk][i] = r < S ? __ldg(reinterpret_cast<const unsigned int*>(q + r * stride_s + 16 * kk + 8 * (i >> 1)))
+                          : 0u;
+      }
+    }
+  }
+
+  // s (64 x 64) = q . k^T over the keys [64 c, 64 c + 64) (A in registers,
+  // B = K rows K-major); the first step overwrites s.
+  __device__ __forceinline__ void logits(float (&s)[32], int c) const {
+#pragma unroll
+    for (int ks = 0; ks < W::kK; ++ks) {
+      const uint32_t at = (ks / W::kStepsPerRow) * k_block + 32 * (ks % W::kStepsPerRow);
+      hopper::Wgmma<64>::template rs<0>(
+          s, qa[ks], hopper::desc(k_s + c * kTile * W::kRowBytes + at, 16, W::kAtom, W::kRowBytes), ks);
+    }
+  }
+
+  // Whether element i of chunk c is a valid key; a chunk before the last
+  // holds valid keys only (kMask false).
+  template <bool kMask>
+  __device__ __forceinline__ bool valid(int c, int i) const {
+    return !kMask || kTile * c + 8 * (i >> 2) + col0 + (i & 1) < kl;
+  }
+
+  // The row max of the raw logits over the valid keys of chunk c (scaled to
+  // log2 units once the rows' maxima are merged: scaling by scale2 > 0 keeps
+  // the max element the max).
+  template <bool kMask>
+  __device__ __forceinline__ void max_of(const float (&s)[32], int c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      if (valid<kMask>(c, i)) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[i]);
+    }
+  }
+
+  __device__ __forceinline__ void merge_max() {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = hopper::quad_max(m[h]) * scale2;
+  }
+
+  // e = exp(s - m) over the valid keys (0 past them), summed into l, then
+  // o += bf16(e) . v over V tile c of the ring (waited for, then released).
+  template <bool kMask>
+  __device__ __forceinline__ void accumulate(float (&s)[32], int c) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1;
+      const float x = valid<kMask>(c, i) ? hopper::exp2_ftz(fmaf(s[i], scale2, -m[h])) : 0.f;
+      l[h] += x;
+      s[i] = x;
+    }
+    uint32_t pa[4][4];
+    wg::pack_a<64>(pa, s, [](float x, int) { return x; });
+    const uint32_t slot = nv % vslots, v_s = v_base + slot * v_tile;
+    hopper::mbar_wait(v_full + 8 * slot, (nv / vslots) & 1);
+    hopper::fence_operands(o);
+    hopper::wgmma_fence();
+    wg::second_product<DH, 64>(o, pa, v_s, v_block);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(o);
+    wg::release(v_empty + 8 * slot, tid);
+    ++nv;
+  }
+
+  // The next tile's q rows, once this tile's last q.k^T has completed: in
+  // flight under its softmax and p.v.
+  __device__ __forceinline__ void prefetch_q(int next_row) {
+    if (next_q != nullptr) load_q(next_q, next_row);
+  }
+
+  // One pass: the logits of all NC chunks held at once.
+  template <int NC>
+  __device__ __forceinline__ void one_pass(int next_row) {
+    float s[NC][32];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) logits(s[c], c);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::fence_operands(s[c]);
+    prefetch_q(next_row);
+#pragma unroll
+    for (int c = 0; c < NC - 1; ++c) max_of<false>(s[c], c);
+    max_of<true>(s[NC - 1], NC - 1);
+    merge_max();
+#pragma unroll
+    for (int c = 0; c < NC - 1; ++c) accumulate<false>(s[c], c);
+    accumulate<true>(s[NC - 1], NC - 1);
+  }
+
+  // one_pass<nc> for nc <= NC
+  template <int NC>
+  __device__ __forceinline__ void held(int nc, int next_row) {
+    if (nc == NC) {
+      one_pass<NC>(next_row);
+    } else if constexpr (NC > 1) {
+      held<NC - 1>(nc, next_row);
+    }
+  }
+
+  // Two passes: the max over every chunk's logits, then each chunk's
+  // logits again (the same products, so the same bits) for e and o.
+  __device__ __forceinline__ void two_pass(int nc, int next_row) {
+    for (int c = 0; c < nc; ++c) {
+      float s[32];
+      hopper::wgmma_fence();
+      logits(s, c);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(s);
+      if (c + 1 < nc) {
+        max_of<false>(s, c);
+      } else {
+        max_of<true>(s, c);
+      }
+    }
+    merge_max();
+    for (int c = 0; c < nc; ++c) {
+      float s[32];
+      hopper::wgmma_fence();
+      logits(s, c);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(s);
+      if (c + 1 < nc) {
+        accumulate<false>(s, c);
+      } else {
+        prefetch_q(next_row);
+        accumulate<true>(s, c);
+      }
+    }
+  }
 };
 
-template <int DH>
-int tc_smem_bytes(int S) { return (2 + (S + kTile - 1) / kTile) * Tc<DH>::kTileBytes; }
-
-// cp.async of rows row0..row0+63 of one head's DH columns (src points at the
-// head's first column of row 0) into a swizzled tile; rows >= limit are
-// zero-filled. 64 * DH / 8 chunks of 16 bytes, DH / 16 per thread.
-template <int DH>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int row0,
-                                          int limit, long long stride_s) {
-  constexpr int C = Tc<DH>::kChunks;
-#pragma unroll
-  for (int k = 0; k < C / 2; ++k) {
-    const int i = static_cast<int>(threadIdx.x) + k * kTcThreads;
-    const int r = i / C, c = i % C;
-    const int row = row0 + r;
-    const bool ok = row < limit;
-    hopper::cp_async16(dst + hopper::swz<C>(r, c), src + (ok ? row : 0) * stride_s + c * 8, ok);
-  }
-}
-
-// s (16 rows x 64 keys of one tile, as 8 n tiles) = q . k^T, unscaled.
-template <int DH>
-__device__ __forceinline__ void qk_tile(float (&s)[8][4], const uint32_t (&qf)[Tc<DH>::kK][4],
-                                        uint32_t k_tile, int lane) {
-  constexpr int C = Tc<DH>::kChunks;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < Tc<DH>::kK; ++kk) {
-#pragma unroll
-    for (int jn = 0; jn < 4; ++jn) {
-      uint32_t b[4];
-      hopper::ldsm_x4(b, hopper::bt_addr<C>(k_tile, 16 * jn, kk, lane));
-      hopper::mma(s[2 * jn], qf[kk], b[0], b[1]);
-      hopper::mma(s[2 * jn + 1], qf[kk], b[2], b[3]);
+// A unit is one (tile group, head, batch row): the block loads the item's
+// K once and its NCONS consumer warpgroups walk the group's query tiles in
+// rounds, warpgroup w taking tile NCONS r + w of round r.
+template <int DH, int NCONS>
+__global__ void __launch_bounds__(128 * (NCONS + 1), 1)
+    attention_fwd_wg_kernel(const __grid_constant__ CUtensorMap qkv_map, const __nv_bfloat16* __restrict__ qkv,
+                            const int* __restrict__ key_lens, __nv_bfloat16* __restrict__ out, int S, int H,
+                            int h0, int nh, long long units, int groups, long long stride_b,
+                            long long stride_s, float scale, int kslots, int vslots) {
+  using W = Wg<DH>;
+  extern __shared__ __align__(1024) unsigned char ring_smem[];
+  const int pk = round64(S), T = pk / kTile, rounds = (T + NCONS - 1) / NCONS;
+  const uint32_t k_block = static_cast<uint32_t>(pk) * W::kRowBytes;
+  const uint32_t k_plane = W::kBlocks * k_block;
+  const uint32_t v_block = kTile * W::kRowBytes;
+  const uint32_t v_tile = W::kBlocks * v_block;
+  const uint32_t base = hopper::smem_addr(ring_smem);
+  const uint32_t v_base = base + kslots * k_plane;
+  const uint32_t k_full = v_base + vslots * v_tile;  // slot i's barriers 8 i further
+  const uint32_t k_empty = k_full + 8 * kslots;
+  const uint32_t v_full = k_empty + 8 * kslots;
+  const uint32_t v_empty = v_full + 8 * vslots;
+  if (threadIdx.x == 0) {
+    if (base & 1023) __trap();  // the swizzle atoms need 1024-byte aligned slots
+    for (int i = 0; i < kslots; ++i) {
+      hopper::mbar_init(k_full + 8 * i, 1);
+      hopper::mbar_init(k_empty + 8 * i, 4 * NCONS);  // one arrival a consumer warp
     }
+    for (int i = 0; i < vslots; ++i) {
+      hopper::mbar_init(v_full + 8 * i, 1);
+      hopper::mbar_init(v_empty + 8 * i, 4 * NCONS);
+    }
+    hopper::mbar_init_fence();
   }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kTcThreads, DH <= 64 ? 4 : 2)
-    attention_fwd_tc_kernel(const __nv_bfloat16* __restrict__ qkv, const int* __restrict__ key_lens,
-                            __nv_bfloat16* __restrict__ out, int S, int H, int h0,
-                            long long stride_b, long long stride_s, float scale) {
-  using T = Tc<DH>;
-  constexpr int C = T::kChunks;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = static_cast<int>(blockIdx.x) * kTile;
-  const int h = h0 + static_cast<int>(blockIdx.y);
-  const int b = static_cast<int>(blockIdx.z);
-  const int kl = key_lens ? key_lens[b] : S;
-  if (kl < 1 || kl > S) __trap();
-  const int n_tiles = (kl + kTile - 1) / kTile;
+  __syncthreads();
   const int lanes = H * DH;
-  const __nv_bfloat16* base = qkv + b * stride_b + h * DH;
 
-  // shared memory: the V ring (2 tiles; Q passes through slot 0 first), then
-  // K tiles 0..n_tiles-1. Commit groups: Q, K_0..K_{n-1}, V_0, V_1, ...
-  const uint32_t v_ring = hopper::smem_addr(smem_raw);
-  const uint32_t k_base = v_ring + 2 * T::kTileBytes;
-  load_tile<DH>(v_ring, base, q0, S, stride_s);
-  hopper::cp_async_commit();
-  for (int t = 0; t < n_tiles; ++t) {
-    load_tile<DH>(k_base + t * T::kTileBytes, base + lanes, t * kTile, kl, stride_s);
-    hopper::cp_async_commit();
-  }
-  int committed = 1 + n_tiles;
-
-  hopper::cp_async_wait_dyn(n_tiles);  // Q has landed
-  __syncthreads();
-  uint32_t qf[T::kK][4];
-#pragma unroll
-  for (int kk = 0; kk < T::kK; ++kk)
-    hopper::ldsm_x4(qf[kk], hopper::a_addr<C>(v_ring, 16 * warp, kk, lane));
-  __syncthreads();  // slot 0 holds V from here
-  for (int t = 0; t < 2 && t < n_tiles; ++t, ++committed) {
-    load_tile<DH>(v_ring + t * T::kTileBytes, base + 2 * lanes, t * kTile, kl, stride_s);
-    hopper::cp_async_commit();
-  }
-
-  // a warp whose 16 rows all lie past S takes part in the copies and
-  // barriers only
-  const bool active = q0 + 16 * warp < S;
-  const int col0 = 2 * (lane & 3);
-
-  // Logits in log2 units: exp(s - m) = exp2(s * log2(e) - m * log2(e)), so
-  // each e is one FFMA and one exp2 (the f32 values agree to a few ulp).
-  const float scale2 = scale * 1.4426950408889634f;
-
-  // pass 1: the row max of the scaled logits over the valid keys
-  const float neg_inf = __int_as_float(0xff800000);
-  float m[2] = {neg_inf, neg_inf};  // rows lane/4 and lane/4 + 8 (log2 units)
-  hopper::cp_async_wait_dyn(committed - 1 - n_tiles);  // every K tile (K_t is group 1 + t)
-  __syncthreads();
-  for (int t = 0; t < n_tiles; ++t) {
-    if (active) {
-      float s[8][4];
-      qk_tile<DH>(s, qf, k_base + t * T::kTileBytes, lane);
-      const int valid = kl - t * kTile - col0;  // columns of this tile < valid + col0 are keys
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (8 * j + (e & 1) < valid) m[e >> 1] = fmaxf(m[e >> 1], s[j][e] * scale2);
+  if (threadIdx.x / 128 == NCONS) {
+    // producer: one thread loads each unit's K (the valid keys' tiles) and,
+    // for each round of query tiles, its V tiles
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 128 * NCONS) {
+      uint32_t nk = 0, nv = 0;
+      for (long long u = blockIdx.x; u < units; u += gridDim.x, ++nk) {
+        const long long item = u / groups;
+        const int grp = static_cast<int>(u % groups);
+        const int b = static_cast<int>(item / nh), h = h0 + static_cast<int>(item % nh);
+        const int kl = key_lens ? min(max(key_lens[b], 1), S) : S;  // the consumers trap on a bad one
+        const int nc = (kl + kTile - 1) / kTile;
+        const uint32_t ks = nk % kslots, k_at = base + ks * k_plane;
+        hopper::mbar_wait(k_empty + 8 * ks, ((nk / kslots) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(k_full + 8 * ks, nc * v_tile);
+        for (int c = 0; c < nc; ++c) {
+          wg::load_box<DH>(k_at + c * v_block, k_block, &qkv_map, H + h, kTile * c, b, k_full + 8 * ks);
+        }
+        const int r1 = rounds * (grp + 1) / groups;
+        for (int r = rounds * grp / groups; r < r1; ++r) {
+          for (int c = 0; c < nc; ++c, ++nv) {
+            const uint32_t vs = nv % vslots;
+            hopper::mbar_wait(v_empty + 8 * vs, ((nv / vslots) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(v_full + 8 * vs, v_tile);
+            wg::load_box<DH>(v_base + vs * v_tile, v_block, &qkv_map, 2 * H + h, kTile * c, b, v_full + 8 * vs);
+          }
         }
       }
     }
-  }
-  m[0] = hopper::quad_max(m[0]);
-  m[1] = hopper::quad_max(m[1]);
-
-  // pass 2: e, the f32 denominator, p = bf16(e), and o = p . v
-  float o[T::kN][4];
+  } else {
+    hopper::setmaxnreg_inc<kConsumerRegs<NCONS>>();
+    const int w = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid & 31;
+    const int row_in = 16 * (tid >> 5) + (lane >> 2);  // this thread's first row of a tile
+    uint32_t nk = 0;
+    FwdTile<DH> f;
+    f.k_block = k_block;
+    f.v_base = v_base;
+    f.v_full = v_full;
+    f.v_empty = v_empty;
+    f.v_tile = v_tile;
+    f.v_block = v_block;
+    f.nv = 0;
+    f.stride_s = stride_s;
+    f.vslots = vslots;
+    f.col0 = 2 * (lane & 3);
+    f.tid = tid;
+    f.S = S;
+    f.scale2 = scale * 1.4426950408889634f;  // logits in log2 units: e = exp2(s scale2 - m)
+    for (long long u = blockIdx.x; u < units; u += gridDim.x, ++nk) {
+      const long long item = u / groups;
+      const int grp = static_cast<int>(u % groups);
+      const int b = static_cast<int>(item / nh), h = h0 + static_cast<int>(item % nh);
+      f.kl = key_lens ? key_lens[b] : S;
+      if (f.kl < 1 || f.kl > S) __trap();
+      const int nc = (f.kl + kTile - 1) / kTile;
+      const __nv_bfloat16* q = qkv + b * stride_b + h * DH + f.col0;
+      const int r0 = rounds * grp / groups, r1 = rounds * (grp + 1) / groups;
+      // the unit's first q rows are in flight while its K lands
+      if (NCONS * r0 + w < T) f.load_q(q, kTile * (NCONS * r0 + w) + row_in);
+      const uint32_t ks = nk % kslots;
+      f.k_s = base + ks * k_plane;
+      hopper::mbar_wait(k_full + 8 * ks, (nk / kslots) & 1);
+      for (int r = r0; r < r1; ++r) {
+        const int t = NCONS * r + w;
+        if (t >= T) {  // a last round of fewer tiles: pass its V tiles on
+          for (int c = 0; c < nc; ++c, ++f.nv) {
+            const uint32_t vs = f.nv % vslots;
+            hopper::mbar_wait(v_full + 8 * vs, (f.nv / vslots) & 1);
+            wg::release(v_empty + 8 * vs, tid);
+          }
+          continue;
+        }
+        const int next_t = t + NCONS;
+        f.next_q = r + 1 < r1 && next_t < T ? q : nullptr;
 #pragma unroll
-  for (int j = 0; j < T::kN; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float denom[2] = {0.f, 0.f};
-  for (int t = 0; t < n_tiles; ++t) {
-    hopper::cp_async_wait_dyn(committed - 2 - n_tiles - t);  // V_t is group 1 + n_tiles + t
-    __syncthreads();
-    const uint32_t v_tile = v_ring + (t & 1) * T::kTileBytes;
-    if (active) {
-      float s[8][4];
-      qk_tile<DH>(s, qf, k_base + t * T::kTileBytes, lane);
-      const int valid = kl - t * kTile - col0;
+        for (int i = 0; i < W::kAcc; ++i) f.o[i] = 0.f;
+        const float neg_inf = __int_as_float(0xff800000);
+        f.m[0] = f.m[1] = neg_inf;
+        f.l[0] = f.l[1] = 0.f;
+        if constexpr (NCONS == 2) {
+          if (nc <= kHeld<DH>) {
+            f.template held<kHeld<DH>>(nc, kTile * next_t + row_in);
+          } else {
+            f.two_pass(nc, kTile * next_t + row_in);
+          }
+        } else {
+          f.two_pass(nc, kTile * next_t + row_in);
+        }
+        const float den[2] = {hopper::quad_sum(f.l[0]), hopper::quad_sum(f.l[1])};
+        const int row = kTile * t + row_in;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+        for (int half = 0; half < 2; ++half) {
+          const int rr = row + 8 * half;
+          if (rr >= S) continue;
+          __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * S + rr) * lanes + h * DH + f.col0;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = 8 * j + (e & 1) < valid ? exp2f(fmaf(s[j][e], scale2, -m[e >> 1])) : 0.f;
-          denom[e >> 1] += x;
-          s[j][e] = x;
+          for (int j = 0; j < DH / 8; ++j) {
+            *reinterpret_cast<uint32_t*>(o_row + 8 * j) =
+                hopper::pack_bf16(f.o[4 * j + 2 * half] / den[half], f.o[4 * j + 2 * half + 1] / den[half]);
+          }
         }
       }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pf[4];
-        hopper::acc_to_a(pf, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int jn = 0; jn < DH / 16; ++jn) {
-          uint32_t vb[4];
-          hopper::ldsm_x4_t(vb, hopper::b_addr_t<C>(v_tile, 16 * kk, jn, lane));
-          hopper::mma(o[2 * jn], pf, vb[0], vb[1]);
-          hopper::mma(o[2 * jn + 1], pf, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this slot
-    if (t + 2 < n_tiles) {
-      load_tile<DH>(v_tile, base + 2 * lanes, (t + 2) * kTile, kl, stride_s);
-      hopper::cp_async_commit();
-      ++committed;
+      wg::release(k_empty + 8 * ks, tid);
     }
   }
-  if (!active) return;
-  denom[0] = hopper::quad_sum(denom[0]);
-  denom[1] = hopper::quad_sum(denom[1]);
+}
 
-  const int row = q0 + 16 * warp + (lane >> 2);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = row + 8 * half;
-    if (r >= S) continue;
-    __nv_bfloat16* o_row = out + (static_cast<size_t>(b) * S + r) * lanes + h * DH + col0;
-#pragma unroll
-    for (int j = 0; j < T::kN; ++j) {
-      *reinterpret_cast<uint32_t*>(o_row + 8 * j) =
-          hopper::pack_bf16(o[j][2 * half] / denom[half], o[j][2 * half + 1] / denom[half]);
+// Tile groups an item is cut into: those that minimise (waves of units over
+// the SMs) x (rounds of query tiles a unit walks + 1, its K's load), the
+// most of them on a tie (a fuller last wave), so the small calls still
+// spread over the card and the large ones load each K once.
+inline int tile_groups(long long items, int rounds, int sms) {
+  int best = 1;
+  long long best_cost = -1;
+  for (int g = 1; g <= rounds; ++g) {
+    const long long cost = (items * g + sms - 1) / sms * ((rounds + g - 1) / g + 1);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = g;
+      best_cost = cost;
     }
   }
+  return best;
 }
 
 // ----------------------------------------------------------------- f32 ---
@@ -665,16 +876,34 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int DH, int NCONS>
+cudaError_t launch_wg(const Args& a, const CUtensorMap& map, int kslots, int vslots, int sms) {
+  const size_t smem = fwd_smem_bytes<DH>(a.S, kslots, vslots);
+  const cudaError_t err = set_smem(attention_fwd_wg_kernel<DH, NCONS>, smem);
+  if (err != cudaSuccess) return err;
+  const long long items = static_cast<long long>(a.B) * a.nh;
+  const int groups = tile_groups(items, (round64(a.S) / kTile + NCONS - 1) / NCONS, sms);
+  const long long units = items * groups;
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  attention_fwd_wg_kernel<DH, NCONS><<<grid, 128 * (NCONS + 1), smem, a.stream>>>(
+      map, static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const int*>(a.key_lens),
+      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.h0, a.nh, units, groups, a.stride_b, a.stride_s, a.scale,
+      kslots, vslots);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch_bf16(const Args& a) {
-  const int smem = tc_smem_bytes<DH>(a.S);
-  cudaError_t err = set_smem(attention_fwd_tc_kernel<DH>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kTile - 1) / kTile, a.nh, a.B);
-  attention_fwd_tc_kernel<DH><<<grid, kTcThreads, smem, a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.qkv), static_cast<const int*>(a.key_lens),
-      static_cast<__nv_bfloat16*>(a.out), a.S, a.H, a.h0, a.stride_b, a.stride_s, a.scale);
-  return cudaGetLastError();
+  int kslots = 0, vslots = 0;
+  if (!fwd_ring<DH>(a.S, kslots, vslots)) return cudaErrorInvalidValue;  // above the resident limit
+  CUtensorMap map;
+  if (!wg::encode_map<DH>(&map, a.qkv, 3 * a.H, a.S, a.B, a.stride_s, a.stride_b)) return cudaErrorInvalidValue;
+  const int sms = wg::sm_count();
+  if (sms < 1) return cudaErrorInvalidDevice;
+  if constexpr (DH <= 64) {
+    if (consumers_at<DH>(a.S) == 3) return launch_wg<DH, 3>(a, map, kslots, vslots, sms);
+  }
+  return launch_wg<DH, 2>(a, map, kslots, vslots, sms);
 }
 
 template <int DH>

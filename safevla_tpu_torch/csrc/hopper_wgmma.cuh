@@ -3,8 +3,10 @@
 // mbarrier operations, the TMA tile load and setmaxnreg. Every helper is one
 // PTX instruction (or a short fixed sequence), named in its comment; none
 // allocates shared memory or knows a kernel's shapes. Shared addresses are
-// 32-bit (`hopper::smem_addr`, hopper_mma.cuh). exp_attn_bwd.cu's
-// matmul-only backward is its first user.
+// 32-bit (`hopper::smem_addr`, hopper_mma.cuh). Its users are the wgmma
+// attention kernels (flash_attention_fwd.cu, flash_attention_bwd.cu and
+// exp_attn_bwd.cu's matmul-only backward), through attention_wg.cuh's tile
+// walk.
 //
 // Shared-memory tiles. A tile is a stack of rows of W bytes, W = 32, 64 or
 // 128 (16, 32 or 64 bf16), written by TMA with the swizzle of the same width

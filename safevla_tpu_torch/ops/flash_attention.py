@@ -54,6 +54,7 @@ STREAM_HEAD_DIMS = (16, 32, 64, 128, 256)  # padded head dims of the streaming d
 SLICE_HEAD_DIM = STREAM_HEAD_DIMS[-1]  # columns of a head slice of the sliced design (above it)
 SMEM_PER_BLOCK = 232448  # bytes of shared memory a block may use on an H100 (227 KB)
 MAX_GRID_YZ = 65535  # blocks a launch may have along grid.y (heads) and grid.z (batch rows)
+RING_BARRIER_BYTES = 16  # a ring slot's full and empty mbarriers (csrc/attention_wg.cuh kBarrierBytes)
 STREAM_BLOCK_ROWS, STREAM_TILE_ROWS = 64, 32  # csrc/attention_stream.cuh kBlockRows, kTileRows
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 _FWD_ARGS = [
@@ -97,14 +98,15 @@ def kernel_takes(lanes: int, heads: int) -> bool:
 def resident_max_s(kind: str, dtype: torch.dtype, dh: int) -> int:
     """The largest S the resident design of `kind` ("fwd" or "bwd") takes
     at this dtype and head dim: the shared memory a block of it needs fits
-    in SMEM_PER_BLOCK (the formulas of csrc/flash_attention_{fwd,bwd}.cu).
-    Above it the wrapper launches the streaming design."""
+    in SMEM_PER_BLOCK (the layouts of csrc/flash_attention_{fwd,bwd}.cu,
+    whose C entries return an error above it). Above it the wrapper
+    launches the streaming design."""
     if kind == "fwd":
-        if dtype == torch.bfloat16:  # (2 + ceil(S / 64)) tiles of 64 rows
-            return 64 * (SMEM_PER_BLOCK // (64 * dh * 2) - 2)
+        if dtype == torch.bfloat16:  # K of round64(S) rows and two 64-row V slots, 3 slots' mbarriers
+            return 64 * ((SMEM_PER_BLOCK - 3 * RING_BARRIER_BYTES) // (64 * dh * 2) - 2)
         return SMEM_PER_BLOCK // ((dh + 1) * 4 + 16 * 4)  # K rows and 16 warps' logits
-    if dtype == torch.bfloat16:  # 4 planes and 3 f32 statistics a row, rows in 16s
-        return 16 * (SMEM_PER_BLOCK // (16 * (4 * dh * 2 + 3 * 4)))
+    if dtype == torch.bfloat16:  # 4 planes and 3 f32 statistics a row, rows in 16s, 4 slots' mbarriers
+        return 16 * ((SMEM_PER_BLOCK - 4 * RING_BARRIER_BYTES) // (16 * (4 * dh * 2 + 3 * 4)))
     return SMEM_PER_BLOCK // (3 * (dh + 1) * 4 + (2 * 16 + 3) * 4)
 
 

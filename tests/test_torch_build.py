@@ -137,3 +137,44 @@ def test_build_keeps_the_nvcc_log_beside_the_library(tmp_path, monkeypatch):
     assert "Used 42 registers" in _build.build_log("kern")
     (csrc / "kern.cu").write_text("// edited\n")  # another library, never built: no log
     assert _build.build_log("kern") == ""
+
+
+WGMMA_SOURCES = ["flash_attention_fwd", "flash_attention_bwd", "exp_attn_bwd"]
+
+
+@pytest.mark.parametrize("name", WGMMA_SOURCES)
+@pytest.mark.parametrize("header", ["attention_wg.cuh", "hopper_wgmma.cuh"])
+def test_wgmma_attention_libraries_follow_their_headers(tmp_path, name, header):
+    """The three wgmma attention sources include the shared tile walk
+    (csrc/attention_wg.cuh, which includes hopper_wgmma.cuh), and an edit of
+    either header names another library (on a copy of csrc/)."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    assert '#include "attention_wg.cuh"' in (csrc / f"{name}.cu").read_text()
+    assert '#include "hopper_wgmma.cuh"' in (csrc / "attention_wg.cuh").read_text()
+    first = _build.library_path(name, csrc, out)
+    path = csrc / header
+    path.write_text(path.read_text() + "\n// edited\n")
+    assert _build.library_path(name, csrc, out) != first
+
+
+def test_wgmma_kernels_build_for_sm_90a_and_link_no_libcuda():
+    """wgmma and setmaxnreg exist only on sm_90a: nvcc builds for it. The
+    tensor maps are encoded through the CUDA runtime's entry point into the
+    CUDA driver, so no library links libcuda and no source calls the
+    encoder by name."""
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-lcuda" not in flags
+    header = (_build.CSRC_DIR / "attention_wg.cuh").read_text()
+    assert 'cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"' in header
+    assert 'cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"' in header
+    for path in sorted(_build.CSRC_DIR.glob("*.cu*")):
+        assert not re.search(r"\bcuTensorMapEncodeTiled\s*\(", path.read_text()), path.name
+
+
+def test_ring_constants_match_the_wrapper():
+    """The kernels' shared-memory budget and a ring slot's mbarrier bytes are
+    the numbers `resident_max_s` computes the resident limits with."""
+    header = (_build.CSRC_DIR / "attention_wg.cuh").read_text()
+    assert int(re.search(r"kMaxSmem = (\d+);", header).group(1)) == fa.SMEM_PER_BLOCK
+    assert int(re.search(r"kBarrierBytes = (\d+);", header).group(1)) == fa.RING_BARRIER_BYTES

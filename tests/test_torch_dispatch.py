@@ -142,18 +142,26 @@ def test_tiny_conftest_config_acts_and_updates(tiny_port_cfg):
 
 
 DESIGN_HEAD_DIMS = [1, 3, 8, 12, 16, 24, 32, 40, 48, 64, 96, 128, 192, 256, 384]
-DESIGN_S = [1, 65, 208, 432, 433, 448, 1664, 1665, 2048, 2049, 4096]
+# S on both sides of every bf16 resident limit (RESIDENT_BF16) and beyond
+DESIGN_S = [1, 65, 208, 224, 225, 432, 433, 448, 768, 769, 864, 865, 1648, 1649, 1664, 1665, 2048, 2049,
+            3456, 3457, 4096, 7104, 7105]
+# The bf16 resident designs' largest S by head dim: the forward's K plane of
+# round64(S) rows beside two 64-row V slots, the backward's four planes of
+# round16(S) rows and three f32 statistics a row, each with its ring's
+# mbarriers, in a block's 232,448 bytes (csrc/flash_attention_{fwd,bwd}.cu)
+RESIDENT_BF16 = {"fwd": {16: 7104, 32: 3456, 64: 1664, 128: 768}, "bwd": {16: 1648, 32: 864, 64: 432, 128: 224}}
 
 
 @pytest.mark.parametrize("dh", DESIGN_HEAD_DIMS)
 def test_attention_design_on_a_grid(dh):
     """attention_design at (kind, dtype, S) for one head dim: resident
     exactly where the head dim is a resident template and S is within that
-    design's limit, streaming at every other (head dim <= 256) shape, with
-    the streaming tiles inside a block's shared memory and a copy width of
-    the widest of 16 / 8 / 4 / 2 bytes that divides the head slice; above
-    256 the sliced design at every S, its one-slice tiles inside a block's
-    shared memory and its copy width dividing both the head and a slice."""
+    design's limit (in bf16: RESIDENT_BF16), streaming at every other (head
+    dim <= 256) shape, with the streaming tiles inside a block's shared
+    memory and a copy width of the widest of 16 / 8 / 4 / 2 bytes that
+    divides the head slice; above 256 the sliced design at every S, its
+    one-slice tiles inside a block's shared memory and its copy width
+    dividing both the head and a slice."""
     for kind in ("fwd", "bwd"):
         for dtype in (torch.bfloat16, torch.float32):
             size = torch.tensor([], dtype=dtype).element_size()
@@ -163,6 +171,8 @@ def test_attention_design_on_a_grid(dh):
                     continue
                 resident = dh in fa.KERNEL_HEAD_DIMS and s <= fa.resident_max_s(kind, dtype, dh)
                 assert fa.attention_design(kind, dtype, dh, s) == ("resident" if resident else "streaming")
+            if dtype == torch.bfloat16 and dh in fa.KERNEL_HEAD_DIMS:
+                assert fa.resident_max_s(kind, dtype, dh) == RESIDENT_BF16[kind][dh]
             if dh > fa.SLICE_HEAD_DIM:
                 assert fa.sliced_smem_bytes(kind, dtype) <= fa.SMEM_PER_BLOCK
                 w = fa.copy_width(dh, size)

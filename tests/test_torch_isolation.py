@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
 entry points refuse a missing CUDA unless asked for the CPU, and
-chip_smoke.py and tools/torch_exp_attn_bwd.py import nothing of the JAX
+chip_smoke.py and the tools/torch_*.py it names import nothing of the JAX
 package. Every public name of a JAX module has a counterpart at the same
 path in the port, or is listed below with the reason it has none."""
 
@@ -55,7 +55,8 @@ def _imported_names(path):
 
 @pytest.mark.parametrize(
     "path",
-    [REPO / "chip_smoke.py", REPO / "tools" / "torch_exp_attn_bwd.py", *sorted(PKG.rglob("*.py"))],
+    [REPO / "chip_smoke.py", REPO / "tools" / "torch_exp_attn_bwd.py", REPO / "tools" / "torch_attention_host_us.py",
+     *sorted(PKG.rglob("*.py"))],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_sources_import_nothing_of_jax(path):
