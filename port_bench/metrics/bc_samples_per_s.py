@@ -1,0 +1,10 @@
+"""Samples a second of the BC step: the samples (B x T) of every step begun in
+the window over the time from the window's start to the synchronise after
+the last of them (host clock)."""
+
+
+def read(run):
+    w = run["window"]
+    if not w["steps"]:
+        return None
+    return w["steps"] * run["facts"]["samples_per_step"] / (w["t1"] - w["t0"])
