@@ -61,6 +61,7 @@ from safevla_tpu_torch.models.actor_critic import SafeVLAPolicy
 from safevla_tpu_torch.ops.gae import dual_gae
 from safevla_tpu_torch.ops.hl_gauss import HLGauss
 from safevla_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, world_size
+from safevla_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -248,35 +249,36 @@ class Learner:
         """GAE -> advantages -> lambda ascent (JAX `_prepare_body`), shared by
         `update` and the chunked path: -> (the minibatch with advantages and
         returns, the new Lagrange state, the multiplier)."""
-        ppo = self.cfg.ppo
-        # 1. fused reward + cost GAE over the (T, B) layout
-        rewards = torch.stack([batch["rewards"].T.float(), batch["costs"].T.float()])
-        values = torch.stack([batch["values"].T.float(), batch["c_values"].T.float()])
-        adv, ret = dual_gae(rewards, values, batch["masks"].T, ppo.gamma, ppo.gae_lambda)
-        mb = dict(batch)
-        mb["advantages"] = adv[0].T
-        mb["c_advantages"] = adv[1].T
-        mb["returns"] = ret[0].T
-        mb["c_returns"] = ret[1].T
-        mb["old_values"] = batch["values"][:, :-1]
-        mb["old_c_values"] = batch["c_values"][:, :-1]
-        if ppo.normalize_advantage:
-            # the mean and std (ddof 0, jnp's) over the global batch, in jnp's
-            # two passes: every rank holds as many rows (each dp shard on mdl
-            # ranks), so the global count is this rank's times the world size
-            keys = ("advantages", "c_advantages")
-            n = mb[keys[0]].numel() * world_size(self.mesh)
-            mean = all_reduce_sum(self.mesh, torch.stack([mb[k].sum() for k in keys])) / n
-            sq = torch.stack([((mb[k] - mean[i]) ** 2).sum() for i, k in enumerate(keys)])
-            std = torch.sqrt(all_reduce_sum(self.mesh, sq) / n)
-            for i, k in enumerate(keys):
-                mb[k] = (mb[k] - mean[i]) / (std[i] + 1e-8)
+        with span("step.prepare"):
+            ppo = self.cfg.ppo
+            # 1. fused reward + cost GAE over the (T, B) layout
+            rewards = torch.stack([batch["rewards"].T.float(), batch["costs"].T.float()])
+            values = torch.stack([batch["values"].T.float(), batch["c_values"].T.float()])
+            adv, ret = dual_gae(rewards, values, batch["masks"].T, ppo.gamma, ppo.gae_lambda)
+            mb = dict(batch)
+            mb["advantages"] = adv[0].T
+            mb["c_advantages"] = adv[1].T
+            mb["returns"] = ret[0].T
+            mb["c_returns"] = ret[1].T
+            mb["old_values"] = batch["values"][:, :-1]
+            mb["old_c_values"] = batch["c_values"][:, :-1]
+            if ppo.normalize_advantage:
+                # the mean and std (ddof 0, jnp's) over the global batch, in jnp's
+                # two passes: every rank holds as many rows (each dp shard on mdl
+                # ranks), so the global count is this rank's times the world size
+                keys = ("advantages", "c_advantages")
+                n = mb[keys[0]].numel() * world_size(self.mesh)
+                mean = all_reduce_sum(self.mesh, torch.stack([mb[k].sum() for k in keys])) / n
+                sq = torch.stack([((mb[k] - mean[i]) ** 2).sum() for i, k in enumerate(keys)])
+                std = torch.sqrt(all_reduce_sum(self.mesh, sq) / n)
+                for i, k in enumerate(keys):
+                    mb[k] = (mb[k] - mean[i]) / (std[i] + 1e-8)
 
-        # 2. lambda ascent (only in stages with the Lagrangian loss)
-        lagrange = train_state.lagrange
-        if stage.use_lagrange:
-            lagrange = update_lagrange(lagrange, mean_episode_cost, self.cfg.lagrange.multiplier_lr)
-        return mb, lagrange, multiplier_value(lagrange)
+            # 2. lambda ascent (only in stages with the Lagrangian loss)
+            lagrange = train_state.lagrange
+            if stage.use_lagrange:
+                lagrange = update_lagrange(lagrange, mean_episode_cost, self.cfg.lagrange.multiplier_lr)
+            return mb, lagrange, multiplier_value(lagrange)
 
     def _finish(self, train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t):
         """The returned state and the last epoch's metrics (0-d tensors); `b`
@@ -303,11 +305,12 @@ class Learner:
         """Global-norm clip and one Adam step of `params` in place; the norms
         go into `metrics`. On a mesh the gradients are first replaced by
         their mean over the ranks (one collective, on the current stream)."""
-        with torch.no_grad():
-            all_reduce_mean_(self.mesh, grads)
-            clipped, metrics["grad_norm"] = clip_by_global_norm(grads, self.cfg.ppo.max_grad_norm)
-            metrics["weight_norm"] = global_norm(params)
-        return adam_step(params, clipped, opt_state, self.cfg.ppo.lr)
+        with span("step.optimizer"):
+            with torch.no_grad():
+                all_reduce_mean_(self.mesh, grads)
+                clipped, metrics["grad_norm"] = clip_by_global_norm(grads, self.cfg.ppo.max_grad_norm)
+                metrics["weight_norm"] = global_norm(params)
+            return adam_step(params, clipped, opt_state, self.cfg.ppo.lr)
 
     def update(
         self, train_state: TrainState, batch: Dict, mean_episode_cost, stage_id: int
@@ -315,23 +318,27 @@ class Learner:
         """One rollout's worth of learning. `batch` holds (B, T, ...) arrays
         or tensors (values, c_values, masks (B, T+1)); they are moved to the
         policy's device. Metrics (0-d tensors on that device) are the last
-        epoch's."""
-        stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
-        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
-        mb, lagrange, lam = self._prepare(train_state, batch, mean_episode_cost, stage)
+        epoch's. The update is the span `step`; its parts `step.prepare`,
+        `step.forward`, `step.backward` and `step.optimizer`."""
+        with span("step"):
+            stage = self.stage_specs[min(int(stage_id), len(self.stage_specs) - 1)]
+            batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            mb, lagrange, lam = self._prepare(train_state, batch, mean_episode_cost, stage)
 
-        # 3. PPO epochs
-        params = list(train_state.tower_params.values())
-        opt_state = train_state.opt_state
-        for _ in range(self.cfg.ppo.update_repeats):
-            total, metrics = self._loss_fn(mb, lam, stage)
-            grads = torch.autograd.grad(total, params, allow_unused=True)
-            # optax steps every leaf: a parameter the loss did not reach gets 0
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
-            opt_state = self._apply(params, grads, opt_state, metrics)
-        b, t = batch["rewards"].shape
-        b *= self.dp
-        return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
+            # 3. PPO epochs
+            params = list(train_state.tower_params.values())
+            opt_state = train_state.opt_state
+            for _ in range(self.cfg.ppo.update_repeats):
+                with span("step.forward"):
+                    total, metrics = self._loss_fn(mb, lam, stage)
+                with span("step.backward"):
+                    grads = torch.autograd.grad(total, params, allow_unused=True)
+                    # optax steps every leaf: a parameter the loss did not reach gets 0
+                    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+                opt_state = self._apply(params, grads, opt_state, metrics)
+            b, t = batch["rewards"].shape
+            b *= self.dp
+            return self._finish(train_state, opt_state, lagrange, metrics, lam, mean_episode_cost, b, t)
 
     # ------------------------------------------------------------------
     # chunk-granular update: the async pipeline pumps these programs one at

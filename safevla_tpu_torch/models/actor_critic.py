@@ -54,6 +54,7 @@ from safevla_tpu_torch.models.text_towers import SigLIPTextEncoder, TextTowerCon
 from safevla_tpu_torch.models.vit import DinoViT, LayerScale
 from safevla_tpu_torch.ops.hl_gauss import HLGauss
 from safevla_tpu_torch.ops.masks import incremental_episode_mask, packed_block_causal_mask
+from safevla_tpu_torch.utils.profiling import span
 
 
 def sinusoidal_time_encoding(position: torch.Tensor, d_model: int) -> torch.Tensor:
@@ -246,8 +247,10 @@ class PolicyTower(nn.Module):
 
     def embed_obs(self, dino_nav_flat, dino_manip_flat, text_h, text_m):
         """Per-step fusion embedding over a flat (N, ...) batch -> (N, D) f32.
-        Per-step independent, so forward_seq runs it in checkpointed chunks."""
-        return self._fuse(dino_nav_flat, dino_manip_flat, text_h, text_m)
+        Per-step independent, so forward_seq runs it in checkpointed chunks.
+        The span `model.fusion` (checkpoint's recompute opens it again)."""
+        with span("model.fusion"):
+            return self._fuse(dino_nav_flat, dino_manip_flat, text_h, text_m)
 
     def decode_heads(self, obs_embeds, prev_actions, not_reset, object_in_hand, time_step, attn_mask):
         """(B, T, D) observation embeddings -> full-sequence decoder + heads:

@@ -626,6 +626,7 @@ class RolloutRunner:
                 else 0.0
             ),
             **self.timer.summary(),
+            **self.timer.window_totals(),
         }
         return batch, stats
 

@@ -63,6 +63,7 @@ from safevla_tpu_torch.preprocessing.augment import (
 )
 from safevla_tpu_torch.preprocessing.tokenize import InstructionTokenizer
 from safevla_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint, save_checkpoint
+from safevla_tpu_torch.utils.profiling import span
 
 # the host batch's arrays that go to the device, and their dtypes there
 _BATCH_KEYS = ("rgb_nav", "rgb_manip", "last_actions", "actions", "time_ids", "an_object_is_in_hand")
@@ -203,14 +204,23 @@ class OfflineTrainer:
 
     # ------------------------------------------------------------------
     def _forward(self, batch, aug):
+        return self._tower_logits(batch, self._vision(batch, aug))
+
+    def _vision(self, batch, aug):
+        """Both cameras' uint8 frames -> augmented, normalised -> the frozen
+        ViT's features (2B, T, ...), outside autograd (span `step.vision`)."""
         b, t = batch["rgb_nav"].shape[:2]
-        with torch.no_grad():  # the frozen ViT: nothing of it is kept for autograd
+        with span("step.vision"), torch.no_grad():  # nothing of the frozen ViT is kept for autograd
             imgs = torch.cat([batch["rgb_nav"], batch["rgb_manip"]], dim=0)
             imgs = imgs.reshape((-1,) + imgs.shape[2:])
             x01 = apply_augment(imgs.float() / 255.0, aug)
             feats = self.policy.encode_images((x01 - self._means) / self._stds)
             del imgs, x01
-        feats = feats.reshape((2 * b, t) + feats.shape[1:])
+        return feats.reshape((2 * b, t) + feats.shape[1:])
+
+    def _tower_logits(self, batch, feats):
+        """The tower's forward_seq over the ViT's features -> logits (B, T, A)."""
+        b, t = batch["rgb_nav"].shape[:2]
         out = self.policy.forward_seq(
             feats[:b],
             feats[b:],
@@ -228,23 +238,30 @@ class OfflineTrainer:
         return out.logits
 
     def _bc_loss(self, batch, aug):
-        logits = self._forward(batch, aug)
-        loss, bc_loss, acc, _, _ = _masked_means(self.mesh, logits, batch["actions"])
+        feats = self._vision(batch, aug)
+        with span("step.forward"):
+            logits = self._tower_logits(batch, feats)
+            loss, bc_loss, acc, _, _ = _masked_means(self.mesh, logits, batch["actions"])
         return loss, {"bc_loss": bc_loss, "accuracy": acc}
 
     def _bc_step(self, state: BCTrainState, batch, aug):
         """One BC step -> (the new state, metrics as 0-d device tensors). The
-        tower weights and the AdamW moments are updated in place."""
-        params = list(state.tower_params.values())
-        loss, metrics = self._bc_loss(batch, aug)
-        # a leaf the loss does not reach (the critic head) gets no gradient:
-        # optax still counts and decays it (adamw_step takes None as zeros)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        all_reduce_mean_(self.mesh, [g for g in grads if g is not None])  # the same leaves on every rank
-        with torch.no_grad():
-            metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
-        opt_state = adamw_step(params, grads, state.opt_state, self.lr)
-        return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1), metrics
+        tower weights and the AdamW moments are updated in place. The step is
+        the span `step`; its parts `step.vision`, `step.forward`,
+        `step.backward` and `step.optimizer`."""
+        with span("step"):
+            params = list(state.tower_params.values())
+            loss, metrics = self._bc_loss(batch, aug)
+            with span("step.backward"):
+                # a leaf the loss does not reach (the critic head) gets no gradient:
+                # optax still counts and decays it (adamw_step takes None as zeros)
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                all_reduce_mean_(self.mesh, [g for g in grads if g is not None])  # the same leaves on every rank
+            with span("step.optimizer"):
+                with torch.no_grad():
+                    metrics["grad_norm"] = global_norm([g for g in grads if g is not None])
+                opt_state = adamw_step(params, grads, state.opt_state, self.lr)
+            return dataclasses.replace(state, opt_state=opt_state, step=state.step + 1), metrics
 
     @torch.no_grad()
     def _eval_step(self, state: BCTrainState, batch):
@@ -257,26 +274,28 @@ class OfflineTrainer:
         """Host side of batch prep (thread-safe: it reads no train state):
         tokenize, and the batch's arrays as CPU tensors, in pinned memory
         when the trainer runs on the card (so their uploads can be
-        asynchronous)."""
-        tokens, mask = self.tokenizer.encode_batch(host_batch["instructions"])
-        arrays = {k: host_batch[k] for k in _BATCH_KEYS}
-        arrays["_text_tokens"], arrays["text_mask"] = tokens, mask
-        pin = self.device.type == "cuda"
-        out = {}
-        for k, a in arrays.items():
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            out[k] = t.pin_memory() if pin else t
-        return out
+        asynchronous). The span `data.prepare`."""
+        with span("data.prepare"):
+            tokens, mask = self.tokenizer.encode_batch(host_batch["instructions"])
+            arrays = {k: host_batch[k] for k in _BATCH_KEYS}
+            arrays["_text_tokens"], arrays["text_mask"] = tokens, mask
+            pin = self.device.type == "cuda"
+            out = {}
+            for k, a in arrays.items():
+                t = torch.from_numpy(np.ascontiguousarray(a))
+                out[k] = t.pin_memory() if pin else t
+            return out
 
     @torch.no_grad()
     def attach_text(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Upload a `host_prepare` batch (non-blocking copies on the current
         stream: the step that reads them is queued after them) and encode
-        its instructions with the frozen T5."""
-        out = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
-        tokens = out.pop("_text_tokens")
-        out["text_hidden"] = self.policy.encode_text(tokens, out["text_mask"])
-        return out
+        its instructions with the frozen T5 (span `step.text`)."""
+        with span("step.text"):
+            out = {k: v.to(self.device, non_blocking=True) for k, v in batch.items()}
+            tokens = out.pop("_text_tokens")
+            out["text_hidden"] = self.policy.encode_text(tokens, out["text_mask"])
+            return out
 
     def prepare_batch(self, host_batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Tokenize, upload and encode the instructions of one host batch."""
@@ -327,7 +346,8 @@ class OfflineTrainer:
         threading.Thread(target=worker, daemon=True, name="bc-batch-prep").start()
         try:
             while True:
-                item = q.get()
+                with span("data.wait"):
+                    item = q.get()
                 if item is sentinel:
                     if errs:
                         raise errs[0]

@@ -24,13 +24,15 @@ from safevla_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkp
 
 B, T = 4, 6
 # what the JAX sync trainer logs per window (training/online.py:154-166),
-# plus the port's update_seconds
+# plus the port's update_seconds and the runner sections' window totals
 LOG_KEYS = {
     "stage", "action", "value", "c_value", "entropy", "total", "approx_kl", "grad_norm",
     "weight_norm", "lagrange_multiplier", "mean_episode_cost", "rollout_seconds",
     "assemble_seconds", "env_frames", "frames_per_second", "episodes_completed",
     "frame_bank_hit_rate", "time/dispatch", "time/action_fetch", "time/env_step",
     "time/ingest", "total_fps", "update_seconds",
+    # the port's window totals of the runner's sections
+    "time_total/dispatch", "time_total/action_fetch", "time_total/env_step", "time_total/ingest",
 }
 
 
@@ -129,7 +131,7 @@ def test_window_two_acts_with_the_updated_weights(cfg):
         assert copies, "acts did not use the bf16 weight cache"
         runs.append((logs, [p.detach().clone() for p in ts.tower_params.values()]))
     (logs_a, w_a), (logs_b, w_b) = runs
-    timing = ("seconds", "time/", "fps", "frames_per_second")
+    timing = ("seconds", "time/", "time_total/", "fps", "frames_per_second")
     for a, b in zip(logs_a, logs_b):
         keys = [k for k in a if not any(w in k for w in timing)]
         assert {k: a[k] for k in keys} == {k: b[k] for k in keys}

@@ -208,11 +208,17 @@ def test_merged_action_fetch_matches_per_group_and_jax(jax_side, port_side, monk
     runner = RolloutRunner(tiny.port_policy(mcfg, params), cfg, pool, seed=0, overlap_groups=GROUPS)
     replay = _replay(jbatches)
     runner._draw_actions = lambda logits, global_step: torch.as_tensor(replay[global_step])
-    merged = [runner.collect(T)[0] for _ in range(2)]
+    windows = [runner.collect(T) for _ in range(2)]
+    merged = [batch for batch, _ in windows]
     pool.close()
     assert runner._merged_fetch
     assert runner.timer.counts["action_fetch"] == 2 * T  # per-group: 2 * T * GROUPS
     assert runner.timer.counts["dispatch"] == 2 * T * (GROUPS + 1) + GROUPS
+    # each window's stats carry its own seconds of each section, beside the EMA
+    for name in ("dispatch", "action_fetch", "env_step", "ingest"):
+        per_window = [stats[f"time_total/{name}"] for _, stats in windows]
+        assert all(v > 0 for v in per_window) and "time/" + name in windows[1][1]
+        assert sum(per_window) == pytest.approx(runner.timer.totals[name])
 
     with pytest.MonkeyPatch.context() as mp:  # the JAX runner, merged
         tiny.register_tiny_vit(mp)
