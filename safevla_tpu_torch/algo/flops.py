@@ -5,8 +5,8 @@ The port's copy of `safevla_tpu/algo/flops.py`, over the port's own
 encoder registries: `models/vit.py::VIT_CONFIGS` and, beyond JAX's copy,
 `models/resnet.py::RESNET_CONFIGS`, and no CLS token for a patch-only ViT.
 Counts multiply-accumulates x2 for the policy at the production shapes. The fusion encoder is rematerialized
-(torch.utils.checkpoint around each chunk), so its forward runs TWICE on the
-backward pass: epoch cost ~ 4 x fusion_fwd + 3 x decoder_fwd per tower. Heads/GAE/optimizer are noise at
+(each chunk recomputed in the backward, `models/fusion_pass.py`), so its
+forward runs TWICE on the backward pass: epoch cost ~ 4 x fusion_fwd + 3 x decoder_fwd per tower. Heads/GAE/optimizer are noise at
 these scales and are ignored.
 """
 
@@ -108,8 +108,9 @@ def _vit_fwd_flops(cfg, frames: int) -> float:
 def bc_step_flops_estimate(cfg, batch: int, seq: int) -> float:
     """Total FLOPs of one offline BC step: frozen ViT forward over both
     cameras + tower fwd/remat/bwd (same 4xfusion + 3xdecoder convention as
-    the update, one epoch). The port's fusion chunks run under
-    torch.utils.checkpoint, so their forward runs twice too."""
+    the update, one epoch). The port's fusion chunks are recomputed
+    in the backward (`models/fusion_pass.py`), so their forward runs twice
+    too."""
     cams = 2 if cfg.model.use_manipulation_camera else 1
     n = batch * seq
     vit = _vit_fwd_flops(cfg, cams * n)

@@ -7,8 +7,9 @@ Counterpart of `safevla_tpu/models/actor_critic.py`: the frozen encoders
 the JAX package keeps its params key), the serving path
 (`act_step`, `init_state`, `update_text`), one tower's full-sequence
 forward (`PolicyTower.full_seq`), the update's full-sequence
-forward (`forward_seq`: fusion over the packed B*T samples in checkpointed
-chunks, then the decoder over the packed block-causal mask, then the heads)
+forward (`forward_seq`: fusion over the packed B*T samples in recomputed
+chunks, `models/fusion_pass.py`, then the decoder over the packed
+block-causal mask, then the heads)
 and its chunk-granular pieces for the async pipeline (`embed_time_range`:
 the fusion over a range of time steps of every stream; `decode_from_embeds`:
 decoder and heads over a buffer of those embeddings), and `acting_copy`, the
@@ -39,12 +40,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from safevla_tpu_torch import resolve_device
 from safevla_tpu_torch.config import ModelConfig
 from safevla_tpu_torch.models.dense import Dense, cast_param
 from safevla_tpu_torch.models.fusion import FusionTransformer, TorchMultiheadAttention
+from safevla_tpu_torch.models.fusion_pass import fusion_pass
 from safevla_tpu_torch.models.image_encoders import build_image_encoder
 from safevla_tpu_torch.models.llama_decoder import DecoderConfig, LlamaDecoder, RMSNorm
 from safevla_tpu_torch.models.norms import CompatLayerNorm, PlainLayerNorm
@@ -236,7 +237,7 @@ class PolicyTower(nn.Module):
         """This tower's full-sequence forward in one piece (JAX
         `PolicyTower.full_seq`): the fusion over all B*T steps, then
         `decode_heads`, whose outputs it returns. `SafeVLAPolicy.forward_seq`
-        runs the same math with the fusion in checkpointed chunks."""
+        runs the same math with the fusion in recomputed chunks."""
         b, t = dino_nav.shape[:2]
         flat = lambda x: None if x is None else x.reshape((b * t,) + x.shape[2:])
         text_h, text_m = _flat_text(text_hidden, text_mask, text_idx, b, t)
@@ -247,8 +248,9 @@ class PolicyTower(nn.Module):
 
     def embed_obs(self, dino_nav_flat, dino_manip_flat, text_h, text_m):
         """Per-step fusion embedding over a flat (N, ...) batch -> (N, D) f32.
-        Per-step independent, so forward_seq runs it in checkpointed chunks.
-        The span `model.fusion` (checkpoint's recompute opens it again)."""
+        Per-step independent, so forward_seq runs it in chunks, recomputed
+        in the backward (`models/fusion_pass.py`). The span `model.fusion`
+        (the recompute opens it again)."""
         with span("model.fusion"):
             return self._fuse(dino_nav_flat, dino_manip_flat, text_h, text_m)
 
@@ -489,8 +491,10 @@ class SafeVLAPolicy(nn.Module):
 
         Per tower, the fusion encoder runs over the packed B*T samples in
         chunks of cfg.fusion_chunk (the largest divisor of B*T not above it),
-        each under `torch.utils.checkpoint`: its activations are recomputed
-        in the backward instead of stored. The decoder runs full-sequence."""
+        as one autograd Function (`models/fusion_pass.py`): its activations
+        are recomputed in the backward instead of stored, and on the card
+        each pass is replayed from a CUDA graph once its shapes have been
+        seen. The decoder runs full-sequence."""
         attn_mask = packed_block_causal_mask(traj_idx)
         b, t = dino_nav.shape[:2]
         n = b * t
@@ -501,14 +505,7 @@ class SafeVLAPolicy(nn.Module):
             chunk -= 1
         outs = []
         for tower in self.towers:
-            fused = [
-                checkpoint(
-                    tower.embed_obs, *(None if a is None else a[i : i + chunk] for a in args),
-                    use_reentrant=False,
-                )
-                for i in range(0, n, chunk)
-            ]
-            obs_embeds = torch.cat(fused).reshape(b, t, -1)
+            obs_embeds = fusion_pass(tower, chunk, *args).reshape(b, t, -1)
             outs.append(
                 tower.decode_heads(
                     obs_embeds, prev_actions, not_reset, object_in_hand, time_step, attn_mask

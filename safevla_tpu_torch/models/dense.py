@@ -11,6 +11,8 @@ require grad: serving), the cast copy of a parameter is cached and reused
 until the parameter changes. A change shows in its version counter (an
 in-place optimizer step, a `load_state_dict`) or its storage (a move to
 another device), so an act pays no cast launches and never reads a stale copy.
+While a CUDA graph is captured the cache is passed by: the cast is captured
+with the graph, so every replay reads the parameter as it is then.
 """
 
 from __future__ import annotations
@@ -31,6 +33,10 @@ def cast_param(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return p
     if torch.is_grad_enabled() and p.requires_grad:
         return p.to(dtype)
+    if p.is_cuda and torch.cuda.is_current_stream_capturing():
+        # a CUDA graph casts at every replay: a cached copy, checked here on
+        # the host, would go stale after the parameter's next in-place step
+        return p.detach().to(dtype)
     key = (dtype, p.device, p.data_ptr(), p._version)
     hit = _CAST_CACHE.get(p)
     if hit is None or hit[0] != key:

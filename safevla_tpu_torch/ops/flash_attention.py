@@ -346,7 +346,9 @@ def attention_qkv_bwd(
     return dqkv
 
 
-attention_qkv_bwd.launches = 0  # kernel launches since the last reset (a plain int)
+# kernel launches since the last reset (a plain int); a CUDA graph of the
+# fusion pass counts its launches at each replay (models/fusion_pass.py)
+attention_qkv_bwd.launches = 0
 
 
 class _AttentionQKV(torch.autograd.Function):
@@ -394,7 +396,9 @@ def attention_qkv(
     return _attention_qkv_fwd(qkv, heads, key_lens)
 
 
-attention_qkv.launches = 0  # kernel launches since the last reset (a plain int)
+# kernel launches since the last reset (a plain int); a CUDA graph of the
+# fusion pass counts its launches at each replay (models/fusion_pass.py)
+attention_qkv.launches = 0
 
 
 def flash_attention(
@@ -448,8 +452,8 @@ def dense_attention(q, k, v, key_mask=None):
     else:
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)
         if key_mask is not None:
-            fill = torch.tensor(-1e9, dtype=q.dtype, device=q.device)
-            logits = torch.where(key_mask[:, None, None, :], logits, fill)
+            # a Python scalar, rounded to q's dtype: no host tensor to upload
+            logits = torch.where(key_mask[:, None, None, :], logits, -1e9)
         p = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float())
     return out.to(q.dtype)

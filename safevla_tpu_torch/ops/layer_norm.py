@@ -223,7 +223,9 @@ def layer_norm_bwd(
     return dx, dgamma, dbeta
 
 
-layer_norm_bwd.launches = 0  # kernel launches since the last reset (a plain int)
+# kernel launches since the last reset (a plain int); a CUDA graph of the
+# fusion pass counts its launches at each replay (models/fusion_pass.py)
+layer_norm_bwd.launches = 0
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -275,4 +277,6 @@ def layer_norm(
     return _layer_norm_fwd(x, gamma, beta, eps, out_dtype)
 
 
-layer_norm.launches = 0  # kernel launches since the last reset (a plain int)
+# kernel launches since the last reset (a plain int); a CUDA graph of the
+# fusion pass counts its launches at each replay (models/fusion_pass.py)
+layer_norm.launches = 0

@@ -30,9 +30,12 @@ The spans the program records (`step.*` partition `step`):
                     frozen ViT (outside autograd)
     step.text       OfflineTrainer.attach_text: the uploads and the frozen
                     text tower (before `step`)
-    model.fusion    PolicyTower.embed_obs; inside step.backward it is
-                    checkpoint's recompute (on the autograd engine's thread
-                    on the card)
+    model.fusion    PolicyTower.embed_obs, each chunk of an eager fusion
+                    pass (inside step.backward: the recompute, on the
+                    autograd engine's thread on the card); a replayed
+                    forward pass of a tower's fusion (models/fusion_pass.py)
+    model.fusion_grad  a replayed backward pass of a tower's fusion: every
+                    chunk's recompute and gradient, one CUDA graph
     data.prepare    OfflineTrainer.host_prepare, on the batch worker thread
     data.wait       the consumer's wait for a prepared batch
     rollout.<name>  each StageTimer section of the rollout runner
